@@ -1,0 +1,72 @@
+"""JAX-package parameter trees -> the port's state_dict.
+
+Takes a Flux parameter tree as the JAX package builds it (a nested dict of
+numpy arrays, optionally under a top-level "params" key, with any flax
+partition boxes already removed) and returns the state_dict of the port's
+FluxTransformer, so both packages compute the same function:
+
+- `kernel` [in, out] becomes `weight` [out, in];
+- `bias`, `lora_a` [in, rank], `lora_b` [rank, out] and RMSNorm `scale`
+  keep their names and layout (lora_a stays stored unshifted);
+- the scanned block stacks carry a leading [L] axis, split into the
+  ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*`.
+
+Only numpy and torch are used here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+STACKED = ("double_blocks", "single_blocks")
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()):
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            yield from _flatten(val, path)
+        else:
+            yield path, val
+
+
+def _leaf(path, arr) -> tuple:
+    name = path[-1]
+    if name == "kernel":
+        return "weight", np.swapaxes(arr, -1, -2)
+    return name, arr
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no numpy twin in torch
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)  # a copy: arrays from JAX are read-only
+
+
+def jax_to_state_dict(params: Mapping[str, Any],
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """State_dict entries for every leaf of `params` (see module docstring).
+
+    A subtree (e.g. only the trainable LoRA leaves) gives the matching subset
+    of entries. dtype casts every tensor when set.
+    """
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        if arr is None:
+            continue
+        name, val = _leaf(path, np.asarray(arr))
+        if path[0] in STACKED:
+            for i in range(val.shape[0]):
+                key = ".".join((path[0], str(i)) + path[1:-1] + (name,))
+                out[key] = _to_tensor(val[i])
+        else:
+            key = ".".join(path[:-1] + (name,))
+            out[key] = _to_tensor(val)
+    if dtype is not None:
+        out = {k: v.to(dtype) for k, v in out.items()}
+    return out

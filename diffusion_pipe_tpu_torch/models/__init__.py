@@ -1,0 +1,27 @@
+"""Model plugins: the registry maps `model.type` strings to pipeline classes.
+
+Counterpart of diffusion_pipe_tpu/models/__init__.py; so far only the Flux
+family is ported.
+"""
+
+from typing import Dict
+
+_REGISTRY: Dict[str, type] = {}
+
+
+def register_model(name: str, *aliases: str):
+    def deco(cls):
+        _REGISTRY[name] = cls
+        for a in aliases:
+            _REGISTRY[a] = cls
+        return cls
+
+    return deco
+
+
+def get_model_class(name: str):
+    from . import flux  # noqa: F401
+
+    if name not in _REGISTRY:
+        raise NotImplementedError(f"model type {name!r} is not ported yet")
+    return _REGISTRY[name]

@@ -1,0 +1,115 @@
+"""Train step and train-state builders, counterpart of
+diffusion_pipe_tpu/training/trainer.py.
+
+One step: noising -> forward -> masked loss -> backward (trainable
+parameters only) -> global-norm clip -> optimizer update. With gradient
+accumulation the batch is split into microbatches whose f32 gradients are
+averaged (the mean-over-microbatches semantics of the JAX package); with
+bf16 parameters the average is then rounded to bf16 for the update, where
+the JAX package keeps it in f32. Stochastic rounding and gradient release
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from .train_state import TrainState, partition_params
+
+
+def init_train_state(pipeline, optimizer: Callable, generator: torch.Generator,
+                     predicate: Callable,
+                     state_dict: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+    """Initialise the pipeline's weights (then load `state_dict` over them
+    when given), split trainable from frozen, and build the optimizer from
+    the factory that get_optimizer returned."""
+    pipeline.init_params(generator)
+    if state_dict is not None:
+        pipeline.model.load_state_dict(state_dict)
+    trainable = partition_params(pipeline.model, predicate)
+    return TrainState(step=0, examples=0, trainable=trainable,
+                      optimizer=optimizer(list(trainable.values())))
+
+
+def make_loss_fn(pipeline, timestep_quantile=None):
+    def loss_fn(batch, generator=None, noise=None, t=None):
+        model_inputs, target, mask = pipeline.prepare_inputs(
+            batch, generator, timestep_quantile=timestep_quantile, noise=noise, t=t)
+        return pipeline.loss_fn(pipeline.forward(model_inputs), target, mask)
+
+    return loss_fn
+
+
+def _slice(x, sl):
+    return None if x is None else x[sl]
+
+
+def make_train_step(pipeline, gradient_clipping: float = 1.0,
+                    gradient_accumulation_steps: int = 1,
+                    skip_invalid_grads: bool = False):
+    """Returns train_step(state, batch, generator=None, noise=None, t=None)
+    -> metrics, updating `state` and the model in place.
+
+    batch leaves are [GAS * mbs, ...]; noise [B, C, H, W] and t [B], when
+    given, replace the generator's draws and are split with the batch.
+
+    skip_invalid_grads: a parameter whose gradient holds Inf/NaN keeps its
+    value this step, and its gradient counts as zero in the global norm.
+    """
+    loss_fn = make_loss_fn(pipeline)
+    gas = gradient_accumulation_steps
+
+    def train_step(state: TrainState, batch: Dict[str, Any], generator=None,
+                   noise=None, t=None):
+        params = list(state.trainable.values())
+        state.optimizer.zero_grad(set_to_none=True)
+        batch_size = batch["latents"].shape[0]
+        if gas == 1:
+            loss = loss_fn(batch, generator, noise, t)
+            loss.backward()
+            loss = loss.detach()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        else:
+            mbs = batch_size // gas
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            loss = torch.zeros([], dtype=torch.float32, device=pipeline.device)
+            for i in range(gas):
+                sl = slice(i * mbs, (i + 1) * mbs)
+                sub = {k: _slice(v, sl) for k, v in batch.items()}
+                loss_i = loss_fn(sub, generator, _slice(noise, sl), _slice(t, sl))
+                loss_i.backward()
+                loss += loss_i.detach()
+                for a, p in zip(acc, params):
+                    if p.grad is not None:
+                        a.add_(p.grad.float())
+                        p.grad = None
+            loss = loss / gas
+            grads = [(a / gas).to(p.dtype) for a, p in zip(acc, params)]
+
+        metrics = {"loss": loss}
+        if skip_invalid_grads:
+            finite = [torch.isfinite(g).all() for g in grads]
+            grads = [torch.where(ok, g, torch.zeros_like(g)) for g, ok in zip(grads, finite)]
+            before = [p.detach().clone() for p in params]
+            metrics["skipped_params"] = sum((~ok).int() for ok in finite)
+        grad_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        metrics["grad_norm"] = grad_norm
+        if gradient_clipping and gradient_clipping > 0:
+            scale = torch.clamp(gradient_clipping / (grad_norm + 1e-6), max=1.0)
+            # keep the grad dtype, as the JAX package does
+            grads = [(g.float() * scale).to(g.dtype) for g in grads]
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.optimizer.step()
+        if skip_invalid_grads:
+            with torch.no_grad():
+                for p, old, ok in zip(params, before, finite):
+                    p.copy_(torch.where(ok, p, old))
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+        state.examples += batch_size
+        return metrics
+
+    return train_step

@@ -1,0 +1,130 @@
+"""Port flash attention vs the JAX package's Pallas kernel (interpret mode).
+
+On the CPU the port's FlashAttention runs its plain versions: the forward
+(O and LSE) and the recompute-formula backward (dQ, dK, dV). They are held
+against the JAX `flash_attention`, run as tests/test_flash_attention.py runs
+it (DPIPE_PALLAS_INTERPRET=1 from conftest), with the JAX tolerances: 2e-5
+on the forward, 5e-4 abs / 1e-3 rel on the grads. All inputs are numpy draws
+from a seed, in f32, at B=1, H=2, S=256, D=128.
+
+The kernels themselves are tested on the GPU by test_torch_kernels_gpu.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_pipe_tpu.ops.flash_attention import (
+    _flash_attention_fwd_res,
+    flash_attention as jax_flash_attention,
+)
+from diffusion_pipe_tpu_torch.ops import flash_attention as port_fa
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+
+B, SQ, H, D = 1, 256, 2, 128
+BLOCK_Q, BLOCK_K = 256, 128
+
+# case -> (Skv, masked)
+CASES = {"nomask": (256, False), "kv_mask": (256, True), "ragged": (300, False)}
+
+
+def _inputs(case):
+    skv, masked = CASES[case]
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, SQ, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, skv, H, D), dtype=np.float32)
+    v = rng.standard_normal((B, skv, H, D), dtype=np.float32)
+    do = rng.standard_normal((B, SQ, H, D), dtype=np.float32)
+    mask = (rng.random((B, skv)) > 0.3).astype(np.int32) if masked else None
+    return q, k, v, do, mask
+
+
+def _jax_fn(skv, mask):
+    """[B, S, H, D] wrapper around the Pallas kernel: pads a ragged KV length
+    to the block and passes tail_len, as ops/attention.py does."""
+    pad = -skv % BLOCK_K
+    tail = None if pad == 0 else skv - (skv + pad - BLOCK_K)
+    jmask = None if mask is None else jnp.asarray(mask)
+    scale = D ** -0.5
+
+    def prep(q, k, v):
+        qt, kt, vt = (jnp.swapaxes(x, 1, 2) for x in (q, k, v))
+        if pad:
+            kt, vt = (jnp.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (kt, vt))
+        return qt, kt, vt
+
+    def out(q, k, v):
+        o = jax_flash_attention(*prep(q, k, v), jmask, scale, BLOCK_Q, BLOCK_K, tail)
+        return jnp.swapaxes(o, 1, 2)
+
+    def lse(q, k, v):
+        _, res = _flash_attention_fwd_res(*prep(q, k, v), jmask, scale, BLOCK_Q,
+                                          BLOCK_K, tail)
+        return res[-1][..., 0]
+
+    return out, lse
+
+
+def _port(q, k, v, mask):
+    t = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o, lse = port_fa.flash_attention(*t, tmask)
+    return t, o, lse
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_pallas(case):
+    q, k, v, _, mask = _inputs(case)
+    out_fn, lse_fn = _jax_fn(k.shape[1], mask)
+    o_ref = np.asarray(out_fn(q, k, v))
+    lse_ref = np.asarray(lse_fn(q, k, v))
+    _, o, lse = _port(q, k, v, mask)
+    assert o.shape == (B, SQ, H, D) and lse.shape == (B, H, SQ)
+    np.testing.assert_allclose(o.detach().numpy(), o_ref, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_matches_pallas(case):
+    q, k, v, do, mask = _inputs(case)
+    out_fn, _ = _jax_fn(k.shape[1], mask)
+    _, vjp = jax.vjp(out_fn, q, k, v)
+    refs = vjp(jnp.asarray(do))
+    t, o, _ = _port(q, k, v, mask)
+    o.backward(torch.from_numpy(do))
+    for got, ref in zip(t, refs):
+        assert got.grad.shape == ref.shape
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   atol=5e-4, rtol=1e-3)
+
+
+def test_fully_masked_rows_give_zero_output_and_grads():
+    """A batch element with no valid key: O = 0, LSE = the mask value and
+    zero grads (the kernels' documented semantics)."""
+    q, k, v, do, _ = _inputs("nomask")
+    mask = np.ones((B, k.shape[1]), np.int32)
+    mask[0] = 0
+    t, o, lse = _port(q, k, v, mask)
+    o.backward(torch.from_numpy(do))
+    assert torch.all(o == 0)
+    assert torch.all(lse == port_fa.DEFAULT_MASK_VALUE)
+    for x in t:
+        assert torch.all(x.grad == 0)
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """The CUDA wrappers never fall back: a CPU tensor, an f32 tensor or an
+    unsupported head dim raises before any build or launch."""
+    x = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        port_fa.flash_fwd_cuda(x, x, x, None, 0.1)
+    with pytest.raises(TypeError):
+        port_fa.flash_fwd_cuda(x.float(), x.float(), x.float(), None, 0.1)
+    y = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        port_fa.flash_fwd_cuda(y, y, y, None, 0.1)
+    assert port_fa.launch_counts() == {
+        "flash_fwd_cuda": 0, "flash_bwd_dq_cuda": 0, "flash_bwd_dkv_cuda": 0}

@@ -1,0 +1,141 @@
+"""Tiny Flux in the port vs the JAX package, on the same weights and draws.
+
+The `_tiny` config (2 double + 2 single blocks, 4 heads of 32, f32) with
+LoRA rank 4. Weights are seeded numpy draws on the JAX parameter structure
+(tests/torch_port_helpers.py), with LoRA B nonzero so the adapters
+contribute and every factor gets a gradient; they cross over through
+interop.py. The noise and t come from the JAX key, as the JAX prepare_inputs
+draws them, and are handed to the port. Tolerances: 1e-5 on prepare_inputs
+(the same f32 arithmetic), 1e-4 on the output and 1e-4 abs / 1e-3 rel on
+the LoRA grads (four blocks of f32 matmuls summed in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_pipe_tpu.models import get_model_class as jax_model_class
+from diffusion_pipe_tpu.training import flow as jflow
+from diffusion_pipe_tpu.training import losses as jlosses
+from diffusion_pipe_tpu.training.train_state import lora_predicate as jax_lora
+from diffusion_pipe_tpu.training.train_state import merge_params, partition_params
+from diffusion_pipe_tpu.training.trainer import make_loss_fn
+from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
+from diffusion_pipe_tpu_torch.models import get_model_class
+from diffusion_pipe_tpu_torch.training import flow as tflow
+from diffusion_pipe_tpu_torch.training import losses as tlosses
+from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
+from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import jax_draws, random_flux_params, tiny_batch, tiny_flux_config
+
+KEY = jax.random.PRNGKey(4)
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """JAX pipeline, weights, and its forward, loss and LoRA grads at KEY."""
+    cfg = tiny_flux_config()
+    pipeline = jax_model_class("flux")(cfg)
+    params = random_flux_params(pipeline, seed=5, lora_b_std=0.05)
+    jbatch = {k: jnp.asarray(v) for k, v in tiny_batch(11).items()}
+    trainable, frozen = partition_params(params, jax_lora)
+
+    @jax.jit
+    def run(trainable, frozen):
+        inputs, _, _ = pipeline.prepare_inputs(KEY, jbatch)
+        out = pipeline.forward(merge_params(trainable, frozen), inputs)
+        loss, grads = jax.value_and_grad(make_loss_fn(pipeline))(trainable, frozen, jbatch, KEY)
+        return out, loss, grads
+
+    out, loss, grads = run(trainable, frozen)
+    ref = dict(out=np.asarray(out), loss=float(loss),
+               grads=jax_to_state_dict(jax.tree.map(np.asarray, grads)))
+    return cfg, pipeline, params, ref
+
+
+def _port(cfg, params):
+    pipeline = get_model_class("flux")(cfg, device="cpu")
+    pipeline.init_params(torch.Generator().manual_seed(0))
+    pipeline.model.load_state_dict(jax_to_state_dict(params))
+    return pipeline
+
+
+def test_prepare_inputs_matches(jax_side):
+    """Including a loss mask (resized to the latents and packed) and Kontext
+    control latents appended to the image sequence."""
+    cfg, jpipe, params, _ = jax_side
+    batch = tiny_batch(11)
+    rng = np.random.default_rng(13)
+    batch["mask"] = (rng.random((2, 12, 20)) > 0.5).astype(np.float32)
+    batch["control_latents"] = rng.standard_normal((2, 16, 8, 8)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    j_inputs, j_target, j_mask = jax.jit(jpipe.prepare_inputs)(
+        key, {k: jnp.asarray(v) for k, v in batch.items()})
+    noise, t = jax_draws(jpipe, key, batch)
+    pipe = _port(cfg, params)
+    t_inputs, t_target, t_mask = pipe.prepare_inputs(
+        {k: torch.from_numpy(v) for k, v in batch.items()}, noise=noise, t=t)
+    np.testing.assert_allclose(t_target.numpy(), np.asarray(j_target), atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
+    for name in ("hidden_states", "encoder_hidden_states", "pooled_projections",
+                 "timestep", "img_ids", "txt_ids", "guidance"):
+        np.testing.assert_allclose(t_inputs[name].numpy(), np.asarray(j_inputs[name]),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    assert t_inputs["img_seq_len"] == j_inputs["img_seq_len"]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_and_lora_grads_match(jax_side, remat):
+    """Output and every LoRA gradient; the port runs with and without
+    per-block activation checkpointing (the JAX side without)."""
+    cfg, jpipe, params, ref = jax_side
+    batch = tiny_batch(11)
+    pipe = _port(dict(cfg, activation_checkpointing=remat), params)
+    noise, t = jax_draws(jpipe, KEY, batch)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    t_inputs, target, mask = pipe.prepare_inputs(tbatch, noise=noise, t=t)
+    for name, p in pipe.model.named_parameters():
+        p.requires_grad_(lora_predicate(name))
+    out = pipe.forward(t_inputs)
+    np.testing.assert_allclose(out.detach().numpy(), ref["out"], atol=1e-4, rtol=1e-4)
+    loss = pipe.loss_fn(out, target, mask)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), ref["loss"], rtol=1e-5)
+    lora = {n: p for n, p in pipe.model.named_parameters() if p.requires_grad}
+    assert set(lora) == set(ref["grads"]) and len(lora) == 80
+    for name, p in lora.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref["grads"][name].numpy(),
+                                   atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("dist", [
+    {}, {"shift": 3.0}, {"flux_shift": True, "sigmoid_scale": 1.5},
+    {"timestep_sample_method": "uniform", "min_t": 0.1, "max_t": 0.8},
+    {"shift": 2.0, "min_t": 0.2},
+])
+def test_timestep_quantiles_match(dist):
+    """The inverse-CDF path of sample_timesteps (eval quantiles, and the
+    shape of every draw), shift and truncation included; 1e-6."""
+    jd = jflow.TimestepDistribution.from_model_config(dist)
+    td = tflow.TimestepDistribution.from_model_config(dist)
+    for q in (0.1, 0.5, 0.9):
+        j = jflow.sample_timesteps(jax.random.PRNGKey(0), 3, jd, quantile=q, image_seq_len=1024)
+        t = tflow.sample_timesteps(3, td, quantile=q, image_seq_len=1024)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("loss_cfg", [{}, {"huber_delta": 0.5}, {"smooth_l1_beta": 0.3}])
+def test_losses_match(loss_cfg):
+    rng = np.random.default_rng(2)
+    out, target = (rng.standard_normal((2, 16, 8)).astype(np.float32) for _ in range(2))
+    mask = (rng.random((2, 16, 8)) > 0.3).astype(np.float32)
+    w = rng.random(2).astype(np.float32)
+    kw_j = jlosses.loss_config_from_model_config(loss_cfg)
+    kw_t = tlosses.loss_config_from_model_config(loss_cfg)
+    assert kw_j == kw_t
+    j = jlosses.masked_loss(out, target, mask, per_example_weights=w, **kw_j)
+    t = tlosses.masked_loss(*(torch.from_numpy(a) for a in (out, target, mask)),
+                            per_example_weights=torch.from_numpy(w), **kw_t)
+    np.testing.assert_allclose(t.item(), float(j), rtol=1e-6)

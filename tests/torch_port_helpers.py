@@ -1,0 +1,85 @@
+"""Shared inputs for the tiny-Flux parity tests of the PyTorch port.
+
+Weights are made with numpy from a seed on the JAX package's parameter
+structure (jax.eval_shape of its init, no compile): kernels lecun-scaled
+normals, biases and RMSNorm scales perturbed away from 0 and 1 so the
+mapping of each leaf is tested, LoRA A stored uniform in [0, 2*sqrt(6/in))
+as the JAX package stores it, LoRA B zero or a small normal.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from diffusion_pipe_tpu.training.flow import sample_timesteps
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while a port test module runs (six xdist workers
+    share the host), restored afterwards for the other modules."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_flux_config(**top):
+    cfg = {
+        "save_every_n_epochs": 1,
+        "model": {"type": "flux", "dtype": "float32", "_tiny": True},
+        "adapter": {"type": "lora", "rank": 4, "alpha": 4, "dropout": 0.0},
+        "optimizer": {"type": "adamw8bit", "lr": 2e-3},
+    }
+    cfg.update(top)
+    return cfg
+
+
+def random_flux_params(pipeline, seed, lora_b_std=0.0):
+    """A numpy parameter tree with the JAX pipeline's structure."""
+    rng = np.random.default_rng(seed)
+    shapes = nn.unbox(jax.eval_shape(pipeline.init_params, jax.random.PRNGKey(0)))
+
+    def fill(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(np.float32)
+        if name == "lora_a":
+            bound = np.sqrt(6.0 / shape[-2])
+            return rng.uniform(0.0, 2 * bound, shape).astype(np.float32)
+        if name == "lora_b":
+            return (rng.standard_normal(shape) * lora_b_std).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)  # bias
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def tiny_batch(seed, b=2):
+    rng = np.random.default_rng(seed)
+    return {
+        "latents": (rng.standard_normal((b, 16, 8, 8)) * 0.5).astype(np.float32),
+        "t5_embed": rng.standard_normal((b, 8, 64)).astype(np.float32),
+        "clip_embed": rng.standard_normal((b, 32)).astype(np.float32),
+    }
+
+
+@functools.partial(jax.jit, static_argnums=(0, 2))
+def _draws(tdist, key, shape):
+    t_key, n_key = jax.random.split(key)
+    b, _, h, w = shape
+    t = sample_timesteps(t_key, b, tdist, image_seq_len=(h // 2) * (w // 2))
+    return jax.random.normal(n_key, shape, jnp.float32), t
+
+
+def jax_draws(pipeline, key, batch):
+    """The noise and t that the JAX prepare_inputs draws from `key`."""
+    noise, t = _draws(pipeline.tdist, key, tuple(batch["latents"].shape))
+    return torch.tensor(np.asarray(noise)), torch.tensor(np.asarray(t))

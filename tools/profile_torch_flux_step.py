@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where the time of the port's Flux-dev LoRA training step goes, on one GPU.
+
+    python3 tools/profile_torch_flux_step.py
+
+Builds the main path exactly as chip_smoke.py does (chip_smoke.build_slice:
+full-width Flux-dev, LoRA r32, adamw8bit, per-block checkpointing, batch 2 at
+512 px), builds the kernels if needed, runs one warm-up step, then records
+two steps under torch.profiler (CPU and CUDA activities). Prints one JSON
+line with:
+
+- wall_ms_per_step: host clock around the recorded steps, ended by a
+  synchronize (the profiler's own overhead included);
+- device_busy_share: union of all device-kernel intervals over that wall
+  window (1 - idle share), and device_busy_share_unprofiled: the same busy
+  time over the unprofiled step time below;
+- device_ms_per_step by kernel category: the three flash kernels, GEMMs
+  (cuBLAS/CUTLASS names), everything else;
+- the top 15 kernels by device time;
+- unprofiled host-clock times (each ended by a synchronize) of a whole step,
+  of forward + backward alone, and of optimizer.step() alone;
+- the matmul flops of one forward (torch.utils.flop_counter; the attention
+  kernels are outside it), the step's dense-product flops taken as three
+  forwards (forward, checkpoint recompute, input gradients; the LoRA weight
+  gradients add under 2%), and the rate the GEMM kernels reached on them.
+"""
+
+import json
+import re
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|sm90_", re.IGNORECASE)
+FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+STEPS = 2
+
+
+def category(name: str) -> str:
+    for f in FLASH:
+        if f in name:
+            return f
+    return "gemm" if GEMM.search(name) else "other"
+
+
+def busy_us(intervals):
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def _host_ms(fn, n=3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def unprofiled(pipeline, state, step, batch, gen):
+    """Host-clock times without the profiler: a whole step, forward + backward
+    alone, optimizer.step() alone (on the grads that backward left)."""
+    from diffusion_pipe_tpu_torch.training.trainer import make_loss_fn
+
+    loss_fn = make_loss_fn(pipeline)
+    out = dict(step=_host_ms(lambda: step(state, batch, gen)))
+    out["forward_backward"] = _host_ms(lambda: loss_fn(batch, gen).backward())
+    out["optimizer_step"] = _host_ms(state.optimizer.step)
+    state.optimizer.zero_grad(set_to_none=True)
+    return out
+
+
+def forward_matmul_flops(pipeline, batch, gen):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from diffusion_pipe_tpu_torch.training.trainer import make_loss_fn
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        make_loss_fn(pipeline)(batch, gen)
+    return counter.get_total_flops()
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke
+
+    pipeline, state, step, batch, gen = chip_smoke.build_slice()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    # device activity only: the GPU-side span of torch's own
+    # "Optimizer.step#..." label is an annotation, not a kernel
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    by_cat = defaultdict(float)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_cat[category(e.name)] += dur
+        by_name[e.name][0] += dur
+        by_name[e.name][1] += 1
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    plain = unprofiled(pipeline, state, step, batch, gen)
+    fwd_flops = forward_matmul_flops(pipeline, batch, gen)
+    print(json.dumps(dict(
+        device=torch.cuda.get_device_name(0),
+        nvidia_smi=chip_smoke.nvidia_smi_line(),
+        steps=STEPS,
+        wall_ms_per_step=wall_us / 1e3 / STEPS,
+        device_busy_share=busy / wall_us,
+        kernel_launches_per_step=len(kernels) / STEPS,
+        device_ms_per_step={k: v / 1e3 / STEPS for k, v in sorted(by_cat.items())},
+        unprofiled_ms=plain,
+        device_busy_share_unprofiled=busy / 1e3 / STEPS / plain["step"],
+        forward_matmul_flops=fwd_flops,
+        step_dense_flops=3 * fwd_flops,
+        gemm_tflops_per_s=3 * fwd_flops / (by_cat["gemm"] / 1e6 / STEPS) / 1e12,
+        top_kernels=[dict(name=n[:120], ms_per_step=v[0] / 1e3 / STEPS,
+                          calls_per_step=v[1] / STEPS) for n, v in top],
+    )))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
