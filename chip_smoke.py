@@ -3,35 +3,66 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (or more):
 
-1. build     -- compiles the CUDA kernels under diffusion_pipe_tpu_torch/csrc
-                with nvcc, all sources in parallel, and reports nvcc's
-                register and spill counts.
-2. kernels   -- K1 (forward), K2 (dQ) and K3 (dK/dV) against their plain
-                PyTorch versions at Flux-dev shapes (B=2, H=24, S=1536,
-                D=128, bf16): unmasked, with a [B, Skv] text-padding mask,
-                and at a ragged S=1000. Each kernel's error against the f32
-                plain result must be at most twice the bf16 plain version's
-                error plus 1e-3 of the reference's largest magnitude. At the
-                main shape it times each kernel, its plain version and, as a
-                yardstick only, torch's scaled_dot_product_attention.
-3. reference -- a two-block Flux at head dim 128 (bf16 on the card, through
-                the kernels) against the same weights in f32 on the CPU
-                (plain attention): output, loss and LoRA grads.
-4. slice     -- the main path: the full-width, full-depth Flux-dev LoRA-r32
-                trainer (adamw8bit, clip 1.0, per-block activation
-                checkpointing) at 512 px, batch 2, random weights and
-                latents from a seed. One warm-up step, then five timed steps
-                with the launch counters set to 0 just before: every loss
-                finite, LoRA factors moved, frozen weights unchanged, and
-                114 / 57 / 57 kernel launches per step.
+1. build          -- compiles the CUDA kernels under
+                     diffusion_pipe_tpu_torch/csrc with nvcc, all sources in
+                     parallel, and reports nvcc's register and spill counts.
+2. kernels        -- K1 (forward), K2 (dQ) and K3 (dK/dV) against their plain
+                     PyTorch versions at Flux-dev shapes (B=2, H=24, S=1536,
+                     D=128, bf16): unmasked, with a [B, Skv] text-padding
+                     mask, and at a ragged S=1000; then at Wan's
+                     cross-attention shape (Sq 21504 video tokens, Skv 512
+                     text tokens, H=12) and on two heads of Wan's
+                     self-attention (S 21504). Each kernel's error against the f32
+                     plain result must be at most twice the bf16 plain
+                     version's error plus 1e-3 of the reference's largest
+                     magnitude. It times each kernel beside its bound, its
+                     plain version and, as a yardstick only, torch's
+                     scaled_dot_product_attention, at the Flux shape, at the
+                     Wan cross shape and at the Wan self-attention shape
+                     (its check takes heads 5 and 6 as strided views of
+                     the full inputs; its timing all 12 heads, without the
+                     plain version, which would need 22 GB of f32 logits).
+   sr-kernel      -- K4 (stochastic rounding of a bf16 update) at the largest
+                     Wan2.1-1.3B leaf (ffn_in, 8960 x 1536) with bf16 and f32
+                     updates: bit for bit equal to its plain version, every
+                     output one of the two bf16 neighbours of f32(p) + f32(u),
+                     and the mean over 64 seeds within 4 sigma of the f32
+                     sum; then its time beside its bound.
+3. reference      -- a two-block Flux at head dim 128 (bf16 on the card,
+                     through the kernels) against the same weights in f32 on
+                     the CPU (plain attention): output, loss and LoRA grads.
+4. slice          -- the Flux path: the full-width, full-depth Flux-dev
+                     LoRA-r32 trainer (adamw8bit, clip 1.0, per-block
+                     activation checkpointing) at 512 px, batch 2, random
+                     weights and latents from a seed. One warm-up step, then
+                     five timed steps with the launch counters set to 0 just
+                     before: every loss finite, LoRA factors moved, frozen
+                     weights unchanged, and 114 / 57 / 57 launches per step.
+5. reference-wan  -- a two-block Wan at head dim 128 (dim 256, 2 heads, a
+                     3x10x10 latent grid = 75 tokens, 40 text tokens), full
+                     fine-tuning, bf16 on the card against f32 on the CPU:
+                     output, loss and all gradients.
+6. slice-wan      -- the main path of wan-1.3b-t2v-fullft-sr: Wan2.1-1.3B t2v
+                     at full width and depth, every parameter trainable in
+                     bf16, adamw lr 2e-5 with stochastic rounding, clip 1.0,
+                     per-block checkpointing, one 81-frame 512 px clip
+                     (latents 16x21x64x64 = 21,504 tokens) and 512 text
+                     tokens. One warm-up step, then three timed steps with
+                     the counters set to 0 just before: finite losses, every
+                     trainable tensor changed, and 120 / 60 / 60 flash
+                     launches and one K4 launch per bf16 trainable tensor
+                     per step.
 
-Then it prints the kernels' JSON line, the card's name and power limit from
-nvidia-smi, and last {"ok": true, "device": {...}}. Any failed check raises
-and exits non-zero. Float32 references run with TF32 off (matmul and cuDNN).
+Then it prints the kernels' JSON line (each kernel at the Wan path's shape,
+with its numbers at the other shapes beside), the card's name and power
+limit from nvidia-smi, and last {"ok": true, "device": {...}}. Any failed
+check raises and exits non-zero. Float32 references run with TF32 off
+(matmul and cuDNN).
 """
 
+import gc
 import json
 import math
 import subprocess
@@ -43,17 +74,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16, NVIDIA data sheet
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SEED = 0
 TIMED_STEPS = 5
-KERNEL_SOURCES = {
+WAN_TIMED_STEPS = 3
+KERNEL_SOURCES = {  # wrapper name -> (source, the TPU kernel it replaces)
     "flash_fwd": ("diffusion_pipe_tpu_torch/csrc/flash_fwd.cu",
                   "diffusion_pipe_tpu/ops/flash_attention.py:59"),
     "flash_bwd_dq": ("diffusion_pipe_tpu_torch/csrc/flash_bwd_dq.cu",
                      "diffusion_pipe_tpu/ops/flash_attention.py:217"),
     "flash_bwd_dkv": ("diffusion_pipe_tpu_torch/csrc/flash_bwd_dkv.cu",
                       "diffusion_pipe_tpu/ops/flash_attention.py:264"),
+    "sr_add": ("diffusion_pipe_tpu_torch/csrc/stochastic_round.cu",
+               "diffusion_pipe_tpu/ops/quant.py:22"),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 class CheckFailed(Exception):
@@ -83,10 +119,38 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _kernel_modules():
+    from diffusion_pipe_tpu_torch.ops import flash_attention, quant
+
+    return flash_attention, quant
+
+
+def reset_launch_counts():
+    for mod in _kernel_modules():
+        mod.reset_launch_counts()
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset} for K1-K4, each kernel
+    named by its wrapper without the "_cuda" suffix."""
+    return {name.removesuffix("_cuda"): n for mod in _kernel_modules()
+            for name, n in mod.launch_counts().items()}
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --- phase 1 ------------------------------------------------------------------
@@ -110,15 +174,17 @@ def phase_build():
 # --- phase 2 ------------------------------------------------------------------
 
 
-def _attn_inputs(b, s, h, d, masked, gen):
+def _attn_inputs(b, sq, skv, h, d, masked, gen):
     dev = "cuda"
-    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(4))
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, skv, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
     mask = None
     if masked:
         # text padding: element 0 keeps 300 of its 512 text tokens, element 1
         # all of them; image tokens (after the text) are always valid
-        mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+        mask = torch.ones((b, skv), dtype=torch.int32, device=dev)
         mask[0, 300:512] = 0
     return q, k, v, do, mask
 
@@ -138,83 +204,173 @@ def _kernel_all(fa, q, k, v, do, mask, scale):
     return o, lse, dq, dk, dv
 
 
-def phase_kernels():
-    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+ERR_KEYS = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
+            "flash_bwd_dkv": ("dk", "dv")}
 
-    b, h, d = 2, 24, 128
+
+def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None):
+    """K1-K3 against their plain versions on one case; returns the errors.
+    heads: a slice of the heads to check, taken as strided views of the
+    [B, S, h, D] inputs (the plain versions' f32 logits grow with each)."""
     scale = d ** -0.5
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    names = ("o", "lse", "dq", "dk", "dv")
-    errors = {}
-    for case, s, masked in (("main", 1536, False), ("masked", 1536, True),
-                            ("ragged", 1000, False)):
-        q, k, v, do, mask = _attn_inputs(b, s, h, d, masked, gen)
-        ref = _plain_all(fa, q.float(), k.float(), v.float(), do.float(), mask, scale)
-        plain = _plain_all(fa, q, k, v, do, mask, scale)
-        got = _kernel_all(fa, q, k, v, do, mask, scale)
-        torch.cuda.synchronize()
-        rec = {}
-        for name, g, p, r in zip(names, got, plain, ref):
-            check(g.shape == r.shape and bool(torch.isfinite(g).all()),
-                  f"{case}/{name}: shape {tuple(g.shape)} or non-finite values")
-            err = (g.float() - r).abs().max().item()
-            plain_err = (p.float() - r).abs().max().item()
-            floor = 1e-3 * r.abs().max().item()
-            rec[name] = dict(err=err, plain_err=plain_err, floor=floor)
-            check(err <= 2 * plain_err + floor,
-                  f"{case}/{name}: kernel error {err} > 2 * {plain_err} + {floor}")
-        if masked:
-            # element 0's padded keys get no gradient
-            check(bool((got[3][0, 300:512] == 0).all() and (got[4][0, 300:512] == 0).all()),
-                  "masked keys received dK/dV")
-        emit(phase="kernels", case=case, shape=[b, s, h, d], masked=masked, errors=rec)
-        errors[case] = rec
-        del ref, plain, got
+    q, k, v, do, mask = _attn_inputs(b, sq, skv, h, d, masked, gen)
+    if heads is not None:
+        q, k, v, do = (x[:, :, heads] for x in (q, k, v, do))
+    ref = _plain_all(fa, q.float(), k.float(), v.float(), do.float(), mask, scale)
+    plain = _plain_all(fa, q, k, v, do, mask, scale)
+    got = _kernel_all(fa, q, k, v, do, mask, scale)
+    torch.cuda.synchronize()
+    rec = {}
+    for name, g, p, r in zip(("o", "lse", "dq", "dk", "dv"), got, plain, ref):
+        check(g.shape == r.shape and bool(torch.isfinite(g).all()),
+              f"{case}/{name}: shape {tuple(g.shape)} or non-finite values")
+        err = (g.float() - r).abs().max().item()
+        plain_err = (p.float() - r).abs().max().item()
+        floor = 1e-3 * r.abs().max().item()
+        rec[name] = dict(err=err, plain_err=plain_err, floor=floor)
+        check(err <= 2 * plain_err + floor,
+              f"{case}/{name}: kernel error {err} > 2 * {plain_err} + {floor}")
+    if masked:
+        # element 0's padded keys get no gradient
+        check(bool((got[3][0, 300:512] == 0).all() and (got[4][0, 300:512] == 0).all()),
+              "masked keys received dK/dV")
+    emit(phase="kernels", case=case, q_shape=[b, sq, h, d], kv_len=skv, masked=masked,
+         checked_heads=q.shape[2], errors=rec)
+    return rec
 
-    # timings at the main path's shape (unmasked, S = 512 text + 1024 image)
-    s = 1536
-    q, k, v, do, _ = _attn_inputs(b, s, h, d, False, gen)
+
+def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
+    """Each kernel's time, its bound, its plain version's (when with_plain)
+    and SDPA's forward as the yardstick of K1, on unmasked inputs; SDPA's
+    backward (dQ, dK, dV in one call) is the yardstick of K2 + K3."""
+    scale = d ** -0.5
+    q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
     o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
     di = fa.row_dot(do, o)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
     dot_ = do.transpose(1, 2).contiguous()
+
+    def plain_ms(fn):
+        return cuda_ms(fn, 5) if with_plain else None
+
     timing = {
         "flash_fwd": dict(
             ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale)),
-            plain_ms=cuda_ms(lambda: fa.flash_forward_plain(q, k, v, None, scale), 5),
+            plain_ms=plain_ms(lambda: fa.flash_forward_plain(q, k, v, None, scale)),
             library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt.detach(), kt.detach(), vt.detach()))),
         "flash_bwd_dq": dict(
             ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)),
-            plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, None, lse, di, do, scale), 5),
+            plain_ms=plain_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, None, lse, di, do, scale)),
             library_ms=None),
         "flash_bwd_dkv": dict(
             ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)),
-            plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, None, lse, di, do, scale), 5),
+            plain_ms=plain_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, None, lse, di, do, scale)),
             library_ms=None),
     }
-    # yardstick for K2 + K3 together: SDPA's backward (dQ, dK, dV in one call)
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, (qt, kt, vt), dot_, retain_graph=True))
 
-    n = b * s * h * d  # elements of one [B, S, H, D] tensor
-    rows = b * h * s
-    pair = b * h * s * s * d
+    nq, nk = b * sq * h * d, b * skv * h * d  # elements of a query-/key-side tensor
+    rows = b * h * sq
+    pair = b * h * sq * skv * d
     work = {  # flops, bytes (each input read once, each output written once)
-        "flash_fwd": (4 * pair, 2 * 4 * n + 4 * rows),
-        "flash_bwd_dq": (6 * pair, 2 * 5 * n + 2 * 4 * rows),
-        "flash_bwd_dkv": (8 * pair, 2 * 6 * n + 2 * 4 * rows),
+        "flash_fwd": (4 * pair, 2 * (2 * nq + 2 * nk) + 4 * rows),
+        "flash_bwd_dq": (6 * pair, 2 * (3 * nq + 2 * nk) + 2 * 4 * rows),
+        "flash_bwd_dkv": (8 * pair, 2 * (2 * nq + 4 * nk) + 2 * 4 * rows),
     }
     for name, (flops, nbytes) in work.items():
         t, by = bound(flops, nbytes)
         timing[name].update(bound_ms=t, bound_by=by, flops=flops, bytes=nbytes)
-        err_keys = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
-                    "flash_bwd_dkv": ("dk", "dv")}[name]
-        timing[name]["max_abs_err"] = max(errors["main"][k]["err"] for k in err_keys)
-    emit(phase="kernels", case="timing", shape=[b, s, h, d], timing=timing,
-         sdpa_bwd_ms=sdpa_bwd_ms)
-    return timing
+    return timing, sdpa_bwd_ms
+
+
+def phase_kernels():
+    """K1-K3 checked and timed; returns {shape name: {kernel: timing}}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, h, d = 2, 24, 128
+    errors = {}
+    for case, s, masked in (("main", 1536, False), ("masked", 1536, True),
+                            ("ragged", 1000, False)):
+        errors[case] = _check_attention(fa, case, b, s, s, h, d, masked, gen)
+    errors["wan_cross"] = _check_attention(fa, "wan_cross", 1, 21504, 512, 12, d, False, gen)
+    _free()
+    # Wan self-attention (336 key tiles a query tile): heads 5 and 6 of the
+    # 12, about 3.7 GB of f32 logits for each plain version
+    errors["wan_self"] = _check_attention(fa, "wan_self", 1, 21504, 21504, 12, d, False, gen,
+                                          heads=slice(5, 7))
+    _free()
+
+    timings = {}
+    for shape, (tb, sq, skv, th), err_case, with_plain in (
+            ("flux", (b, 1536, 1536, h), "main", True),
+            ("wan_cross", (1, 21504, 512, 12), "wan_cross", True),
+            ("wan_self", (1, 21504, 21504, 12), "wan_self", False)):
+        timing, sdpa_bwd_ms = _time_attention(fa, tb, sq, skv, th, d, gen, with_plain)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[err_case][k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels", case=f"timing_{shape}", q_shape=[tb, sq, th, d], kv_len=skv,
+             timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[shape] = timing
+        _free()
+    return timings
+
+
+SR_SHAPE = (8960, 1536)  # Wan2.1-1.3B ffn_in weight, the largest leaf
+SR_SEEDS = 64
+
+
+def phase_sr_kernel():
+    """K4 against its plain version at the largest Wan leaf; returns its
+    timing, with bf16 updates (the main path's: adamw's bf16 moments give a
+    bf16 update) and f32 updates beside."""
+    from diffusion_pipe_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = math.prod(SR_SHAPE)
+    p = (torch.randn(SR_SHAPE, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    out = {}
+    for udtype in (torch.bfloat16, torch.float32):
+        # an update of the main path's size: lr 2e-5 times an Adam direction ~1
+        u = (torch.randn(SR_SHAPE, generator=gen, device="cuda") * 2e-5).to(udtype)
+        x = p.float() + u.float()
+        want = quant.sr_add_plain(p, u, 7)
+        got = quant.sr_add_cuda(p.clone(), u, 7)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"K4 ({udtype}) differs from its plain version")
+        trunc = x.view(torch.int32) & -65536  # the bf16 neighbour toward zero
+        lo, hi = trunc.view(torch.float32), (trunc + 65536).view(torch.float32)
+        g = got.float()
+        check(bool(((g == lo) | (g == hi)).all()), f"K4 ({udtype}): an output is no neighbour")
+        # unbiased: the mean over seeds, over all elements, within 4 sigma
+        acc = torch.zeros(SR_SHAPE, dtype=torch.float64, device="cuda")
+        for s in range(SR_SEEDS):
+            acc += quant.sr_add_cuda(p.clone(), u, s).double()
+        gap = (hi.double() - lo.double()).abs()
+        frac = torch.where(gap > 0, (x.double() - lo.double()).abs() / gap, 0.0)
+        bias = (acc / SR_SEEDS - x.double()).sum().item() / n
+        sigma = math.sqrt((gap * gap * frac * (1 - frac)).sum().item() / SR_SEEDS) / n
+        up_share = (g == hi).float().mean().item()
+        check(abs(bias) <= 4 * sigma, f"K4 ({udtype}): mean bias {bias} beyond 4 sigma {sigma}")
+
+        q = p.clone()
+        ms = cuda_ms(lambda: quant.sr_add_cuda(q, u, 1))
+        plain_ms = cuda_ms(lambda: quant.sr_add_plain(p, u, 1), 5)
+        nbytes = n * (2 + u.element_size() + 2)
+        t, by = bound(n, nbytes, PEAK_F32_FLOPS)  # one f32 add an element
+        name = "bf16_u" if udtype == torch.bfloat16 else "f32_u"
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=t, bound_by=by,
+                         bytes=nbytes, flops=n, max_abs_err=(g - want.float()).abs().max().item(),
+                         mean_bias=bias, sigma=sigma, rounded_up_share=up_share)
+        emit(phase="sr-kernel", shape=list(SR_SHAPE), update_dtype=str(udtype),
+             bit_equal=True, **out[name])
+        del acc, gap, frac, x, lo, hi, g, got, want, q, u
+        _free()
+    return out
 
 
 # --- phase 3 ------------------------------------------------------------------
@@ -226,6 +382,17 @@ def _small_flux_run(model, latents_packed, t5, clip, t, img_ids, txt_ids, target
     loss.backward()
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.requires_grad}
     return out.float().cpu(), loss.item(), grads
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _compare_grads(grads, ref_grads):
+    names = sorted(ref_grads)
+    total = _rel(torch.cat([grads[n].flatten() for n in names]),
+                 torch.cat([ref_grads[n].flatten() for n in names]))
+    return total, max(_rel(grads[n], ref_grads[n]) for n in names)
 
 
 def phase_reference(device="cuda"):
@@ -265,23 +432,16 @@ def phase_reference(device="cuda"):
     img_ids = latent_image_ids(8, 8)
     txt_ids = torch.zeros((40, 3))
     ref_out, ref_loss, ref_grads = _small_flux_run(cpu, x, t5, clip, t, img_ids, txt_ids, target)
-    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
 
-    fa.reset_launch_counts()
+    reset_launch_counts()
     to = lambda z, dt=torch.bfloat16: z.to(device, dt)
     out, loss, grads = _small_flux_run(
         gpu, to(x), to(t5), to(clip), to(t, torch.float32), to(img_ids, torch.float32),
         to(txt_ids, torch.float32), to(target, torch.float32))
-    counts = fa.launch_counts()
+    counts = {k: launch_counts()[k] for k in FLASH}
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
-    out_err = rel(out, ref_out)
-    names = sorted(ref_grads)
-    grad_err = rel(torch.cat([grads[n].flatten() for n in names]),
-                   torch.cat([ref_grads[n].flatten() for n in names]))
-    worst_grad_err = max(rel(grads[n], ref_grads[n]) for n in names)
+    out_err = _rel(out, ref_out)
+    grad_err, worst_grad_err = _compare_grads(grads, ref_grads)
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     emit(phase="reference", out_rel_l2=out_err, loss_rel=loss_err,
          lora_grads_rel_l2=grad_err, worst_lora_tensor_rel_l2=worst_grad_err,
@@ -311,8 +471,8 @@ def _fingerprint(params):
 
 def build_slice(cfg=SLICE_CONFIG, device="cuda", latent_hw=64, txt_len=512,
                 batch_size=2):
-    """The main path's trainer, its state, step and batch: Flux at the config's
-    width and depth, random weights and inputs from SEED."""
+    """The Flux path's trainer, its state, step and batch: Flux at the
+    config's width and depth, random weights and inputs from SEED."""
     from diffusion_pipe_tpu_torch.models import get_model_class
     from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
     from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
@@ -335,8 +495,6 @@ def build_slice(cfg=SLICE_CONFIG, device="cuda", latent_hw=64, txt_len=512,
 
 
 def phase_slice(**slice_kw):
-    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
-
     t0 = time.perf_counter()
     pipeline, state, step, batch, gen = build_slice(**slice_kw)
     torch.cuda.synchronize()
@@ -358,24 +516,24 @@ def phase_slice(**slice_kw):
     warm_loss = warm["loss"].item()
     warm_s = time.perf_counter() - t0
 
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     metrics = [step(state, batch, gen) for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
-    counts = fa.launch_counts()
+    counts = launch_counts()
     losses = [m["loss"].item() for m in metrics]
     norms = [m["grad_norm"].item() for m in metrics]
     peak = torch.cuda.max_memory_allocated()
 
     per_step = {k: v / TIMED_STEPS for k, v in counts.items()}
     blocks = fc.num_layers + fc.num_single_layers
-    expected = {"flash_fwd_cuda": 2 * blocks, "flash_bwd_dq_cuda": blocks,
-                "flash_bwd_dkv_cuda": blocks}
+    expected = {"flash_fwd": 2 * blocks, "flash_bwd_dq": blocks,
+                "flash_bwd_dkv": blocks, "sr_add": 0}
     moved = sum(int(not torch.equal(p, p0)) for p, p0 in zip(lora, lora0))
     frozen_same = torch.equal(_fingerprint(frozen), frozen0)
-    emit(phase="slice", params=n_params, lora_params=n_lora, init_s=init_s,
-         warmup_s=warm_s, warmup_loss=warm_loss, step_s=step_s,
+    emit(phase="slice", cell="flux-dev-lora-512", params=n_params, lora_params=n_lora,
+         init_s=init_s, warmup_s=warm_s, warmup_loss=warm_loss, step_s=step_s,
          samples_per_s=batch_size / step_s, losses=losses, grad_norms=norms,
          peak_memory_bytes=peak, launches=counts, launches_per_step=per_step,
          lora_tensors_moved=moved, lora_tensors=len(lora), frozen_unchanged=frozen_same)
@@ -386,11 +544,179 @@ def phase_slice(**slice_kw):
     return counts
 
 
+# --- phase 5 ------------------------------------------------------------------
+
+
+def _small_wan_run(model, x, t, ctx, target):
+    out = model(x, t, ctx)
+    loss = torch.mean((out.float() - target) ** 2)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    return out.float().cpu(), loss.item(), grads
+
+
+def phase_reference_wan(device="cuda"):
+    from diffusion_pipe_tpu_torch.models.layers import init_module_weights
+    from diffusion_pipe_tpu_torch.models.wan_model import WanConfig, WanTransformer
+
+    def build(dtype, device):
+        cfg = WanConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, text_dim=64,
+                        text_len=40, dtype=dtype, param_dtype=dtype, remat="full")
+        with torch.device(device):
+            return WanTransformer(cfg)
+
+    cpu = build(torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    init_module_weights(cpu, gen)
+    gpu = build(torch.bfloat16, device)
+    gpu.load_state_dict(cpu.state_dict())
+
+    # 3x10x10 latents -> a 3x5x5 grid of 75 tokens (a ragged tile), 40 text tokens
+    x = torch.randn((1, 16, 3, 10, 10), generator=gen)
+    ctx = torch.randn((1, 40, 64), generator=gen)
+    t = torch.tensor([400.0])
+    target = torch.randn(x.shape, generator=gen)
+    ref_out, ref_loss, ref_grads = _small_wan_run(cpu, x, t, ctx, target)
+
+    reset_launch_counts()
+    out, loss, grads = _small_wan_run(gpu, x.to(device, torch.bfloat16), t.to(device),
+                                      ctx.to(device), target.to(device))
+    counts = {k: launch_counts()[k] for k in FLASH}
+
+    out_err = _rel(out, ref_out)
+    grad_err, worst_grad_err = _compare_grads(grads, ref_grads)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    emit(phase="reference-wan", out_rel_l2=out_err, loss_rel=loss_err, grads_rel_l2=grad_err,
+         worst_tensor_rel_l2=worst_grad_err, tensors=len(grads), launches=counts)
+    check(torch.device(device).type != "cuda" or all(c > 0 for c in counts.values()),
+          f"reference-wan skipped a kernel: {counts}")
+    # bf16 against f32 through two blocks, every parameter trained: about 1%
+    # expected on the output, the loss and all gradients taken together
+    check(out_err < 3e-2 and loss_err < 3e-2 and grad_err < 5e-2,
+          f"reference-wan mismatch: out {out_err}, loss {loss_err}, grads {grad_err}")
+
+
+# --- phase 6 ------------------------------------------------------------------
+
+WAN_SLICE_CONFIG = {  # wan-1.3b-t2v-fullft-sr
+    "save_every_n_epochs": 1,
+    "model": {"type": "wan", "variant": "t2v-1.3b", "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw", "lr": 2e-5, "weight_decay": 0.01,
+                  "stochastic_rounding": True},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+
+
+def build_wan_slice(cfg=WAN_SLICE_CONFIG, device="cuda", latent_fhw=(21, 64, 64),
+                    txt_len=512, batch_size=1):
+    """The Wan path's trainer, its state, step and batch, through the
+    entry points a user calls: get_model_class("wan") -> init_train_state
+    with predicate_from_config (full fine-tuning: no [adapter]) ->
+    make_train_step with the optimizer's stochastic_rounding."""
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
+    from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
+    from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    pipeline = get_model_class("wan")(cfg, device=device)
+    wc = pipeline.wan_config
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    state = init_train_state(pipeline, get_optimizer(cfg), gen, predicate_from_config(cfg))
+    step = make_train_step(
+        pipeline, gradient_clipping=cfg["gradient_clipping"],
+        stochastic_rounding=bool(cfg["optimizer"].get("stochastic_rounding", False)))
+    batch = {
+        "latents": torch.randn((batch_size, wc.in_dim, *latent_fhw), generator=gen,
+                               device=device),
+        "text_embeddings": torch.randn((batch_size, txt_len, wc.text_dim), generator=gen,
+                                       device=device).to(wc.dtype),
+        "seq_lens": torch.full((batch_size,), txt_len, dtype=torch.int32, device=device),
+    }
+    return pipeline, state, step, batch, gen
+
+
+def phase_slice_wan(**slice_kw):
+    device = slice_kw.get("device", "cuda")
+    on_cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    pipeline, state, step, batch, gen = build_wan_slice(**slice_kw)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+
+    wc = pipeline.wan_config
+    trainable = list(state.trainable.values())
+    n_params = sum(p.numel() for p in pipeline.model.parameters())
+    n_trainable = sum(p.numel() for p in trainable)
+    n_bf16 = sum(int(p.dtype == torch.bfloat16) for p in trainable)
+    start = [p.detach().clone() for p in trainable]
+    b, _, f, h, w = batch["latents"].shape
+    tokens = b * (f // wc.patch_size[0]) * (h // wc.patch_size[1]) * (w // wc.patch_size[2])
+
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = step(state, batch, gen)
+    warm_loss = warm["loss"].item()
+    warm_s = time.perf_counter() - t0
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch, gen) for _ in range(WAN_TIMED_STEPS)]
+    _sync(device)
+    step_s = (time.perf_counter() - t0) / WAN_TIMED_STEPS
+    counts = launch_counts()
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    peak = torch.cuda.max_memory_allocated() if on_cuda else None
+
+    per_step = {k: v / WAN_TIMED_STEPS for k, v in counts.items()}
+    expected = {"flash_fwd": 4 * wc.num_layers, "flash_bwd_dq": 2 * wc.num_layers,
+                "flash_bwd_dkv": 2 * wc.num_layers, "sr_add": n_bf16}
+    changed = [int(not torch.equal(p, p0)) for p, p0 in zip(trainable, start)]
+    moved_elements = sum(int((p != p0).sum()) for p, p0 in zip(trainable, start))
+    del start
+    emit(phase="slice-wan", cell="wan-1.3b-t2v-fullft-sr", params=n_params,
+         trainable_params=n_trainable, trainable_tensors=len(trainable),
+         bf16_trainable_tensors=n_bf16, tokens_per_sample=tokens // b, init_s=init_s,
+         warmup_s=warm_s, warmup_loss=warm_loss, step_s=step_s,
+         samples_per_s=b / step_s, tokens_per_s=tokens / step_s, losses=losses,
+         grad_norms=norms, peak_memory_bytes=peak, launches=counts,
+         launches_per_step=per_step, tensors_changed=sum(changed),
+         moved_element_share=moved_elements / n_trainable)
+    check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
+    check(all(changed), f"{len(changed) - sum(changed)} trainable tensors did not change")
+    check(per_step == expected, f"launches per step {per_step}, expected {expected}")
+    return counts
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernels_line(timings, sr_timing, flux_counts, wan_counts):
+    """One entry per kernel at the Wan path's shape (K1-K3: the
+    cross-attention shape, where the plain version fits; K4: ffn_in with a
+    bf16 update), launches from the Wan path's timed steps, and the same
+    kernel's numbers at the other shapes beside."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    kernels = []
+    for name, (src, replaces) in KERNEL_SOURCES.items():
+        if name == "sr_add":
+            main = sr_timing["bf16_u"]
+            beside = {"f32_u": {k: sr_timing["f32_u"][k] for k in keys}}
+        else:
+            main = timings["wan_cross"][name]
+            beside = {shape: {k: timings[shape][name][k] for k in keys}
+                      for shape in ("wan_self", "flux")}
+            beside["flux"]["launches"] = flux_counts[name]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=wan_counts[name], **{k: main[k] for k in keys},
+                            at_other_shapes=beside))
+    return json.dumps({"kernels": kernels})
 
 
 def main():
@@ -408,19 +734,15 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
 
     phase_build()
-    timing = phase_kernels()
+    timings = phase_kernels()
+    sr_timing = phase_sr_kernel()
     phase_reference()
-    counts = phase_slice()
+    flux_counts = phase_slice()
+    _free()
+    phase_reference_wan()
+    wan_counts = phase_slice_wan()
 
-    kernels = []
-    for name, (src, replaces) in KERNEL_SOURCES.items():
-        tm = timing[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[f"{name}_cuda"], max_abs_err=tm["max_abs_err"],
-            ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-            bound_by=tm["bound_by"], library_ms=tm["library_ms"]))
-    print(json.dumps({"kernels": kernels}))
+    print(kernels_line(timings, sr_timing, flux_counts, wan_counts))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

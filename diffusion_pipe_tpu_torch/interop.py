@@ -1,15 +1,20 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux parameter tree as the JAX package builds it (a nested dict of
-numpy arrays, optionally under a top-level "params" key, with any flax
-partition boxes already removed) and returns the state_dict of the port's
-FluxTransformer, so both packages compute the same function:
+Takes a Flux or Wan parameter tree as the JAX package builds it (a nested
+dict of numpy arrays, optionally under a top-level "params" key, with any
+flax partition boxes already removed) and returns the state_dict of the
+port's FluxTransformer or WanTransformer, so both packages compute the same
+function:
 
-- `kernel` [in, out] becomes `weight` [out, in];
-- `bias`, `lora_a` [in, rank], `lora_b` [rank, out] and RMSNorm `scale`
-  keep their names and layout (lora_a stays stored unshifted);
+- a Dense `kernel` [in, out] becomes `weight` [out, in]; the Conv3d
+  `kernel` [kt, kh, kw, in, out] (Wan's patch embedding) becomes `weight`
+  [out, in, kt, kh, kw];
+- `bias`, `lora_a` [in, rank], `lora_b` [rank, out], RMSNorm `scale` and
+  the other parameters keep their names and layout (lora_a stays stored
+  unshifted);
 - the scanned block stacks carry a leading [L] axis, split into the
-  ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*`.
+  ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux)
+  or `blocks.{i}.*` (Wan).
 
 Only numpy and torch are used here.
 """
@@ -21,7 +26,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-STACKED = ("double_blocks", "single_blocks")
+STACKED = ("double_blocks", "single_blocks", "blocks")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -35,6 +40,8 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 def _leaf(path, arr) -> tuple:
     name = path[-1]
+    if name == "kernel" and arr.ndim == 5:  # Conv3d
+        return "weight", np.transpose(arr, (4, 3, 0, 1, 2))
     if name == "kernel":
         return "weight", np.swapaxes(arr, -1, -2)
     return name, arr

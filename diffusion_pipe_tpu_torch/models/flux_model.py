@@ -28,7 +28,7 @@ from .layers import (
     RMSNorm,
     TimestepEmbedder,
     apply_rope,
-    layer_norm_no_affine,
+    layer_norm,
     modulate,
     rope_frequencies,
 )
@@ -120,8 +120,8 @@ class FluxDoubleBlock(nn.Module):
         (t_shift_msa, t_scale_msa, t_gate_msa,
          t_shift_mlp, t_scale_mlp, t_gate_mlp) = self.norm1_context_linear(act).chunk(6, dim=-1)
 
-        img_n = modulate(layer_norm_no_affine(img), i_shift_msa, i_scale_msa)
-        txt_n = modulate(layer_norm_no_affine(txt), t_shift_msa, t_scale_msa)
+        img_n = modulate(layer_norm(img), i_shift_msa, i_scale_msa)
+        txt_n = modulate(layer_norm(txt), t_shift_msa, t_scale_msa)
 
         iq = self.attn_norm_q(_split_heads(self.attn_to_q(img_n), heads))
         ik = self.attn_norm_k(_split_heads(self.attn_to_k(img_n), heads))
@@ -145,11 +145,11 @@ class FluxDoubleBlock(nn.Module):
         img = img + i_gate_msa[:, None, :] * self.attn_to_out(img_attn)
         txt = txt + t_gate_msa[:, None, :] * self.attn_to_add_out(txt_attn)
 
-        img_m = modulate(layer_norm_no_affine(img), i_shift_mlp, i_scale_mlp)
+        img_m = modulate(layer_norm(img), i_shift_mlp, i_scale_mlp)
         img_m = self.ff_out(F.gelu(self.ff_in(img_m), approximate="tanh"))
         img = img + i_gate_mlp[:, None, :] * img_m
 
-        txt_m = modulate(layer_norm_no_affine(txt), t_shift_mlp, t_scale_mlp)
+        txt_m = modulate(layer_norm(txt), t_shift_mlp, t_scale_mlp)
         txt_m = self.ff_context_out(F.gelu(self.ff_context_in(txt_m), approximate="tanh"))
         txt = txt + t_gate_mlp[:, None, :] * txt_m
         return img, txt
@@ -174,7 +174,7 @@ class FluxSingleBlock(nn.Module):
     def forward(self, x, temb, rope_cos, rope_sin, kv_mask=None):
         heads = self.cfg.num_attention_heads
         shift, scale, gate = self.norm_linear(F.silu(temb)).chunk(3, dim=-1)
-        x_n = modulate(layer_norm_no_affine(x), shift, scale)
+        x_n = modulate(layer_norm(x), shift, scale)
         q = self.attn_norm_q(_split_heads(self.attn_to_q(x_n), heads))
         k = self.attn_norm_k(_split_heads(self.attn_to_k(x_n), heads))
         v = _split_heads(self.attn_to_v(x_n), heads)
@@ -255,5 +255,5 @@ class FluxTransformer(nn.Module):
             out = out[:, :img_seq_len]
         # AdaLayerNormContinuous: diffusers chunk order is (scale, shift)
         scale, shift = self.norm_out_linear(F.silu(temb)).chunk(2, dim=-1)
-        out = modulate(layer_norm_no_affine(out), shift, scale)
+        out = modulate(layer_norm(out), shift, scale)
         return self.proj_out(out)

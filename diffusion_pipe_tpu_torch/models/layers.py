@@ -1,7 +1,7 @@
 """Shared building blocks: LoRA-aware linear, norms, embeddings, RoPE.
 
 Counterpart of diffusion_pipe_tpu/models/layers.py (the parts the Flux
-slice uses). Parameter names follow the JAX package so interop.py maps one
+and Wan slices use), plus Wan's patch embedding. Parameter names follow the JAX package so interop.py maps one
 onto the other:
 
 - LoraDense.weight is torch's [out, in] (the Flax `kernel` transposed);
@@ -12,6 +12,8 @@ onto the other:
   forward, as in the JAX package: weight decay acts on the stored value, so
   the stored convention decides the training trajectory.
 - RMSNorm.scale [dim].
+- PatchEmbed3d.weight is torch's Conv3d layout [out, in, kt, kh, kw] (the
+  Flax Conv `kernel` [kt, kh, kw, in, out] transposed).
 """
 
 from __future__ import annotations
@@ -109,12 +111,46 @@ class RMSNorm(nn.Module):
         return (y * self.scale.float()).to(x.dtype)
 
 
-def layer_norm_no_affine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm without affine parameters, in float32, cast back."""
+def layer_norm(x: torch.Tensor, eps: float = 1e-6, scale: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LayerNorm over the last dim in float32, with an optional affine
+    scale and bias (taken in float32), cast back to x's dtype."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+class PatchEmbed3d(nn.Module):
+    """Conv3d with kernel = stride = patch over [B, C, F, H, W], returning
+    the tokens [B, (F/pt)(H/ph)(W/pw), out] in `dtype`. With kernel equal to
+    stride the convolution is one product of the flattened patches with the
+    flattened kernel, which is how it is computed here."""
+
+    def __init__(self, in_channels: int, features: int, patch: Tuple[int, int, int],
+                 dtype=torch.bfloat16, param_dtype=torch.float32):
+        super().__init__()
+        self.patch = tuple(patch)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_channels, *self.patch,
+                                               dtype=param_dtype))
+        self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, f, h, w = x.shape
+        pt, ph, pw = self.patch
+        x = x.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, -1, c * pt * ph * pw)
+        return F.linear(x.to(self.dtype), self.weight.flatten(1).to(self.dtype),
+                        self.bias.to(self.dtype))
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

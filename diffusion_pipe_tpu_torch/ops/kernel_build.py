@@ -23,11 +23,13 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# library name -> source file; every source also includes flash_common.cuh
+# library name -> source file; the flash sources also include flash_common.cuh,
+# which is hashed into every library's name
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "stochastic_round": "stochastic_round.cu",
 }
 HEADERS = ("flash_common.cuh",)
 

@@ -4,20 +4,32 @@ Ported: `adamw8bit` (int8 moments, signed linear absmax per block of 256 --
 the JAX package's scheme, not bitsandbytes' dynamic map), plain `adamw`, and
 the learning-rate schedules. Both follow the optax chain of the JAX package:
 Adam direction, then `+ weight_decay * p` for parameters with ndim > 1, then
-`* -lr(step)`, and the update is added in f32 and cast back to the
-parameter's dtype. `get_optimizer` returns a factory that builds the
-optimizer once the trainable parameters exist.
+`* -lr(step)`, and `apply_update` adds the result to the parameter.
+
+adamw8bit does its update math in f32. adamw follows optax.adamw's dtypes:
+its moments start in the parameter's dtype (bf16 moments for a bf16
+parameter) and every operation takes the dtype that promotion gives it, so
+f32 gradients of a bf16 parameter turn the moments f32. A Python scalar
+meets a tensor as jnp meets it -- rounded to the tensor's dtype first
+(`_weak`) -- and the bias corrections are computed in f32 as optax computes
+them. `get_optimizer` returns a factory that builds the optimizer once the
+trainable parameters exist.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
+from ..ops.quant import sr_add_
+
 BLOCK = 256
+# seed of a stochastically rounded update: step * SR_SEED_STRIDE + tensor index
+SR_SEED_STRIDE = 1000003
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -44,84 +56,128 @@ def _lr_at(lr: Schedule, count: int) -> float:
     return float(lr(count)) if callable(lr) else float(lr)
 
 
-def _apply_update(p: torch.Tensor, update: torch.Tensor, lr: float,
-                  weight_decay: float) -> None:
-    if weight_decay and p.dim() > 1:
-        update = update + weight_decay * p.float()
-    p.copy_((p.float() + update * -lr).to(p.dtype))
+@functools.lru_cache(maxsize=1024)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return torch.tensor(x, dtype=torch.float64).to(dtype).item()
 
 
-class AdamW8bit(torch.optim.Optimizer):
+def _weak(x: float, like: torch.Tensor) -> float:
+    """x rounded to like's dtype: jnp's weakly typed Python scalar."""
+    return _rounded(float(x), like.dtype)
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay**count in f32, as optax.tree.bias_correction computes it."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def apply_update(p: torch.Tensor, u: torch.Tensor, sr_seed: Optional[int] = None) -> None:
+    """p <- p + u in place, as optax.apply_updates: the sum in the promoted
+    dtype, cast to p's. With sr_seed, a bf16 p instead becomes
+    SR(f32(p) + f32(u)) through K4 (ops/quant.py), the JAX package's
+    `_apply_updates` with stochastic rounding; other dtypes add as before."""
+    if sr_seed is not None and p.dtype == torch.bfloat16:
+        sr_add_(p, u, sr_seed)
+    else:
+        p.copy_(p + u)
+
+
+class _UpdateRule(torch.optim.Optimizer):
+    """The loop both optimizers share: `_update` gives each parameter's
+    update, `apply_update` adds it."""
+
+    def _update(self, p, g, st, group) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None, grads: Optional[Sequence[Optional[torch.Tensor]]] = None,
+             sr_step: Optional[int] = None):
+        """grads: one gradient (or None, read as zeros) per parameter in the
+        order of the param groups, in place of each p.grad -- the trainer
+        hands in f32 gradients of bf16 parameters this way, which p.grad
+        cannot hold. sr_step: round bf16 parameters stochastically, the
+        tensor at index i seeded with sr_step * SR_SEED_STRIDE + i (int32,
+        wrapping). The JAX package seeds with the same formula, but indexes
+        the leaves of its scanned block stacks, and its TPU bits cannot be
+        reproduced: the two agree in distribution, not bit for bit."""
+        loss = None if closure is None else closure()
+        i = 0
+        for group in self.param_groups:
+            for p in group["params"]:
+                g = p.grad if grads is None else grads[i]
+                if g is None:
+                    g = torch.zeros_like(p)
+                u = self._update(p, g, self.state[p], group)
+                seed = None if sr_step is None else (sr_step * SR_SEED_STRIDE + i) & 0xFFFFFFFF
+                apply_update(p, u, seed)
+                i += 1
+        return loss
+
+
+class AdamW8bit(_UpdateRule):
     """AdamW with int8 blockwise-quantized moments (2 bytes a parameter plus
-    one f32 scale per 256). `stable` clips the update RMS to 1 (StableAdamW)."""
+    one f32 scale per 256). `stable` clips the update RMS to 1 (StableAdamW).
+    The update is f32."""
 
     def __init__(self, params, lr: Schedule = 1e-4, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0, stable: bool = False):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                       weight_decay=weight_decay, stable=stable))
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        loss = None if closure is None else closure()
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            for p in group["params"]:
-                g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None \
-                    else p.grad.float()
-                st = self.state[p]
-                if not st:
-                    zq, zs = quantize_blockwise(torch.zeros_like(g))
-                    st.update(step=0, m_q=zq, m_scale=zs,
-                              v_q=zq.clone(), v_scale=zs.clone())
-                lr = _lr_at(group["lr"], st["step"])
-                st["step"] += 1
-                count = st["step"]
-                m = dequantize_blockwise(st["m_q"], st["m_scale"], g.shape, g.numel())
-                v = dequantize_blockwise(st["v_q"], st["v_scale"], g.shape, g.numel())
-                m = b1 * m + (1 - b1) * g
-                v = b2 * v + (1 - b2) * g * g
-                mhat = m / (1 - b1 ** count)
-                vhat = v / (1 - b2 ** count)
-                update = mhat / (torch.sqrt(vhat) + group["eps"])
-                if group["stable"]:
-                    rms = torch.sqrt(torch.mean(update * update))
-                    update = update / torch.clamp(rms, min=1.0)
-                st["m_q"], st["m_scale"] = quantize_blockwise(m)
-                st["v_q"], st["v_scale"] = quantize_blockwise(v)
-                _apply_update(p, update, lr, group["weight_decay"])
-        return loss
+    def _update(self, p, g, st, group):
+        b1, b2 = group["betas"]
+        g = g.float()
+        if not st:
+            zq, zs = quantize_blockwise(torch.zeros_like(g))
+            st.update(step=0, m_q=zq, m_scale=zs, v_q=zq.clone(), v_scale=zs.clone())
+        lr = _lr_at(group["lr"], st["step"])
+        st["step"] += 1
+        count = st["step"]
+        m = dequantize_blockwise(st["m_q"], st["m_scale"], g.shape, g.numel())
+        v = dequantize_blockwise(st["v_q"], st["v_scale"], g.shape, g.numel())
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mhat = m / (1 - b1 ** count)
+        vhat = v / (1 - b2 ** count)
+        update = mhat / (torch.sqrt(vhat) + group["eps"])
+        if group["stable"]:
+            rms = torch.sqrt(torch.mean(update * update))
+            update = update / torch.clamp(rms, min=1.0)
+        st["m_q"], st["m_scale"] = quantize_blockwise(m)
+        st["v_q"], st["v_scale"] = quantize_blockwise(v)
+        if group["weight_decay"] and p.dim() > 1:
+            update = update + group["weight_decay"] * p.float()
+        return update * -lr
 
 
-class AdamW(torch.optim.Optimizer):
+class AdamW(_UpdateRule):
     """AdamW as optax.adamw (eps outside the sqrt, decoupled weight decay on
-    ndim > 1). Moments are f32 whatever the parameter dtype."""
+    ndim > 1), in optax's dtypes: see the module docstring."""
 
     def __init__(self, params, lr: Schedule = 1e-4, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                       weight_decay=weight_decay))
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        loss = None if closure is None else closure()
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            for p in group["params"]:
-                g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None \
-                    else p.grad.float()
-                st = self.state[p]
-                if not st:
-                    st.update(step=0, mu=torch.zeros_like(g), nu=torch.zeros_like(g))
-                lr = _lr_at(group["lr"], st["step"])
-                st["step"] += 1
-                count = st["step"]
-                st["mu"].mul_(b1).add_(g, alpha=1 - b1)
-                st["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
-                mhat = st["mu"] / (1 - b1 ** count)
-                vhat = st["nu"] / (1 - b2 ** count)
-                _apply_update(p, mhat / (torch.sqrt(vhat) + group["eps"]), lr,
-                              group["weight_decay"])
-        return loss
+    def _update(self, p, g, st, group):
+        b1, b2 = group["betas"]
+        if not st:
+            st.update(step=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+        lr = _lr_at(group["lr"], st["step"])
+        st["step"] += 1
+        count = st["step"]
+        mu, nu = st["mu"], st["nu"]
+        # optax's (1 - decay) * g**order + decay * moment, operand by operand
+        mu = _weak(1 - b1, g) * g + _weak(b1, mu) * mu
+        nu = _weak(1 - b2, g) * (g * g) + _weak(b2, nu) * nu
+        st["mu"], st["nu"] = mu, nu
+        mhat = mu / _weak(_bias_correction(b1, count), mu)
+        vhat = nu / _weak(_bias_correction(b2, count), nu)
+        root = torch.sqrt(vhat)
+        update = mhat / (root + _weak(group["eps"], root))
+        if group["weight_decay"] and p.dim() > 1:
+            update = update + _weak(group["weight_decay"], p) * p
+        return _weak(-lr, update) * update
 
 
 # --- schedules -----------------------------------------------------------------
@@ -172,8 +228,9 @@ def get_optimizer(config: Dict[str, Any]) -> Callable:
         betas = [betas[0], math.exp(math.log(0.5) / float(ocfg["beta2_half_life"]))]
     wd = float(ocfg.get("weight_decay", 0.01))
     eps = float(ocfg.get("eps", 1e-8))
-    if ocfg.get("gradient_release") or ocfg.get("stochastic_rounding"):
-        raise NotImplementedError("gradient_release / stochastic_rounding are not ported yet")
+    # `stochastic_rounding` is read by the caller and handed to make_train_step
+    if ocfg.get("gradient_release"):
+        raise NotImplementedError("gradient_release is not ported yet")
     if otype in ("adamw", "adamw_optimi", "adamw_kahan"):
         return functools.partial(AdamW, lr=schedule, betas=betas, eps=eps, weight_decay=wd)
     if otype in ("adamw8bit", "adamw8bitkahan"):

@@ -19,6 +19,16 @@ def lora_predicate(name: str, _param=None) -> bool:
     return any(part.startswith(("lora_", "lokr_")) for part in name.split("."))
 
 
+def full_ft_predicate(name: str, _param=None) -> bool:
+    """Every parameter trainable (full fine-tuning)."""
+    return True
+
+
+def predicate_from_config(config: dict) -> Callable:
+    """lora_predicate under an `[adapter]` section, else full fine-tuning."""
+    return lora_predicate if "adapter" in config else full_ft_predicate
+
+
 def partition_params(model: nn.Module, predicate: Callable) -> Dict[str, nn.Parameter]:
     """Set requires_grad from `predicate(name, param)`; return the trainable
     parameters by name, in module order."""

@@ -4,10 +4,10 @@ diffusion_pipe_tpu/training/trainer.py.
 One step: noising -> forward -> masked loss -> backward (trainable
 parameters only) -> global-norm clip -> optimizer update. With gradient
 accumulation the batch is split into microbatches whose f32 gradients are
-averaged (the mean-over-microbatches semantics of the JAX package); with
-bf16 parameters the average is then rounded to bf16 for the update, where
-the JAX package keeps it in f32. Stochastic rounding and gradient release
-are not ported yet.
+averaged (the mean-over-microbatches semantics of the JAX package) and stay
+f32 through the clip into the optimizer, as in the JAX package, whatever
+the parameter dtype. With stochastic rounding, bf16 parameters are updated
+through K4 (ops/quant.py). Gradient release is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ def _slice(x, sl):
 
 def make_train_step(pipeline, gradient_clipping: float = 1.0,
                     gradient_accumulation_steps: int = 1,
-                    skip_invalid_grads: bool = False):
+                    skip_invalid_grads: bool = False,
+                    stochastic_rounding: bool = False):
     """Returns train_step(state, batch, generator=None, noise=None, t=None)
     -> metrics, updating `state` and the model in place.
 
@@ -57,6 +58,11 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
 
     skip_invalid_grads: a parameter whose gradient holds Inf/NaN keeps its
     value this step, and its gradient counts as zero in the global norm.
+
+    stochastic_rounding: a bf16 parameter becomes SR(f32(p) + f32(u)),
+    seeded with state.step (the count before this step) * 1000003 + its
+    index among the trainable tensors (see _UpdateRule.step in
+    optimizers.py); other dtypes take p + u.
     """
     loss_fn = make_loss_fn(pipeline)
     gas = gradient_accumulation_steps
@@ -86,7 +92,7 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
                         a.add_(p.grad.float())
                         p.grad = None
             loss = loss / gas
-            grads = [(a / gas).to(p.dtype) for a, p in zip(acc, params)]
+            grads = [a / gas for a in acc]
 
         metrics = {"loss": loss}
         if skip_invalid_grads:
@@ -100,9 +106,8 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
             scale = torch.clamp(gradient_clipping / (grad_norm + 1e-6), max=1.0)
             # keep the grad dtype, as the JAX package does
             grads = [(g.float() * scale).to(g.dtype) for g in grads]
-        for p, g in zip(params, grads):
-            p.grad = g
-        state.optimizer.step()
+        state.optimizer.step(grads=grads,
+                             sr_step=state.step if stochastic_rounding else None)
         if skip_invalid_grads:
             with torch.no_grad():
                 for p, old, ok in zip(params, before, finite):

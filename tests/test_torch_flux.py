@@ -10,6 +10,8 @@ draws them, and are handed to the port. Tolerances: 1e-5 on prepare_inputs
 the LoRA grads (four blocks of f32 matmuls summed in another order).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,8 @@ from diffusion_pipe_tpu_torch.training import flow as tflow
 from diffusion_pipe_tpu_torch.training import losses as tlosses
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import jax_draws, random_flux_params, tiny_batch, tiny_flux_config
+from torch_port_helpers import (JAX_FAST_COMPILE, jax_draws, random_params, tiny_batch,
+                                tiny_flux_config)
 
 KEY = jax.random.PRNGKey(4)
 
@@ -38,11 +41,11 @@ def jax_side():
     """JAX pipeline, weights, and its forward, loss and LoRA grads at KEY."""
     cfg = tiny_flux_config()
     pipeline = jax_model_class("flux")(cfg)
-    params = random_flux_params(pipeline, seed=5, lora_b_std=0.05)
+    params = random_params(pipeline, seed=5, lora_b_std=0.05)
     jbatch = {k: jnp.asarray(v) for k, v in tiny_batch(11).items()}
     trainable, frozen = partition_params(params, jax_lora)
 
-    @jax.jit
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
     def run(trainable, frozen):
         inputs, _, _ = pipeline.prepare_inputs(KEY, jbatch)
         out = pipeline.forward(merge_params(trainable, frozen), inputs)
@@ -71,7 +74,7 @@ def test_prepare_inputs_matches(jax_side):
     batch["mask"] = (rng.random((2, 12, 20)) > 0.5).astype(np.float32)
     batch["control_latents"] = rng.standard_normal((2, 16, 8, 8)).astype(np.float32)
     key = jax.random.PRNGKey(3)
-    j_inputs, j_target, j_mask = jax.jit(jpipe.prepare_inputs)(
+    j_inputs, j_target, j_mask = jax.jit(jpipe.prepare_inputs, compiler_options=JAX_FAST_COMPILE)(
         key, {k: jnp.asarray(v) for k, v in batch.items()})
     noise, t = jax_draws(jpipe, key, batch)
     pipe = _port(cfg, params)

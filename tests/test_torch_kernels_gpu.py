@@ -1,4 +1,4 @@
-"""The port's CUDA flash-attention kernels against their plain versions.
+"""The port's CUDA kernels against their plain versions.
 
 Needs an NVIDIA GPU with nvcc (the kernels build at first use) and skips
 without one. It imports neither JAX nor the JAX package, so it also runs on
@@ -6,10 +6,14 @@ a machine without them:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
-bf16 and fp16 inputs at B=1, H=2, S=256, D=128 and 64 (and a ragged
-Skv=300, and a key mask): each kernel's error against the f32 plain result
+Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128 and
+64 (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
+tile, and a key mask): each kernel's error against the f32 plain result
 must be at most twice the plain version's in the same dtype, plus 1e-3 of
 the reference's largest magnitude.
+
+Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
+and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
 """
 
 import numpy as np
@@ -17,9 +21,11 @@ import pytest
 import torch
 
 from diffusion_pipe_tpu_torch.ops import flash_attention as port_fa
+from diffusion_pipe_tpu_torch.ops import quant
 
 B, SQ, H = 1, 256, 2
-CASES = {"nomask": (256, False), "kv_mask": (256, True), "ragged": (300, False)}
+CASES = {"nomask": (256, False), "kv_mask": (256, True), "ragged": (300, False),
+         "cross": (40, False)}
 
 
 @pytest.fixture
@@ -83,3 +89,28 @@ def test_autograd_runs_the_kernels(cuda_device):
     rdq = port_fa.flash_bwd_dq_plain(q.float(), k.float(), v.float(), None, rlse, di,
                                      do.float(), scale)
     assert (leaves[0].grad.float() - rdq).abs().max().item() < 2e-2 * rdq.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("udtype", [torch.bfloat16, torch.float32])
+def test_stochastic_round_kernel_matches_plain(udtype, cuda_device):
+    n = 8 * 1000 + 5  # a ragged tail of 5
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+    u = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 1e-2).to(udtype)
+    p[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1.5])
+    u[:4] = 0.0  # special and exact values pass through
+    p, u = p.to(cuda_device), u.to(cuda_device)
+    want = quant.sr_add_plain(p, u, 12345)
+    got = p.clone()
+    quant.reset_launch_counts()
+    assert quant.sr_add_cuda(got, u, 12345) is got
+    torch.cuda.synchronize()
+    assert quant.launch_counts() == {"sr_add_cuda": 1}
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.isnan(got[0]) and got[1] == float("inf") and got[2] == -float("inf")
+    assert got[3] == 1.5
+    # every other output is one of the two bf16 neighbours of x = p + u
+    trunc = (p.float() + u.float())[4:].view(torch.int32) & -65536  # toward zero
+    g = got[4:].float()
+    assert bool(((g == trunc.view(torch.float32)) | (g == (trunc + 65536).view(torch.float32))).all())

@@ -13,6 +13,7 @@ import torch
 from flax import linen as nn
 
 from diffusion_pipe_tpu.models import layers as jl
+from diffusion_pipe_tpu.models import wan_model as jwan
 from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
 from diffusion_pipe_tpu_torch.models import layers as tl
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -55,7 +56,10 @@ def test_rmsnorm_and_layer_norm_and_modulate():
     _close(tm(torch.from_numpy(x)), jm.apply(params, x))
 
     y = _np((2, 7, 32), 2.0) + 1.5
-    _close(tl.layer_norm_no_affine(torch.from_numpy(y)), jl.layer_norm_no_affine(y))
+    _close(tl.layer_norm(torch.from_numpy(y)), jl.layer_norm_no_affine(y))
+    w, b = _np((32,)), _np((32,))  # Wan's affine f32 layer norm
+    _close(tl.layer_norm(torch.from_numpy(y), 1e-6, torch.from_numpy(w), torch.from_numpy(b)),
+           jwan._layer_norm(y, 1e-6, w, b))
     shift, scale = _np((2, 32)), _np((2, 32))
     _close(tl.modulate(*(torch.from_numpy(a) for a in (y, shift, scale))),
            jl.modulate(y, shift, scale))
@@ -82,6 +86,20 @@ def test_timestep_embeddings():
         tm = tcls()
         tm.load_state_dict(jax_to_state_dict(params))
         _close(tm(torch.from_numpy(x)), jm.apply(params, x))
+
+
+def test_patch_embedding():
+    """Wan's Conv3d patch embedding (kernel = stride = (1, 2, 2)) against the
+    Flax Conv on channels-last input; its kernel crosses over through
+    interop.py's 5-D transpose."""
+    x = _np((2, 16, 3, 6, 8))  # [B, C, F, H, W]
+    jm = nn.Conv(24, kernel_size=(1, 2, 2), strides=(1, 2, 2), padding="VALID",
+                 dtype=jnp.float32, param_dtype=jnp.float32)
+    xl = np.transpose(x, (0, 2, 3, 4, 1))
+    params = {"params": {"kernel": _np((1, 2, 2, 16, 24), 0.25), "bias": _np((24,))}}
+    tm = tl.PatchEmbed3d(16, 24, (1, 2, 2), dtype=torch.float32)
+    tm.load_state_dict(jax_to_state_dict(params))
+    _close(tm(torch.from_numpy(x)), np.asarray(jm.apply(params, xl)).reshape(2, -1, 24))
 
 
 def test_rope():

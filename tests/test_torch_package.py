@@ -1,7 +1,7 @@
 """Package rules of the port (diffusion_pipe_tpu_torch).
 
 - no module imports jax, flax, optax or the JAX package (checked on the AST),
-  nor do chip_smoke.py and tools/profile_torch_flux_step.py;
+  nor do chip_smoke.py and tools/profile_torch_step.py;
 - importing every module needs neither nvcc nor triton;
 - an entry point raises when CUDA is absent and the caller did not pass
   device="cpu";
@@ -42,7 +42,7 @@ def _imported_roots(tree):
 def test_sources_import_no_jax():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 15
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_flux_step.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py"]
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
         assert not roots & set(FORBIDDEN), (f, roots & set(FORBIDDEN))

@@ -41,7 +41,8 @@ from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import jax_draws, random_flux_params, tiny_batch, tiny_flux_config
+from torch_port_helpers import (JAX_FAST_COMPILE, jax_draws, random_params, tiny_batch,
+                                tiny_flux_config)
 
 
 CONFIG = tiny_flux_config(
@@ -52,14 +53,15 @@ STEPS = 3
 def test_three_adamw8bit_steps_match_jax():
     batch = tiny_batch(12)
     jpipe = jax_model_class("flux")(CONFIG)
-    params = random_flux_params(jpipe, seed=6)
+    params = random_params(jpipe, seed=6)
     jopt = jax_get_optimizer(CONFIG)
     trainable, frozen = partition_params(params, jax_lora)
     # as the JAX init_train_state builds it, with the optimizer init jitted
     jstate = TrainState(step=jnp.zeros([], jnp.int32), trainable=trainable, frozen=frozen,
                         opt_state=jax.jit(jopt.init)(trainable),
                         examples=jnp.zeros([], jnp.int32))
-    jstep = jax.jit(jax_make_step(jpipe, jopt, gradient_clipping=CONFIG["gradient_clipping"]))
+    jstep = jax.jit(jax_make_step(jpipe, jopt, gradient_clipping=CONFIG["gradient_clipping"]),
+                    compiler_options=JAX_FAST_COMPILE)
 
     pipe = get_model_class("flux")(CONFIG, device="cpu")
     state = init_train_state(pipe, get_optimizer(CONFIG), torch.Generator().manual_seed(0),

@@ -1,0 +1,262 @@
+"""Tiny Wan t2v in the port vs the JAX package, on the same weights and draws.
+
+The `_tiny` config (2 blocks, dim 64, 4 heads of 16, text 16 x 32) trained
+fully (no adapter). Weights are seeded numpy draws on the JAX parameter
+structure (tests/torch_port_helpers.py) and cross over through interop.py,
+the scanned block stack split into blocks.{i} and the Conv3d patch kernel
+transposed. The noise and t come from the JAX key, as the JAX
+prepare_inputs draws them, and are handed to the port. Latents
+[2, 16, 3, 6, 6] give 27 video tokens; the text is 12 tokens padded to 16,
+with seq_lens 7 and 12.
+
+f32 tolerances: 1e-5 on prepare_inputs (the same f32 arithmetic), 1e-4 on
+the output and the loss, and 1e-4 abs / 1e-3 rel on every gradient (two
+blocks of f32 matmuls summed in another order).
+
+bf16 train steps (adamw lr 5e-3, eps 1e-2, clip 1.0): the two frameworks
+round the bf16 forward and backward in different places, so their
+gradients differ by a few bf16 ulps; eps 1e-2 keeps the Adam update
+continuous in the gradient there. Each parameter element must lie within
+one bf16 ulp of its magnitude per step of the JAX result, plus 0.1 * lr a
+step for elements near zero, whose ulp is smaller than those gradient
+differences make of the update (measured: at most 0.08 * lr).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from diffusion_pipe_tpu.models import get_model_class as jax_model_class
+from diffusion_pipe_tpu.training.flow import sample_timesteps
+from diffusion_pipe_tpu.training.optimizers import get_optimizer as jax_get_optimizer
+from diffusion_pipe_tpu.training.train_state import TrainState, merge_params, partition_params
+from diffusion_pipe_tpu.training.train_state import full_ft_predicate as jax_full_ft
+from diffusion_pipe_tpu.training.trainer import make_train_step as jax_make_step
+from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
+from diffusion_pipe_tpu_torch.models import get_model_class
+from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
+from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
+from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
+from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import JAX_FAST_COMPILE, bf16_ulp, draw_noise_and_t, random_params
+
+KEY = jax.random.PRNGKey(4)
+LR = 5e-3
+
+
+def tiny_wan_config(dtype="float32", **top):
+    cfg = {
+        "save_every_n_epochs": 1,
+        "model": {"type": "wan", "dtype": dtype, "_tiny": True},
+        "optimizer": {"type": "adamw", "lr": LR, "eps": 1e-2, "weight_decay": 0.01},
+        "gradient_clipping": 1.0,
+    }
+    cfg.update(top)
+    return cfg
+
+
+def wan_batch(seed, b=2):
+    rng = np.random.default_rng(seed)
+    return {
+        "latents": (rng.standard_normal((b, 16, 3, 6, 6)) * 0.5).astype(np.float32),
+        "text_embeddings": rng.standard_normal((b, 12, 32)).astype(np.float32),
+        "seq_lens": np.array([7, 12][:b], np.int32),
+    }
+
+
+def _port(cfg, params):
+    pipeline = get_model_class("wan")(cfg, device="cpu")
+    pipeline.init_params(torch.Generator().manual_seed(0))
+    pipeline.model.load_state_dict(jax_to_state_dict(params))
+    return pipeline
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def wan_batch_with_mask(seed):
+    batch = wan_batch(seed)
+    batch["mask"] = (np.random.default_rng(13).random((2, 10, 14)) > 0.5).astype(np.float32)
+    return batch
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """JAX pipeline, weights, and its inputs, forward, loss and full-FT
+    grads at KEY, for a batch with a loss mask."""
+    cfg = tiny_wan_config()
+    pipeline = jax_model_class("wan")(cfg)
+    params = random_params(pipeline, seed=5)
+    jbatch = {k: jnp.asarray(v) for k, v in wan_batch_with_mask(11).items()}
+    trainable, frozen = partition_params(params, jax_full_ft)
+
+    def loss_fn(trainable):  # make_loss_fn's loss, with its inputs and output
+        inputs, target, mask = pipeline.prepare_inputs(KEY, jbatch)
+        out = pipeline.forward(merge_params(trainable, frozen), inputs)
+        return pipeline.loss_fn(out, target, mask), (inputs, target, mask, out)
+
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+    def run(trainable):
+        (loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+        # the noise and t that prepare_inputs drew from KEY
+        t_key, n_key = jax.random.split(KEY)
+        t = sample_timesteps(t_key, 2, pipeline.tdist, image_seq_len=9)
+        noise = jax.random.normal(n_key, jbatch["latents"].shape, jnp.float32)
+        return loss, aux, grads, noise, t
+
+    loss, (inputs, target, mask, out), grads, noise, t = run(trainable)
+    ref = dict(inputs=jax.tree.map(np.asarray, inputs), target=np.asarray(target),
+               mask=np.asarray(mask), out=np.asarray(out), loss=float(loss),
+               grads=jax_to_state_dict(jax.tree.map(np.asarray, grads)),
+               noise=torch.tensor(np.asarray(noise)), t=torch.tensor(np.asarray(t)))
+    return cfg, pipeline, params, ref
+
+
+def _port_inputs(cfg, params, ref, remat=False):
+    pipe = _port(dict(cfg, activation_checkpointing=remat), params)
+    return pipe, pipe.prepare_inputs(_torch_batch(wan_batch_with_mask(11)),
+                                     noise=ref["noise"], t=ref["t"])
+
+
+def test_prepare_inputs_matches(jax_side):
+    """Including the loss mask, nearest-resized to the latent grid as [B,1,1,h,w]."""
+    cfg, jpipe, params, ref = jax_side
+    _, (inputs, target, mask) = _port_inputs(cfg, params, ref)
+    np.testing.assert_allclose(target.numpy(), ref["target"], atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(mask.numpy(), ref["mask"])
+    for name in ("x", "t", "context"):
+        np.testing.assert_allclose(inputs[name].numpy(), ref["inputs"][name],
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_and_full_ft_grads_match(jax_side, remat):
+    """Output, loss and every parameter's gradient; the port runs with and
+    without per-block activation checkpointing (the JAX side without)."""
+    cfg, jpipe, params, ref = jax_side
+    pipe, (inputs, target, mask) = _port_inputs(cfg, params, ref, remat)
+    out = pipe.forward(inputs)
+    np.testing.assert_allclose(out.detach().numpy(), ref["out"], atol=1e-4, rtol=1e-4)
+    loss = pipe.loss_fn(out, target, mask)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), ref["loss"], rtol=1e-4)
+    named = dict(pipe.model.named_parameters())
+    assert set(named) == set(ref["grads"])
+    for name, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref["grads"][name].numpy(),
+                                   atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+# --- bf16 full fine-tuning steps against the JAX trainer -----------------------
+
+
+def _to_numpy_f32(tree):
+    return jax_to_state_dict(jax.tree.map(lambda x: np.asarray(x, np.float32), nn.unbox(tree)))
+
+
+def _jax_bf16_steps(cfg, steps, stochastic_rounding):
+    """`steps` steps of the JAX trainer on bf16 weights; returns the start
+    and final weights (as port state_dicts), the losses and, per step, the
+    noise and t that each microbatch drew, concatenated for the port."""
+    gas = cfg["gradient_accumulation_steps"]
+    jpipe = jax_model_class("wan")(cfg)
+    params = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), random_params(jpipe, seed=7))
+    tx = jax_get_optimizer(cfg)
+    trainable, frozen = partition_params(params, jax_full_ft)
+    jstate = TrainState(step=jnp.zeros([], jnp.int32), trainable=trainable, frozen=frozen,
+                        opt_state=tx.init(trainable), examples=jnp.zeros([], jnp.int32))
+    train_step = jax_make_step(jpipe, tx, gradient_clipping=cfg["gradient_clipping"],
+                               gradient_accumulation_steps=gas,
+                               stochastic_rounding=stochastic_rounding)
+    batch = wan_batch(12)
+    mb_shape = (batch["latents"].shape[0] // gas, *batch["latents"].shape[1:])
+
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+    def step_and_draws(state, batch, key):
+        """The step, and the noise and t of each microbatch (one key each)."""
+        keys = jax.random.split(key, gas) if gas > 1 else [key]
+        draws = [draw_noise_and_t(jpipe.tdist, k, mb_shape) for k in keys]
+        return (*train_step(state, batch, key), jnp.concatenate([d[0] for d in draws]),
+                jnp.concatenate([d[1] for d in draws]))
+
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    losses, draws = [], []
+    for i in range(steps):
+        jstate, jm, noise, t = step_and_draws(jstate, jbatch, jax.random.PRNGKey(30 + i))
+        losses.append(float(jm["loss"]))
+        draws.append((torch.tensor(np.asarray(noise)), torch.tensor(np.asarray(t))))
+    return _to_numpy_f32(params), _to_numpy_f32(jstate.trainable), losses, draws
+
+
+def _port_bf16_steps(cfg, start, draws, stochastic_rounding):
+    """The same steps in the port; also returns the dtypes of the gradients
+    that its optimizer received."""
+    pipe = get_model_class("wan")(cfg, device="cpu")
+    state = init_train_state(pipe, get_optimizer(cfg), torch.Generator().manual_seed(0),
+                             predicate_from_config(cfg),
+                             state_dict={k: v.to(torch.bfloat16) for k, v in start.items()})
+    step = make_train_step(pipe, gradient_clipping=cfg["gradient_clipping"],
+                           gradient_accumulation_steps=cfg["gradient_accumulation_steps"],
+                           stochastic_rounding=stochastic_rounding)
+    received = []
+    opt_step = state.optimizer.step
+
+    def spy(grads, sr_step):
+        received.append({g.dtype for g in grads})
+        return opt_step(grads=grads, sr_step=sr_step)
+
+    state.optimizer.step = spy
+    batch = _torch_batch(wan_batch(12))
+    losses = [step(state, batch, noise=noise, t=t)["loss"].item() for noise, t in draws]
+    return state, losses, received
+
+
+def _assert_within_ulps(state, final, steps):
+    assert set(state.trainable) == set(final)
+    for name, p in state.trainable.items():
+        assert p.dtype == torch.bfloat16, name
+        got, want = p.detach().float().numpy(), final[name].numpy()
+        tol = steps * (bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + 0.1 * LR)
+        bad = np.abs(got - want) > tol
+        assert not bad.any(), (name, np.abs(got - want)[bad].max(), bad.mean())
+
+
+@pytest.fixture(scope="module")
+def bf16_runs():
+    """A bf16 full fine-tuning step with GAS 2 and stochastic_rounding, in
+    the JAX trainer and in the port."""
+    cfg = tiny_wan_config("bfloat16", gradient_accumulation_steps=2)
+    start, final, jlosses, draws = _jax_bf16_steps(cfg, 1, True)
+    return final, jlosses, _port_bf16_steps(cfg, start, draws, True)
+
+
+def test_bf16_stochastic_rounding_steps_match_jax(bf16_runs):
+    """Off the TPU the JAX trainer rounds to nearest, the port
+    stochastically (K4's plain version on the CPU), so they may differ by
+    one ulp. The port's rounding takes the other neighbour on many elements
+    (rounding to nearest in both frameworks differs on about 1%)."""
+    final, jlosses, (state, losses, _) = bf16_runs
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-3)
+    _assert_within_ulps(state, final, 1)
+    differ = total = 0
+    for name, p in state.trainable.items():
+        differ += int((p.detach().float().numpy() != final[name].numpy()).sum())
+        total += p.numel()
+    assert differ > 0.1 * total, (differ, total)
+
+
+def test_bf16_gradient_accumulation_keeps_f32_grads(bf16_runs):
+    """GAS 2: the averaged gradients reach the optimizer in f32 (the JAX
+    scan accumulates and clips them in f32), so the adamw moments of the
+    bf16 parameters turn f32, as optax's do."""
+    _, _, (state, _, received) = bf16_runs
+    assert received == [{torch.float32}]
+    for p in state.trainable.values():
+        st = state.optimizer.state[p]
+        assert st["mu"].dtype == st["nu"].dtype == torch.float32

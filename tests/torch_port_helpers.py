@@ -1,10 +1,11 @@
-"""Shared inputs for the tiny-Flux parity tests of the PyTorch port.
+"""Shared inputs for the tiny-Flux and tiny-Wan parity tests of the PyTorch port.
 
 Weights are made with numpy from a seed on the JAX package's parameter
 structure (jax.eval_shape of its init, no compile): kernels lecun-scaled
-normals, biases and RMSNorm scales perturbed away from 0 and 1 so the
-mapping of each leaf is tested, LoRA A stored uniform in [0, 2*sqrt(6/in))
-as the JAX package stores it, LoRA B zero or a small normal.
+normals, biases, modulation tables and norm scales perturbed away from 0
+and 1 so the mapping of each leaf is tested, LoRA A stored uniform in
+[0, 2*sqrt(6/in)) as the JAX package stores it, LoRA B zero or a small
+normal.
 """
 
 import functools
@@ -29,6 +30,12 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The bf16 spacing at |x| (8 significant bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
 def tiny_flux_config(**top):
     cfg = {
         "save_every_n_epochs": 1,
@@ -40,7 +47,7 @@ def tiny_flux_config(**top):
     return cfg
 
 
-def random_flux_params(pipeline, seed, lora_b_std=0.0):
+def random_params(pipeline, seed, lora_b_std=0.0):
     """A numpy parameter tree with the JAX pipeline's structure."""
     rng = np.random.default_rng(seed)
     shapes = nn.unbox(jax.eval_shape(pipeline.init_params, jax.random.PRNGKey(0)))
@@ -55,9 +62,9 @@ def random_flux_params(pipeline, seed, lora_b_std=0.0):
             return rng.uniform(0.0, 2 * bound, shape).astype(np.float32)
         if name == "lora_b":
             return (rng.standard_normal(shape) * lora_b_std).astype(np.float32)
-        if name == "scale":
+        if name.endswith("scale"):  # RMSNorm scale, Wan's norm3_scale
             return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-        return (0.02 * rng.standard_normal(shape)).astype(np.float32)  # bias
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)  # bias, modulation
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
@@ -71,12 +78,22 @@ def tiny_batch(seed, b=2):
     }
 
 
-@functools.partial(jax.jit, static_argnums=(0, 2))
-def _draws(tdist, key, shape):
+# XLA CPU compile options for the JAX references: LLVM at optimisation level
+# 0 and the older fusion emitters compile a tiny model's train step about
+# five times faster than the defaults.
+JAX_FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
+
+
+def draw_noise_and_t(tdist, key, shape):
+    """The noise and t that the JAX prepare_inputs draws from `key` for
+    latents of `shape`, as JAX arrays (traceable inside a jit)."""
     t_key, n_key = jax.random.split(key)
-    b, _, h, w = shape
+    b, h, w = shape[0], shape[-2], shape[-1]  # [B, C, H, W] or [B, C, F, H, W]
     t = sample_timesteps(t_key, b, tdist, image_seq_len=(h // 2) * (w // 2))
     return jax.random.normal(n_key, shape, jnp.float32), t
+
+
+_draws = jax.jit(draw_noise_and_t, static_argnums=(0, 2), compiler_options=JAX_FAST_COMPILE)
 
 
 def jax_draws(pipeline, key, batch):

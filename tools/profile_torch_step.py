@@ -1,30 +1,35 @@
 #!/usr/bin/env python3
-"""Where the time of the port's Flux-dev LoRA training step goes, on one GPU.
+"""Where the time of one of the port's training steps goes, on one GPU.
 
-    python3 tools/profile_torch_flux_step.py
+    python3 tools/profile_torch_step.py              # flux-dev-lora-512
+    python3 tools/profile_torch_step.py --slice wan  # wan-1.3b-t2v-fullft-sr
 
-Builds the main path exactly as chip_smoke.py does (chip_smoke.build_slice:
+Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
 full-width Flux-dev, LoRA r32, adamw8bit, per-block checkpointing, batch 2 at
-512 px), builds the kernels if needed, runs one warm-up step, then records
-two steps under torch.profiler (CPU and CUDA activities). Prints one JSON
-line with:
+512 px; or chip_smoke.build_wan_slice: full-width Wan2.1-1.3B t2v, full
+fine-tuning in bf16, adamw with stochastic rounding, per-block
+checkpointing, one 81-frame 512 px clip), builds the kernels if needed, runs
+one warm-up step, then records two steps under torch.profiler (CPU and CUDA
+activities). Prints one JSON line with:
 
 - wall_ms_per_step: host clock around the recorded steps, ended by a
   synchronize (the profiler's own overhead included);
 - device_busy_share: union of all device-kernel intervals over that wall
   window (1 - idle share), and device_busy_share_unprofiled: the same busy
   time over the unprofiled step time below;
-- device_ms_per_step by kernel category: the three flash kernels, GEMMs
-  (cuBLAS/CUTLASS names), everything else;
+- device_ms_per_step by kernel category: the three flash kernels, the
+  stochastic-rounding kernel, GEMMs (cuBLAS/CUTLASS names), everything else;
 - the top 15 kernels by device time;
 - unprofiled host-clock times (each ended by a synchronize) of a whole step,
   of forward + backward alone, and of optimizer.step() alone;
 - the matmul flops of one forward (torch.utils.flop_counter; the attention
   kernels are outside it), the step's dense-product flops taken as three
-  forwards (forward, checkpoint recompute, input gradients; the LoRA weight
-  gradients add under 2%), and the rate the GEMM kernels reached on them.
+  forwards under LoRA (forward, checkpoint recompute, input gradients; the
+  LoRA weight gradients add under 2%) and four under full fine-tuning (the
+  weight gradients as well), and the rate the GEMM kernels reached on them.
 """
 
+import argparse
 import json
 import re
 import sys
@@ -39,14 +44,15 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|sm90_", re.IGNORECASE)
-FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+           "sr_add_kernel")
 STEPS = 2
 
 
 def category(name: str) -> str:
-    for f in FLASH:
-        if f in name:
-            return f
+    for k in KERNELS:
+        if k in name:
+            return k
     return "gemm" if GEMM.search(name) else "other"
 
 
@@ -71,15 +77,17 @@ def _host_ms(fn, n=3):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def unprofiled(pipeline, state, step, batch, gen):
+def unprofiled(pipeline, state, step, batch, gen, sr):
     """Host-clock times without the profiler: a whole step, forward + backward
-    alone, optimizer.step() alone (on the grads that backward left)."""
+    alone, optimizer.step() alone (on the grads that backward left, with
+    stochastic rounding when the path has it)."""
     from diffusion_pipe_tpu_torch.training.trainer import make_loss_fn
 
     loss_fn = make_loss_fn(pipeline)
     out = dict(step=_host_ms(lambda: step(state, batch, gen)))
     out["forward_backward"] = _host_ms(lambda: loss_fn(batch, gen).backward())
-    out["optimizer_step"] = _host_ms(state.optimizer.step)
+    out["optimizer_step"] = _host_ms(
+        lambda: state.optimizer.step(sr_step=state.step if sr else None))
     state.optimizer.zero_grad(set_to_none=True)
     return out
 
@@ -94,13 +102,23 @@ def forward_matmul_flops(pipeline, batch, gen):
     return counter.get_total_flops()
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--slice", choices=("flux", "wan"), default="flux")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
         return 2
     import chip_smoke
 
-    pipeline, state, step, batch, gen = chip_smoke.build_slice()
+    if args.slice == "wan":
+        cell, cfg = "wan-1.3b-t2v-fullft-sr", chip_smoke.WAN_SLICE_CONFIG
+        pipeline, state, step, batch, gen = chip_smoke.build_wan_slice()
+    else:
+        cell, cfg = "flux-dev-lora-512", chip_smoke.SLICE_CONFIG
+        pipeline, state, step, batch, gen = chip_smoke.build_slice()
+    sr = bool(cfg["optimizer"].get("stochastic_rounding", False))
+    forwards = 3 if "adapter" in cfg else 4
     step(state, batch, gen)
     torch.cuda.synchronize()
 
@@ -127,9 +145,10 @@ def main():
         by_name[e.name][1] += 1
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    plain = unprofiled(pipeline, state, step, batch, gen)
+    plain = unprofiled(pipeline, state, step, batch, gen, sr)
     fwd_flops = forward_matmul_flops(pipeline, batch, gen)
     print(json.dumps(dict(
+        cell=cell,
         device=torch.cuda.get_device_name(0),
         nvidia_smi=chip_smoke.nvidia_smi_line(),
         steps=STEPS,
@@ -140,8 +159,8 @@ def main():
         unprofiled_ms=plain,
         device_busy_share_unprofiled=busy / 1e3 / STEPS / plain["step"],
         forward_matmul_flops=fwd_flops,
-        step_dense_flops=3 * fwd_flops,
-        gemm_tflops_per_s=3 * fwd_flops / (by_cat["gemm"] / 1e6 / STEPS) / 1e12,
+        step_dense_flops=forwards * fwd_flops,
+        gemm_tflops_per_s=forwards * fwd_flops / (by_cat["gemm"] / 1e6 / STEPS) / 1e12,
         top_kernels=[dict(name=n[:120], ms_per_step=v[0] / 1e3 / STEPS,
                           calls_per_step=v[1] / STEPS) for n, v in top],
     )))
