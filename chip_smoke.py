@@ -7,7 +7,8 @@ Phases, each printing one JSON line (or more):
 
 1. build          -- compiles the CUDA kernels under
                      diffusion_pipe_tpu_torch/csrc with nvcc, all sources in
-                     parallel, and reports nvcc's register and spill counts.
+                     parallel, and reports ptxas's register and spill counts
+                     for each kernel instance.
 2. kernels        -- K1 (forward), K2 (dQ) and K3 (dK/dV) against their plain
                      PyTorch versions at Flux-dev shapes (B=2, H=24, S=1536,
                      D=128, bf16): unmasked, with a [B, Skv] text-padding
@@ -24,6 +25,14 @@ Phases, each printing one JSON line (or more):
                      (its check takes heads 5 and 6 as strided views of
                      the full inputs; its timing all 12 heads, without the
                      plain version, which would need 22 GB of f32 logits).
+                     Two K3 launches on the same inputs must give the same
+                     bits at the Wan cross shape (its query-split path) and
+                     at the Flux shape (no split). A batch element whose
+                     keys are all masked must give O = 0, the mask value as
+                     its LSE and zero dQ, dK and dV, on both K3 paths (Wan
+                     cross at B=2, and Flux). Each timing carries its
+                     share of the bound, K1 its factor against SDPA's
+                     forward, K3 that of K2 + K3 against SDPA's backward.
    sr-kernel      -- K4 (stochastic rounding of a bf16 update) at the largest
                      Wan2.1-1.3B leaf (ffn_in, 8960 x 1536) with bf16 and f32
                      updates: bit for bit equal to its plain version, every
@@ -65,6 +74,7 @@ check raises and exits non-zero. Float32 references run with TF32 off
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -156,19 +166,51 @@ def _free():
 # --- phase 1 ------------------------------------------------------------------
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_entries(text):
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc -Xptxas -v output (the registers are those at entry, before
+    any setmaxnreg)."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = _PTXAS_ENTRY.search(ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(ln)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = _PTXAS_REGS.search(ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def main_ptxas(entries):
+    """The bf16, D = 128 instance of a flash kernel (the main path's)."""
+    for name, rec in entries.items():
+        if "nv_bfloat16" in name and "Li128E" in name:
+            return rec
+    return None
+
+
 def phase_build():
+    """Builds the kernels; returns {source name: ptxas entries}."""
     from diffusion_pipe_tpu_torch.ops import kernel_build
 
     t0 = time.perf_counter()
     report = kernel_build.build_all()
-    ptxas = {
-        name: [ln.strip() for ln in r["ptxas"].splitlines()
-               if "registers" in ln or "spill" in ln]
-        for name, r in report.items()
-    }
+    ptxas = {name: ptxas_entries(r["ptxas"]) for name, r in report.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
          per_source_seconds={n: r["seconds"] for n, r in report.items()},
          cached={n: r["cached"] for n, r in report.items()}, ptxas=ptxas)
+    return ptxas
 
 
 # --- phase 2 ------------------------------------------------------------------
@@ -282,8 +324,56 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
     }
     for name, (flops, nbytes) in work.items():
         t, by = bound(flops, nbytes)
-        timing[name].update(bound_ms=t, bound_by=by, flops=flops, bytes=nbytes)
+        timing[name].update(bound_ms=t, bound_by=by, flops=flops, bytes=nbytes,
+                            bound_share=t / timing[name]["ms"])
+    timing["flash_fwd"]["library_factor"] = (timing["flash_fwd"]["ms"]
+                                             / timing["flash_fwd"]["library_ms"])
+    # K2 and K3 together against SDPA's backward, which computes dQ, dK, dV
+    timing["flash_bwd_dkv"]["k2_k3_factor_vs_sdpa_bwd"] = (
+        (timing["flash_bwd_dq"]["ms"] + timing["flash_bwd_dkv"]["ms"]) / sdpa_bwd_ms)
     return timing, sdpa_bwd_ms
+
+
+def _check_dkv_deterministic(fa, case, b, sq, skv, h, d, gen):
+    """Two K3 launches on the same inputs give the same bits."""
+    scale = d ** -0.5
+    q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
+    o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
+    di = fa.row_dot(do, o)
+    first = fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    splits = fa.flash_bwd_dkv_cuda.last_splits
+    second = fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    torch.cuda.synchronize()
+    check(fa.flash_bwd_dkv_cuda.last_splits == splits,
+          f"K3 at the {case} shape launched with two split counts")
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    emit(phase="kernels", case=f"dkv_determinism_{case}", q_shape=[b, sq, h, d],
+         kv_len=skv, query_splits=splits, bit_identical=same)
+    check(same, f"K3 at the {case} shape differs between two launches")
+    return splits
+
+
+def _check_all_masked(fa, case, b, sq, skv, h, d, gen):
+    """Batch element 0 has no valid key: K1 gives O = 0 and the mask value
+    as its LSE, K2 and K3 give zero gradients; element 1 is unmasked and
+    finite. Returns K3's split count."""
+    scale = d ** -0.5
+    q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
+    mask = torch.ones((b, skv), dtype=torch.int32, device="cuda")
+    mask[0] = 0
+    got = _kernel_all(fa, q, k, v, do, mask, scale)
+    splits = fa.flash_bwd_dkv_cuda.last_splits
+    torch.cuda.synchronize()
+    o, lse, dq, dk, dv = got
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    zero = all(bool((x[0] == 0).all()) for x in (o, dq, dk, dv))
+    lse_ok = bool((lse[0] == fa.DEFAULT_MASK_VALUE).all())
+    emit(phase="kernels", case=f"all_masked_{case}", q_shape=[b, sq, h, d], kv_len=skv,
+         query_splits=splits, finite=finite, zero_outputs=zero, lse_is_mask_value=lse_ok)
+    check(finite and zero and lse_ok,
+          f"{case}: a batch element with no valid key gave non-zero or non-finite "
+          f"outputs (finite {finite}, zero {zero}, LSE {lse_ok})")
+    return splits
 
 
 def phase_kernels():
@@ -302,6 +392,19 @@ def phase_kernels():
     # 12, about 3.7 GB of f32 logits for each plain version
     errors["wan_self"] = _check_attention(fa, "wan_self", 1, 21504, 21504, 12, d, False, gen,
                                           heads=slice(5, 7))
+    _free()
+    # K3's query split (Wan cross: 48 key tiles on 132 SMs) and its plain
+    # path (Flux: 576 key tiles) each give the same bits twice
+    check(_check_dkv_deterministic(fa, "wan_cross", 1, 21504, 512, 12, d, gen) > 1,
+          "the Wan cross shape did not take K3's query split")
+    check(_check_dkv_deterministic(fa, "flux", b, 1536, 1536, h, d, gen) == 1,
+          "the Flux shape took K3's query split")
+    # a batch element with every key masked, on both of K3's paths: the Wan
+    # cross shape at B = 2 (96 key tiles) and the Flux shape
+    check(_check_all_masked(fa, "wan_cross", 2, 21504, 512, 12, d, gen) > 1,
+          "the B = 2 Wan cross shape did not take K3's query split")
+    check(_check_all_masked(fa, "flux", b, 1536, 1536, h, d, gen) == 1,
+          "the Flux shape took K3's query split")
     _free()
 
     timings = {}
@@ -697,25 +800,35 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernels_line(timings, sr_timing, flux_counts, wan_counts):
+def kernels_line(timings, sr_timing, flux_counts, wan_counts, ptxas):
     """One entry per kernel at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
-    kernel's numbers at the other shapes beside."""
+    kernel's numbers at the other shapes beside. Each carries its share of
+    the bound (bound_ms / ms); K1 its factor against SDPA's forward
+    (library_factor), K3 the factor of K2 + K3 against SDPA's backward; K1
+    and K3 the ptxas registers and spills of their bf16, D = 128 build."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd")
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         if name == "sr_add":
-            main = sr_timing["bf16_u"]
+            main = dict(sr_timing["bf16_u"])
+            main["bound_share"] = main["bound_ms"] / main["ms"]
             beside = {"f32_u": {k: sr_timing["f32_u"][k] for k in keys}}
         else:
             main = timings["wan_cross"][name]
-            beside = {shape: {k: timings[shape][name][k] for k in keys}
+            beside = {shape: {k: timings[shape][name][k] for k in keys + extra
+                              if k in timings[shape][name]}
                       for shape in ("wan_self", "flux")}
             beside["flux"]["launches"] = flux_counts[name]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=wan_counts[name], **{k: main[k] for k in keys},
-                            at_other_shapes=beside))
+        entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     launches=wan_counts[name], **{k: main[k] for k in keys},
+                     **{k: main[k] for k in extra if k in main})
+        if name in ("flash_fwd", "flash_bwd_dkv"):
+            entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
+        entry["at_other_shapes"] = beside
+        kernels.append(entry)
     return json.dumps({"kernels": kernels})
 
 
@@ -733,7 +846,7 @@ def main():
     emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    phase_build()
+    ptxas = phase_build()
     timings = phase_kernels()
     sr_timing = phase_sr_kernel()
     phase_reference()
@@ -742,7 +855,7 @@ def main():
     phase_reference_wan()
     wan_counts = phase_slice_wan()
 
-    print(kernels_line(timings, sr_timing, flux_counts, wan_counts))
+    print(kernels_line(timings, sr_timing, flux_counts, wan_counts, ptxas))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,164 +1,308 @@
-// Flash-attention forward (K1) for Hopper.
+// Flash-attention forward (K1) for Hopper: wgmma with TMA tile copies.
 //
 // Replaces the Pallas TPU kernel diffusion_pipe_tpu/ops/flash_attention.py
-// `_fwd_kernel` / `_fwd_kernel_nomask`, launched by `_flash_forward`.
+// `_fwd_kernel` / `_fwd_kernel_nomask` (lines 59 and 126), launched by
+// `_flash_forward`.
 //
 // Computes O = softmax(scale * Q K^T) V and the natural-log LSE per query row,
 // with an optional [B, Skv] key mask (nonzero = valid). A query row with no
 // valid key gets O = 0 and LSE = -0.7 * FLT_MAX.
 //
-// What bounds it on the H100: at Flux-dev shapes (B=2, H=24, S=1536, D=128)
-// it does 4*B*H*S^2*D = 5.8e10 flops over 38 MB of q/k/v/o, 1500 flops per
-// byte, so the tensor cores bound it (59 us at 989 TFLOP/s), not memory.
+// What bounds it on the H100: 4*B*H*Sq*Skv*D flops over 2*(2*Sq + 2*Skv)*B*H*D
+// bytes, so the tensor cores: 2.873 ms at 989 TFLOP/s for Wan2.1's
+// self-attention (B 1, H 12, S 21504, D 128), 0.059 ms for Flux-dev (B 2,
+// H 24, S 1536).
 //
-// Design: one thread block per (query tile of 64 rows, head, batch); the TPU
-// kernel's sequential fourth grid axis over KV tiles becomes a loop inside
-// the block. Four warps each own 16 query rows, keep the running max, the
-// running sum and the O accumulator in registers in f32, and issue
-// mma.sync.m16n8k16 for S = Q K^T and O += P V. Scores are scaled by
-// scale*log2(e) in f32 and exponentiated with exp2; q is not pre-rounded.
-// P is rounded to the input type for the PV product, as on the TPU. Q, K and
-// V are read through their [B, S, H, D] strides, so the model's layout needs
-// no transpose, and the last Q and KV tiles are bounded in the kernel.
-// Simple first version: no cp.async/TMA pipelining and no wgmma yet.
+// Design: one block of three warpgroups per (query tile of 128 rows, head,
+// batch). Warpgroup 2 is the producer: it gives up its registers
+// (setmaxnreg 24) and its first warp issues the TMA copies, the Q tile once
+// and then K and V tiles of 128 keys into a ring of 2 stages, each stage
+// with a full and an empty mbarrier; with each K/V stage it writes the
+// stage's key-validity bits (key < Skv and the mask), 4 words of 32 keys.
+// Warpgroups 0 and 1 (setmaxnreg 240) each own 64 query rows: S = Q K^T is a
+// wgmma m64n128k16 with Q and K K-major in 128-byte-swizzled shared memory;
+// the online softmax runs in f32 registers in the exp2 domain (ex2.approx);
+// P is rounded to the input type and fed from registers as wgmma's A operand
+// for O += P V, with V read as an MN-major B operand, so no tile is
+// transposed. The two consumer warpgroups are not scheduled against each
+// other: one's softmax overlaps the other's products as the SM interleaves
+// them.
+// Tiles: 128 query rows x 128 keys a step, 2 stages. Shared memory at
+// D = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB. Registers: 168 at
+// entry (384 threads), 240 for a consumer thread, which holds S (64 f32),
+// O (64 f32 at D = 128) and P (32); ptxas keeps every wgmma in flight (no
+// serialization) and spills nothing.
+//
+// Against the first design of this kernel (mma.sync on 64x64 tiles, one
+// warpgroup, synchronous 16-byte loads, V stored transposed element by
+// element): the copies run asynchronously ahead of the math, the
+// tensor-core products are wgmma (the only path to the full bf16 rate on
+// Hopper), the tile is 128 x 128, and the transposed V copy is gone. Ragged Sq and Skv come free: TMA
+// fills rows past the end with zeros, the validity bits mask keys past Skv,
+// and rows past Sq are not stored.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace dpt {
 
-template <typename T, int HD>
+using namespace hopper;
+
+struct FwdArgs {
+  const int* mask;  // [B, Skv], nonzero = valid key; may be null
+  long long mask_sb;
+  void* out;        // contiguous [B, Sq, H, D]
+  float* lse;       // [B, H, Sq]
+  int h, sq, skv;
+  float scale;
+};
+
+template <int HD>
 struct FwdTile {
-  static constexpr int kBM = 64;  // query rows per block (16 per warp)
-  static constexpr int kBN = 64;  // keys per loop step
-  static constexpr int kThreads = 128;
-  static constexpr int kLD = HD + 8;    // pitch of Q and K tiles
-  static constexpr int kLDT = kBN + 8;  // pitch of the transposed V tile
-  static constexpr int kSmem =
-      (kBM * kLD + kBN * kLD + HD * kLDT) * (int)sizeof(T) + kBN * (int)sizeof(int);
+  static constexpr int kBM = 128;  // query rows a block (64 a consumer warpgroup)
+  static constexpr int kBN = 128;  // keys a step
+  static constexpr int kStages = 2;
+  static constexpr int kWords = kBN / 32;  // validity words a stage
+  static constexpr int kQBytes = kBM * HD * 2;
+  static constexpr int kKVBytes = kBN * HD * 2;  // one of K or V
+  static constexpr int kOffK = kQBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;  // q, full[S], empty[S]
+  static constexpr int kOffWords = kOffBar + 8 * (1 + 2 * kStages);
+  static constexpr int kSmem = kOffWords + 4 * kStages * kWords + 1024;  // + alignment
+  static constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(128) flash_fwd_kernel(AttnArgs a) {
-  using C = FwdTile<T, HD>;
-  constexpr int BM = C::kBM, BN = C::kBN, LD = C::kLD, LDT = C::kLDT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + BM * LD;
-  T* sVt = sK + BN * LD;
-  int* sValid = reinterpret_cast<int*>(sVt + HD * LDT);
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const FwdArgs a) {
+  using C = FwdTile<HD>;
+  constexpr int BM = C::kBM, BN = C::kBN, S = C::kStages, NW = C::kWords;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t bar_q = base + C::kOffBar;
+  const uint32_t bar_full = bar_q + 8;       // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * S;
+  uint32_t* words = reinterpret_cast<uint32_t*>(sm + C::kOffWords);
 
   const int m0 = blockIdx.x * BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
+  const int n_tiles = (a.skv + BN - 1) / BN;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
-
-  load_rows<T, BM, HD, LD, C::kThreads>(sQ, q + m0 * a.q_ss, a.q_ss,
-                                        min(BM, a.sq - m0));
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's partial row sums
-  const float sc = a.scale * kLog2e;
-
-  for (int n0 = 0; n0 < a.skv; n0 += BN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const int nvalid = min(BN, a.skv - n0);
-    load_rows<T, BN, HD, LD, C::kThreads>(sK, k + n0 * a.k_ss, a.k_ss, nvalid);
-    load_rows_transposed<T, BN, HD, LDT, C::kThreads>(sVt, v + n0 * a.v_ss,
-                                                       a.v_ss, nvalid);
-    for (int i = threadIdx.x; i < BN; i += C::kThreads) {
-      sValid[i] = (i < nvalid) && (mask == nullptr || mask[n0 + i] != 0);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
     }
-    __syncthreads();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    float s[BN / 8][4];
+  if (threadIdx.x >= 256) {
+    // ---- producer: warpgroup 2, its first warp issues the copies ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        prefetch_tensor_map(&tm_q);
+        prefetch_tensor_map(&tm_k);
+        prefetch_tensor_map(&tm_v);
+        mbar_arrive_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    warp_mma_smem<T, BN / 8, HD>(s, sQ + warp * 16 * LD, LD, sK, LD, lane);
-
-    float mx[2] = {-INFINITY, -INFINITY};
+        for (int hf = 0; hf < HD / 64; ++hf)
+          tma_load_4d(base + hf * BM * 128, &tm_q, bar_q, hf * 64, h, m0, b);
+      }
+      const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % S;
+        const int n0 = j * BN;
+        uint32_t w[NW];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
+        for (int i = 0; i < NW; ++i) {
+          const int key = n0 + 32 * i + lane;
+          const bool ok = key < a.skv && (mask == nullptr || mask[key] != 0);
+          w[i] = __ballot_sync(0xffffffffu, ok);
+        }
+        mbar_wait(bar_empty + 8 * s, ((j / S) & 1) ^ 1);
+        if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = n * 8 + 2 * t + (c & 1);
-        const float x = sValid[col] ? s[n][c] * sc : -INFINITY;
-        s[n][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+          for (int i = 0; i < NW; ++i) words[s * NW + i] = w[i];
+          const uint32_t bar = bar_full + 8 * s;
+          mbar_arrive_expect_tx(bar, 2 * C::kKVBytes);
+          const uint32_t dk = base + C::kOffK + s * C::kKVBytes;
+          const uint32_t dv = base + C::kOffV + s * C::kKVBytes;
+#pragma unroll
+          for (int hf = 0; hf < HD / 64; ++hf) {
+            tma_load_4d(dk + hf * BN * 128, &tm_k, bar, hf * 64, h, n0, b);
+            tma_load_4d(dv + hf * BN * 128, &tm_v, bar, hf * 64, h, n0, b);
+          }
+        }
+        __syncwarp();
       }
     }
-    float m_use[2], alpha[2];
+  } else {
+    // ---- consumers: warpgroup cw owns query rows m0 + 64 cw + [0, 64) ----
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // running max, scaled to log2
+    float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+    const float sc = a.scale * kLog2e;
+    const uint32_t q_rows = base + cw * 64 * 128;
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      mbar_wait(bar_full + 8 * s, (j / S) & 1);
+      const uint32_t sk = base + C::kOffK + s * C::kKVBytes;
+      const uint32_t sv = base + C::kOffV + s * C::kKVBytes;
+
+      float sacc[BN / 2];
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 elements a k-step
+        wgmma_ss<T, BN>(sacc, desc_k_major(q_rows + (kk / 4) * BM * 128 + off),
+                        desc_k_major(sk + (kk / 4) * BN * 128 + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // keys past Skv or masked out score -inf
+      uint32_t w[NW];
+      uint32_t all = 0xffffffffu;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        w[i] = words[s * NW + i];
+        all &= w[i];
+      }
+      if (all != 0xffffffffu) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int bit = 8 * (i % 4) + 2 * t + (c & 1);
+            if (!((w[i / 4] >> bit) & 1u)) sacc[4 * i + c] = -INFINITY;
+          }
+        }
+      }
+
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+      }
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]) * sc);
+        // a row with no valid key so far keeps m = -inf; exponentiate against 0
+        m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;
+        alpha[r] = exp2_approx(m_run[r] - m_use[r]);
+        m_run[r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const float e = exp2_approx(fmaf(sacc[i], sc, -m_use[r]));
+        sacc[i] = e;
+        rs[r] += e;
+      }
+      l_run[0] = l_run[0] * alpha[0] + rs[0];
+      l_run[1] = l_run[1] * alpha[1] + rs[1];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // P (rounded to T) as the A fragments of O += P V, 16 keys a k-step
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = Elem<T>::pack(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+        pa[kk][1] = Elem<T>::pack(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = Elem<T>::pack(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = Elem<T>::pack(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        wgmma_rs<T, HD>(o, pa[kk], desc_mn_major(sv + kk * 16 * 128, BN * 128));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+    float inv[2], lse[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-      // a row with no valid key so far keeps m = -inf; exponentiate against 0
-      m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[r] = exp2f(m_run[r] - m_use[r]);
-      m_run[r] = m_new;
+      const float l = quad_sum(l_run[r]);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;
+      lse[r] = l > 0.f ? m_run[r] / kLog2e + logf(l) : kMaskValue;
     }
-    float rs[2] = {0.f, 0.f};
+    const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2);
+    const int r1 = r0 + 8;
+    const int64_t row_stride = (int64_t)a.h * HD;
+    T* out = static_cast<T*>(a.out) + (int64_t)b * a.sq * row_stride + h * HD;
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = exp2f(s[n][c] - m_use[c >> 1]);
-        s[n][c] = e;
-        rs[c >> 1] += e;
-      }
+    for (int i = 0; i < HD / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      if (r0 < a.sq)
+        *reinterpret_cast<uint32_t*>(out + r0 * row_stride + c) =
+            Elem<T>::pack(o[4 * i] * inv[0], o[4 * i + 1] * inv[0]);
+      if (r1 < a.sq)
+        *reinterpret_cast<uint32_t*>(out + r1 * row_stride + c) =
+            Elem<T>::pack(o[4 * i + 2] * inv[1], o[4 * i + 3] * inv[1]);
     }
-    l_run[0] = l_run[0] * alpha[0] + rs[0];
-    l_run[1] = l_run[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
+    if (t == 0) {
+      float* lse_out = a.lse + ((int64_t)b * a.h + h) * a.sq;
+      if (r0 < a.sq) lse_out[r0] = lse[0];
+      if (r1 < a.sq) lse_out[r1] = lse[1];
     }
-    warp_mma_regs<T, HD / 8, BN / 16>(o, s, sVt, LDT, lane);
-  }
-
-  float inv[2];
-  float lse[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
-    inv[r] = l > 0.f ? 1.f / l : 0.f;
-    lse[r] = l > 0.f ? m_run[r] / kLog2e + logf(l) : kMaskValue;
-  }
-  const int row0 = m0 + warp * 16;
-  T* out = static_cast<T*>(a.out0) + (int64_t)b * a.sq * a.h * HD + h * HD;
-  store_rows<T, HD / 8>(out, (int64_t)a.h * HD, row0, a.sq, o, inv[0], inv[1],
-                        lane);
-  if (t == 0) {
-    float* lse_out = a.lse_out + ((int64_t)b * a.h + h) * a.sq;
-    const int r0 = row0 + (lane >> 2);
-    if (r0 < a.sq) lse_out[r0] = lse[0];
-    if (r0 + 8 < a.sq) lse_out[r0 + 8] = lse[1];
   }
 }
+
+// Whether each instance's shared-memory limit is set, per device. File-local
+// on purpose: a function-local static of a template is one object across all
+// loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
+// same process would skip the call.
+namespace {
+bool g_smem_set[4][64];
+template <typename T, int HD>
+constexpr int smem_flag() {
+  return (std::is_same<T, __half>::value ? 2 : 0) + (HD == 128 ? 1 : 0);
+}
+}  // namespace
 
 template <typename T, int HD>
-cudaError_t run_fwd(const AttnArgs& a, cudaStream_t stream) {
-  using C = FwdTile<T, HD>;
-  dim3 grid((a.sq + C::kBM - 1) / C::kBM, a.h, a.b);
-  return launch(flash_fwd_kernel<T, HD>, grid, C::kThreads, C::kSmem, stream, a);
-}
-
-template <typename T>
-cudaError_t run_fwd_hd(const AttnArgs& a, int hd, cudaStream_t stream) {
-  if (hd == 64) return run_fwd<T, 64>(a, stream);
-  if (hd == 128) return run_fwd<T, 128>(a, stream);
-  return cudaErrorInvalidValue;
+cudaError_t run_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                    const FwdArgs& a, int b, cudaStream_t stream) {
+  using C = FwdTile<HD>;
+  cudaError_t err =
+      set_smem_once(flash_fwd_kernel<T, HD>, C::kSmem, g_smem_set[smem_flag<T, HD>()]);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + C::kBM - 1) / C::kBM, a.h, b);
+  flash_fwd_kernel<T, HD><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
 }
 
 }  // namespace dpt
@@ -169,24 +313,32 @@ extern "C" int dpt_flash_fwd(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long mask_sb, float scale, int is_fp16, void* stream) {
-  dpt::AttnArgs a = {};
-  a.q = q;
-  a.k = k;
-  a.v = v;
+  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = dpt::hopper::make_bshd_map(&tq, q, is_fp16, b, sq, h, hd, q_sb, q_ss,
+                                               q_sh, dpt::FwdTile<128>::kBM);
+  if (err == cudaSuccess)
+    err = dpt::hopper::make_bshd_map(&tk, k, is_fp16, b, skv, h, hd, k_sb, k_ss, k_sh,
+                                     dpt::FwdTile<128>::kBN);
+  if (err == cudaSuccess)
+    err = dpt::hopper::make_bshd_map(&tv, v, is_fp16, b, skv, h, hd, v_sb, v_ss, v_sh,
+                                     dpt::FwdTile<128>::kBN);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dpt::FwdArgs a = {};
   a.mask = static_cast<const int*>(mask);
-  a.out0 = o;
-  a.lse_out = static_cast<float*>(lse);
-  a.b = b;
+  a.mask_sb = mask_sb;
+  a.out = o;
+  a.lse = static_cast<float*>(lse);
   a.h = h;
   a.sq = sq;
   a.skv = skv;
-  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
-  a.mask_sb = mask_sb;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_fp16 ? dpt::run_fwd_hd<__half>(a, hd, s)
-                            : dpt::run_fwd_hd<__nv_bfloat16>(a, hd, s);
+  if (hd == 64)
+    err = is_fp16 ? dpt::run_fwd<__half, 64>(tq, tk, tv, a, b, s)
+                  : dpt::run_fwd<__nv_bfloat16, 64>(tq, tk, tv, a, b, s);
+  else
+    err = is_fp16 ? dpt::run_fwd<__half, 128>(tq, tk, tv, a, b, s)
+                  : dpt::run_fwd<__nv_bfloat16, 128>(tq, tk, tv, a, b, s);
   return static_cast<int>(err);
 }

@@ -37,8 +37,13 @@ _SIGNATURES = {
     "dpt_flash_bwd_dq": ("flash_bwd_dq", [_P] * 8 + [_I] * 5 + _STRIDES * 4
                          + [_L, _F, _I, _P]),
     "dpt_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 5 + _STRIDES * 4
-                          + [_L, _F, _I, _P]),
+                          + [_L, _F, _I, _P, _I, _P, _P]),
 }
+# K3's tiles (csrc/flash_bwd_dkv.cu, DkvTile): a block owns 128 keys and
+# steps over 64 queries
+DKV_KEY_TILE, DKV_QUERY_TILE = 128, 64
+# splits of K3's query loop considered when its key tiles do not fill the card
+DKV_MAX_SPLITS = 16
 
 
 def _entry(symbol: str):
@@ -169,9 +174,53 @@ def row_dot(do, o):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_cuda(symbol, q, k, v, kv_mask, lse, di, do, scale, n_out, out_len):
+def dkv_splits(key_blocks: int, query_tiles: int, sms: int) -> int:
+    """Blocks over which K3 splits each key tile's query loop.
+
+    With at least one key tile (over heads and batch) for every SM there is
+    no split. Otherwise it is the count s (up to DKV_MAX_SPLITS and the query
+    tiles) with the least waves of key_blocks * s blocks per unit of work,
+    ceil(key_blocks * s / sms) / s, the smallest s on a tie: at Wan2.1's
+    cross-attention (4 key tiles x 12 heads = 48 blocks, 132 SMs) that is 11,
+    528 blocks in 4 full waves."""
+    if key_blocks >= sms:
+        return 1
+    best, best_cost = 1, 1.0
+    for s in range(2, min(DKV_MAX_SPLITS, query_tiles) + 1):
+        cost = -(-key_blocks * s // sms) / s
+        if cost < best_cost - 1e-12:
+            best, best_cost = s, cost
+    return best
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _dkv_workspace(b, h, sq, skv, d, device):
+    """(splits, f32 partials, zeroed per-tile counters) for K3's query split;
+    the partials are [key tiles, splits, 2, 128, D] (None without a split)."""
+    key_tiles = b * h * -(-skv // DKV_KEY_TILE)
+    splits = dkv_splits(key_tiles, -(-sq // DKV_QUERY_TILE), _sm_count(device))
+    if splits == 1:
+        return 1, None, None
+    ws = torch.empty((key_tiles, splits, 2, DKV_KEY_TILE, d), dtype=torch.float32,
+                     device=device)
+    return splits, ws, torch.zeros(key_tiles, dtype=torch.int32, device=device)
+
+
+def _bwd_cuda(symbol, q, k, v, kv_mask, lse, di, do, scale, n_out, out_len,
+              query_split=False):
     """Checks and launches a backward kernel (K2 or K3); returns its n_out
-    outputs, each [B, out_len, H, D] in q's dtype."""
+    outputs, each [B, out_len, H, D] in q's dtype, and the split count it
+    launched with. query_split: the kernel takes K3's split count, workspace
+    and counters as trailing arguments (else the count is 1)."""
     kv_mask = _validate(q, k, v, kv_mask)
     b, sq, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -184,6 +233,11 @@ def _bwd_cuda(symbol, q, k, v, kv_mask, lse, di, do, scale, n_out, out_len):
     outs = [torch.empty((b, out_len, h, d), dtype=q.dtype, device=q.device)
             for _ in range(n_out)]
     mask_ptr, mask_sb = _mask_args(kv_mask)
+    extra, splits = (), 1
+    if query_split:
+        splits, ws, counters = _dkv_workspace(b, h, sq, k.shape[1], d, q.device)
+        extra = (splits, None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr())
     fn = _entry(symbol)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -194,30 +248,33 @@ def _bwd_cuda(symbol, q, k, v, kv_mask, lse, di, do, scale, n_out, out_len):
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  do.stride(0), do.stride(1), do.stride(2),
-                 mask_sb, float(scale), int(q.dtype == torch.float16), stream)
+                 mask_sb, float(scale), int(q.dtype == torch.float16), stream, *extra)
     _check(err, symbol)
-    return outs
+    return outs, splits
 
 
 def flash_bwd_dq_cuda(q, k, v, kv_mask, lse, di, do, scale):
     """K2: dQ [B, Sq, H, D] from the dQ kernel; lse and di are [B, H, Sq] f32."""
-    (dq,) = _bwd_cuda("dpt_flash_bwd_dq", q, k, v, kv_mask, lse, di, do, scale,
-                      1, q.shape[1])
+    (dq,), _ = _bwd_cuda("dpt_flash_bwd_dq", q, k, v, kv_mask, lse, di, do, scale,
+                         1, q.shape[1])
     flash_bwd_dq_cuda.launches += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, kv_mask, lse, di, do, scale):
-    """K3: dK, dV [B, Skv, H, D] from the dK/dV kernel."""
-    dk, dv = _bwd_cuda("dpt_flash_bwd_dkv", q, k, v, kv_mask, lse, di, do, scale,
-                       2, k.shape[1])
+    """K3: dK, dV [B, Skv, H, D] from the dK/dV kernel. `.last_splits` is the
+    number of blocks the last launch split each key tile's query loop over."""
+    (dk, dv), splits = _bwd_cuda("dpt_flash_bwd_dkv", q, k, v, kv_mask, lse, di, do,
+                                 scale, 2, k.shape[1], query_split=True)
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.last_splits = splits
     return dk, dv
 
 
 flash_fwd_cuda.launches = 0
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.last_splits = None
 KERNEL_WRAPPERS = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda)
 
 

@@ -23,15 +23,15 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# library name -> source file; the flash sources also include flash_common.cuh,
-# which is hashed into every library's name
+# library name -> source file; the flash sources also include the headers,
+# which are hashed into every library's name
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "stochastic_round": "stochastic_round.cu",
 }
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,7 +60,8 @@ def build_all() -> Dict[str, dict]:
     """Build every missing library, one nvcc each, all started together.
 
     Returns {name: {"seconds", "cached", "ptxas"}} and raises with nvcc's
-    output if any build fails.
+    output if any build fails. nvcc's output (the ptxas register and spill
+    lines) is kept beside each library, so a cached build reports it too.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -70,7 +71,9 @@ def build_all() -> Dict[str, dict]:
     for name, src in SOURCES.items():
         target = _target(name)
         if target.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            log = target.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
@@ -85,6 +88,7 @@ def build_all() -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        target.with_suffix(".log").write_text(out)
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -2,12 +2,14 @@
 diffusion_pipe_tpu/training/trainer.py.
 
 One step: noising -> forward -> masked loss -> backward (trainable
-parameters only) -> global-norm clip -> optimizer update. With gradient
-accumulation the batch is split into microbatches whose f32 gradients are
-averaged (the mean-over-microbatches semantics of the JAX package) and stay
-f32 through the clip into the optimizer, as in the JAX package, whatever
-the parameter dtype. With stochastic rounding, bf16 parameters are updated
-through K4 (ops/quant.py). Gradient release is not ported yet.
+parameters only) -> global-norm clip -> optimizer update. The global norm
+and the clip scale follow optax.global_norm's dtypes (bf16 for bf16
+gradients). With gradient accumulation the batch is split into microbatches
+whose f32 gradients are averaged (the mean-over-microbatches semantics of
+the JAX package) and stay f32 through the clip into the optimizer, as in
+the JAX package, whatever the parameter dtype. With stochastic rounding,
+bf16 parameters are updated through K4 (ops/quant.py). Gradient release is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +42,27 @@ def make_loss_fn(pipeline, timestep_quantile=None):
         return pipeline.loss_fn(pipeline.forward(model_inputs), target, mask)
 
     return loss_fn
+
+
+def global_norm(grads) -> torch.Tensor:
+    """optax.global_norm, dtype for dtype: each leaf squared in its own
+    dtype, summed in f32 and the sum rounded back to the leaf's dtype; the
+    leaf sums added in the promoted dtype from a zero of the first leaf's
+    dtype; the square root in that dtype. bf16 gradients give a bf16 norm,
+    f32 gradients the plain f32 one."""
+    total = None
+    for g in grads:
+        s = torch.sum(g * g, dtype=torch.float32).to(g.dtype)
+        total = s if total is None else total + s
+    return torch.sqrt(total) if total is not None else torch.zeros([])
+
+
+def clip_by_global_norm(grads, grad_norm: torch.Tensor, clipping: float):
+    """Each gradient times min(1, clipping / (norm + 1e-6)), the scale in the
+    norm's dtype and the product rounded to the gradient's dtype, as the JAX
+    trainer computes it."""
+    scale = torch.clamp(clipping / (grad_norm + 1e-6), max=1.0)
+    return [(g.float() * scale.float()).to(g.dtype) for g in grads]
 
 
 def _slice(x, sl):
@@ -100,12 +123,10 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
             grads = [torch.where(ok, g, torch.zeros_like(g)) for g, ok in zip(grads, finite)]
             before = [p.detach().clone() for p in params]
             metrics["skipped_params"] = sum((~ok).int() for ok in finite)
-        grad_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        grad_norm = global_norm(grads)
         metrics["grad_norm"] = grad_norm
         if gradient_clipping and gradient_clipping > 0:
-            scale = torch.clamp(gradient_clipping / (grad_norm + 1e-6), max=1.0)
-            # keep the grad dtype, as the JAX package does
-            grads = [(g.float() * scale).to(g.dtype) for g in grads]
+            grads = clip_by_global_norm(grads, grad_norm, gradient_clipping)
         state.optimizer.step(grads=grads,
                              sr_step=state.step if stochastic_rounding else None)
         if skip_invalid_grads:

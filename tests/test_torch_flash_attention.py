@@ -128,3 +128,17 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         port_fa.flash_fwd_cuda(y, y, y, None, 0.1)
     assert port_fa.launch_counts() == {
         "flash_fwd_cuda": 0, "flash_bwd_dq_cuda": 0, "flash_bwd_dkv_cuda": 0}
+
+
+@pytest.mark.parametrize("key_blocks, query_tiles, want", [
+    (48, 336, 11),   # Wan2.1 cross-attention: 4 key tiles x 12 heads -> 528 blocks
+    (2016, 336, 1),  # Wan2.1 self-attention: 168 key tiles x 12 heads
+    (576, 24, 1),    # Flux-dev: 12 key tiles x 24 heads x 2
+    (2, 4, 4),       # fewer query tiles than the best split: one tile a block
+])
+def test_dkv_splits_fill_the_card(key_blocks, query_tiles, want):
+    """K3's query split on 132 SMs: none once the key tiles fill the card,
+    else the split that wastes least of the last wave."""
+    splits = port_fa.dkv_splits(key_blocks, query_tiles, 132)
+    assert splits == want
+    assert splits <= max(1, min(port_fa.DKV_MAX_SPLITS, query_tiles))

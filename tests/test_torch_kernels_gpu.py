@@ -8,9 +8,14 @@ a machine without them:
 
 Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128 and
 64 (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
-tile, and a key mask): each kernel's error against the f32 plain result
-must be at most twice the plain version's in the same dtype, plus 1e-3 of
-the reference's largest magnitude.
+tile, a key mask, a ragged Sq=200 that is no multiple of K1's 128-row query
+tile, heads 2-3 of six as a strided view, and Sq=4096 against Skv=128, where
+K3 splits its query loop over blocks): each kernel's error against the f32
+plain result must be at most twice the plain version's in the same dtype,
+plus 1e-3 of the reference's largest magnitude. K3 gives the same bits on
+two launches, with and without the query split. A batch element whose keys
+are all masked gets O = 0, the mask value as its LSE and zero gradients,
+with and without the query split.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
@@ -23,9 +28,12 @@ import torch
 from diffusion_pipe_tpu_torch.ops import flash_attention as port_fa
 from diffusion_pipe_tpu_torch.ops import quant
 
-B, SQ, H = 1, 256, 2
-CASES = {"nomask": (256, False), "kv_mask": (256, True), "ragged": (300, False),
-         "cross": (40, False)}
+B, H = 1, 2
+# name: (Sq, Skv, masked, heads of a wider tensor taken as a strided view)
+CASES = {"nomask": (256, 256, False, None), "kv_mask": (256, 256, True, None),
+         "ragged": (256, 300, False, None), "cross": (256, 40, False, None),
+         "ragged_q": (200, 300, False, None), "head_view": (256, 256, False, slice(2, 4)),
+         "long_q_short_kv": (4096, 128, False, None)}
 
 
 @pytest.fixture
@@ -36,12 +44,15 @@ def cuda_device():
 
 
 def _inputs(case, dev, dtype=torch.bfloat16, d=128):
-    skv, masked = CASES[case]
+    sq, skv, masked, heads = CASES[case]
+    h = H if heads is None else 6
     rng = np.random.default_rng(7)
-    q, do = (rng.standard_normal((B, SQ, H, d), dtype=np.float32) for _ in range(2))
-    k, v = (rng.standard_normal((B, skv, H, d), dtype=np.float32) for _ in range(2))
+    q, do = (rng.standard_normal((B, sq, h, d), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, skv, h, d), dtype=np.float32) for _ in range(2))
     mask = (rng.random((B, skv)) > 0.3).astype(np.int32) if masked else None
     q, k, v, do = (torch.from_numpy(x).to(dev, dtype) for x in (q, k, v, do))
+    if heads is not None:
+        q, k, v, do = (x[:, :, heads] for x in (q, k, v, do))
     return q, k, v, do, (None if mask is None else torch.from_numpy(mask).to(dev))
 
 
@@ -66,10 +77,76 @@ def test_kernels_match_plain_on_gpu(case, dtype, d, cuda_device):
     dq = port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)
     dk, dv = port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
     torch.cuda.synchronize()
+    if case == "long_q_short_kv":
+        assert port_fa.flash_bwd_dkv_cuda.last_splits > 1
     for got, plain_out, ref in zip((o, lse, dq, dk, dv), plains, refs):
         err = (got.float() - ref).abs().max().item()
         plain_err = (plain_out.float() - ref).abs().max().item()
         assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item(), (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["query_split", "no_split"])
+def test_dkv_is_deterministic(path, cuda_device):
+    """Two K3 launches on the same inputs give the same bits: with the query
+    loop split over blocks (2 key tiles on the card's SMs, summed in split
+    order) and without (24 heads x 12 key tiles)."""
+    sq, skv, h = (4096, 128, 2) if path == "query_split" else (256, 1536, 24)
+    rng = np.random.default_rng(11)
+    q, do = (torch.from_numpy(rng.standard_normal((1, sq, h, 128), dtype=np.float32))
+             .to(cuda_device, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, skv, h, 128), dtype=np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    scale = 128 ** -0.5
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, None, scale)
+    di = port_fa.row_dot(do, o)
+    dk1, dv1 = port_fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    splits = port_fa.flash_bwd_dkv_cuda.last_splits
+    assert (splits > 1) == (path == "query_split")
+    dk2, dv2 = port_fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    torch.cuda.synchronize()
+    assert port_fa.flash_bwd_dkv_cuda.last_splits == splits
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["query_split", "no_split"])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
+    """Batch element 0 has no valid key: O = 0, LSE = DEFAULT_MASK_VALUE and
+    dQ = dK = dV = 0 from the kernels, on K3's split path (4 key tiles) and
+    without it (2 x 24 heads x 3 key tiles); element 1 keeps a random mask
+    and matches the plain version."""
+    sq, skv, h = (4096, 128, 2) if path == "query_split" else (256, 384, 24)
+    rng = np.random.default_rng(13)
+    q, do = (torch.from_numpy(rng.standard_normal((2, sq, h, d), dtype=np.float32))
+             .to(cuda_device, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, skv, h, d), dtype=np.float32))
+            .to(cuda_device, dtype) for _ in range(2))
+    mask = torch.from_numpy((rng.random((2, skv)) > 0.3).astype(np.int32)).to(cuda_device)
+    mask[0] = 0
+    scale = d ** -0.5
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, mask, scale)
+    di = port_fa.row_dot(do, o)
+    dq = port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)
+    dk, dv = port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
+    torch.cuda.synchronize()
+    assert (port_fa.flash_bwd_dkv_cuda.last_splits > 1) == (path == "query_split")
+    for x in (o, dq, dk, dv):
+        assert bool(torch.isfinite(x).all()) and bool((x[0] == 0).all())
+    assert bool((lse[0] == port_fa.DEFAULT_MASK_VALUE).all())
+
+    def plain(q, k, v, do):
+        o, lse = port_fa.flash_forward_plain(q, k, v, mask, scale)
+        di = port_fa.row_dot(do, o)
+        return (o, *port_fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale))
+
+    refs = plain(q.float(), k.float(), v.float(), do.float())
+    for got, plain_out, ref in zip((o, dk, dv), plain(q, k, v, do), refs):
+        err = (got[1].float() - ref[1]).abs().max().item()
+        plain_err = (plain_out[1].float() - ref[1]).abs().max().item()
+        assert err <= 2 * plain_err + 1e-3 * ref[1].abs().max().item(), (err, plain_err)
 
 
 @pytest.mark.cuda
