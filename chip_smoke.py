@@ -8,7 +8,8 @@ Phases, each printing one JSON line (or more):
 1. build          -- compiles the CUDA kernels under
                      diffusion_pipe_tpu_torch/csrc with nvcc, all sources in
                      parallel, and reports ptxas's register and spill counts
-                     for each kernel instance.
+                     for each kernel instance, and whether ptxas serialized
+                     its wgmmas (warning C7512).
 2. kernels        -- K1 (forward), K2 (dQ) and K3 (dK/dV) against their plain
                      PyTorch versions at Flux-dev shapes (B=2, H=24, S=1536,
                      D=128, bf16): unmasked, with a [B, Skv] text-padding
@@ -25,14 +26,15 @@ Phases, each printing one JSON line (or more):
                      (its check takes heads 5 and 6 as strided views of
                      the full inputs; its timing all 12 heads, without the
                      plain version, which would need 22 GB of f32 logits).
-                     Two K3 launches on the same inputs must give the same
-                     bits at the Wan cross shape (its query-split path) and
-                     at the Flux shape (no split). A batch element whose
-                     keys are all masked must give O = 0, the mask value as
-                     its LSE and zero dQ, dK and dV, on both K3 paths (Wan
-                     cross at B=2, and Flux). Each timing carries its
-                     share of the bound, K1 its factor against SDPA's
-                     forward, K3 that of K2 + K3 against SDPA's backward.
+                     Two K2 launches on the same inputs must give the same
+                     bits, and two K3 launches too, at the Wan cross shape
+                     (K3's query-split path) and at the Flux shape (no
+                     split). A batch element whose keys are all masked must
+                     give O = 0, the mask value as its LSE and zero dQ, dK
+                     and dV, on both K3 paths (Wan cross at B=2, and Flux).
+                     Each timing carries its share of the bound, K1 its
+                     factor against SDPA's forward, K3 that of K2 + K3
+                     against SDPA's backward.
    sr-kernel      -- K4 (stochastic rounding of a bf16 update) at the largest
                      Wan2.1-1.3B leaf (ffn_in, 8960 x 1536) with bf16 and f32
                      updates: bit for bit equal to its plain version, every
@@ -169,17 +171,21 @@ def _free():
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_NAME = re.compile(r"'(_Z\w+)'")
 
 
 def ptxas_entries(text):
-    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
-    from nvcc -Xptxas -v output (the registers are those at entry, before
-    any setmaxnreg)."""
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "wgmma_serialized"}} from nvcc -Xptxas -v output (the registers are
+    those at entry, before any setmaxnreg; wgmma_serialized: ptxas warned
+    C7512, every wgmma of the kernel waits for the one before)."""
     out, cur = {}, None
+    serialized = {name for ln in text.splitlines() if "C7512" in ln
+                  for name in _PTXAS_NAME.findall(ln)}
     for ln in text.splitlines():
         m = _PTXAS_ENTRY.search(ln)
         if m:
-            cur = out.setdefault(m.group(1), {})
+            cur = out.setdefault(m.group(1), {"wgmma_serialized": m.group(1) in serialized})
             continue
         if cur is None:
             continue
@@ -334,22 +340,27 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
     return timing, sdpa_bwd_ms
 
 
-def _check_dkv_deterministic(fa, case, b, sq, skv, h, d, gen):
-    """Two K3 launches on the same inputs give the same bits."""
+def _check_bwd_deterministic(fa, case, b, sq, skv, h, d, gen):
+    """Two K2 launches on the same inputs give the same bits, and so do two
+    K3 launches; returns K3's split count."""
     scale = d ** -0.5
     q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
     o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
     di = fa.row_dot(do, o)
+    dq = [fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale) for _ in range(2)]
     first = fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
     splits = fa.flash_bwd_dkv_cuda.last_splits
     second = fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
     torch.cuda.synchronize()
     check(fa.flash_bwd_dkv_cuda.last_splits == splits,
           f"K3 at the {case} shape launched with two split counts")
-    same = all(torch.equal(x, y) for x, y in zip(first, second))
-    emit(phase="kernels", case=f"dkv_determinism_{case}", q_shape=[b, sq, h, d],
-         kv_len=skv, query_splits=splits, bit_identical=same)
-    check(same, f"K3 at the {case} shape differs between two launches")
+    dq_same = torch.equal(dq[0], dq[1])
+    dkv_same = all(torch.equal(x, y) for x, y in zip(first, second))
+    emit(phase="kernels", case=f"bwd_determinism_{case}", q_shape=[b, sq, h, d],
+         kv_len=skv, query_splits=splits, dq_bit_identical=dq_same,
+         dkv_bit_identical=dkv_same)
+    check(dq_same, f"K2 at the {case} shape differs between two launches")
+    check(dkv_same, f"K3 at the {case} shape differs between two launches")
     return splits
 
 
@@ -393,11 +404,11 @@ def phase_kernels():
     errors["wan_self"] = _check_attention(fa, "wan_self", 1, 21504, 21504, 12, d, False, gen,
                                           heads=slice(5, 7))
     _free()
-    # K3's query split (Wan cross: 48 key tiles on 132 SMs) and its plain
-    # path (Flux: 576 key tiles) each give the same bits twice
-    check(_check_dkv_deterministic(fa, "wan_cross", 1, 21504, 512, 12, d, gen) > 1,
+    # K2, and K3's query split (Wan cross: 48 key tiles on 132 SMs) and its
+    # plain path (Flux: 576 key tiles), each give the same bits twice
+    check(_check_bwd_deterministic(fa, "wan_cross", 1, 21504, 512, 12, d, gen) > 1,
           "the Wan cross shape did not take K3's query split")
-    check(_check_dkv_deterministic(fa, "flux", b, 1536, 1536, h, d, gen) == 1,
+    check(_check_bwd_deterministic(fa, "flux", b, 1536, 1536, h, d, gen) == 1,
           "the Flux shape took K3's query split")
     # a batch element with every key masked, on both of K3's paths: the Wan
     # cross shape at B = 2 (96 key tiles) and the Flux shape
@@ -806,8 +817,9 @@ def kernels_line(timings, sr_timing, flux_counts, wan_counts, ptxas):
     bf16 update), launches from the Wan path's timed steps, and the same
     kernel's numbers at the other shapes beside. Each carries its share of
     the bound (bound_ms / ms); K1 its factor against SDPA's forward
-    (library_factor), K3 the factor of K2 + K3 against SDPA's backward; K1
-    and K3 the ptxas registers and spills of their bf16, D = 128 build."""
+    (library_factor), K3 the factor of K2 + K3 against SDPA's backward; K1,
+    K2 and K3 the ptxas registers, spills and wgmma serialization of their
+    bf16, D = 128 build."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd")
     kernels = []
@@ -825,7 +837,7 @@ def kernels_line(timings, sr_timing, flux_counts, wan_counts, ptxas):
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=wan_counts[name], **{k: main[k] for k in keys},
                      **{k: main[k] for k in extra if k in main})
-        if name in ("flash_fwd", "flash_bwd_dkv"):
+        if name in FLASH:
             entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
         entry["at_other_shapes"] = beside
         kernels.append(entry)

@@ -1,140 +1,309 @@
-// Flash-attention backward, dQ part (K2), for Hopper.
+// Flash-attention backward, dQ part (K2), for Hopper: wgmma with TMA tile
+// copies.
 //
 // Replaces the Pallas TPU kernel diffusion_pipe_tpu/ops/flash_attention.py
-// `_dq_kernel` / `_dq_kernel_nomask`, launched by `_flash_backward`.
+// `_dq_kernel` / `_dq_kernel_nomask` (lines 217 and 258), launched by
+// `_flash_backward`.
 //
 // Recomputes P = exp(scale * Q K^T - LSE) from the stored natural-log LSE,
 // then dS = P * (dO V^T - D) * scale and dQ = dS K, with D = rowsum(dO * O)
-// computed by the caller. Masked keys get P = 0.
+// computed by the caller. A key that is masked or past Skv gets P = 0, so a
+// query row with no valid key gets dQ = 0. dS is rounded to the input type
+// for dS K, as on the TPU.
 //
-// What bounds it on the H100: three products of 2*S^2*D flops per (b, h) --
-// 8.7e10 flops at Flux-dev shapes against 38 MB of inputs and output -- so
-// the tensor cores bound it (88 us at 989 TFLOP/s).
+// What bounds it on the H100: three products of 2*Sq*Skv*D flops per (b, h)
+// against (3*Sq + 2*Skv)*D*2 bytes, so the tensor cores: 4.309 ms at
+// 989 TFLOP/s for Wan2.1's self-attention (H 12, S 21504, D 128), 0.088 ms
+// for Flux-dev (B 2, H 24, S 1536).
 //
-// Design: one thread block per (query tile of 64 rows, head, batch) looping
-// over KV tiles of 64, so each block owns its dQ rows and no atomics are
-// needed: the result is deterministic. Four warps each hold 16 rows of dQ in
-// f32 registers. K is staged twice in shared memory, row-major for Q K^T and
-// transposed for dS K, so every mma.sync operand is a 32-bit shared-memory
-// read. dS is rounded to the input type for the dS K product, as on the TPU.
+// Design, on the pattern of K1 (csrc/flash_fwd.cu): one block of three
+// warpgroups per (query tile of 128 rows, head, batch). Warpgroup 2 is the
+// producer: it gives up its registers (setmaxnreg 24) and its first warp
+// issues the TMA copies, the Q and dO tiles once and then K and V tiles of
+// 64 keys into a ring of 3 stages, each stage with a full and an empty
+// mbarrier; with each K/V stage it writes the stage's key-validity bits
+// (key < Skv and the mask), 2 words of 32 keys, so the mask's loads never
+// hold up the math. Warpgroups 0 and 1 (setmaxnreg 240) each own 64 query
+// rows and hold their dQ in f32 registers across the loop over key steps,
+// so the block owns its dQ rows: no atomics, the same bits on every launch.
+// Each consumer thread loads the LSE (times log2 e) and D of its two rows
+// once. A step is three wgmma products: S = Q K^T and dP = dO V^T
+// (m64n64k16, both operands K-major) in two commit groups, so the
+// exponentials of P run while dP is still in the tensor cores; then dS in
+// f32 registers, rounded to the input type as the A operand of dQ += dS K
+// (m64nDk16), with the K tile read as an MN-major B operand, so no tile is
+// transposed (this is K1's O += P V with K in place of V).
+// Tiles: 128 query rows x 64 keys a step, 3 stages. Shared memory at
+// D = 128: Q, dO 32 KB each + 3 x (K, V 16 KB each) = 160 KB. Registers:
+// 168 at entry (384 threads), the bound within which ptxas places the
+// wgmmas: a consumer thread holds dQ (64 f32 at D = 128), S and dP (32
+// each) and dS (16), with no spill and every wgmma in flight. A 128-key
+// step would hold 192 f32 and so needs K3's layout (two warpgroups, no
+// producer, 256 threads); that version was no faster unmasked and slower
+// with a key mask (PERF.md).
+//
+// Against the first design of this kernel (mma.sync on 64x64 tiles, one
+// warpgroup, synchronous 16-byte loads, K staged twice, once transposed
+// element by element): TMA copies run ahead of the math, the products are
+// wgmma on 128-row query tiles, and K is copied once and never transposed. Ragged
+// Sq and Skv come free: TMA fills rows past the end with zeros, the
+// validity bits mask keys past Skv, rows past Sq get LSE = +inf (P = 0) and
+// are not stored.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace dpt {
 
-template <typename T, int HD>
+using namespace hopper;
+
+struct DqArgs {
+  const float* lse;  // [B, H, Sq], natural log
+  const float* di;   // [B, H, Sq], rowsum(dO * O)
+  const int* mask;   // [B, Skv], nonzero = valid key; may be null
+  long long mask_sb;
+  void* dq;          // contiguous [B, Sq, H, D]
+  int h, sq, skv;
+  float scale;
+};
+
+template <int HD>
 struct DqTile {
-  static constexpr int kBM = 64;
-  static constexpr int kBN = 64;
-  static constexpr int kThreads = 128;
-  static constexpr int kLD = HD + 8;
-  static constexpr int kLDT = kBN + 8;
-  static constexpr int kSmem =
-      (2 * kBM * kLD + 2 * kBN * kLD + HD * kLDT) * (int)sizeof(T) +
-      (2 * kBM + kBN) * (int)sizeof(float);
+  static constexpr int kBM = 128;  // query rows a block (64 a consumer warpgroup)
+  static constexpr int kBN = 64;   // keys a step
+  static constexpr int kStages = 3;
+  static constexpr int kWords = kBN / 32;  // validity words a stage
+  static constexpr int kQBytes = kBM * HD * 2;   // one of Q or dO
+  static constexpr int kKVBytes = kBN * HD * 2;  // one of K or V, a stage
+  static constexpr int kOffDO = kQBytes;
+  static constexpr int kOffK = 2 * kQBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;  // q, full[S], empty[S]
+  static constexpr int kOffWords = kOffBar + 8 * (1 + 2 * kStages);  // [S][NW]
+  static constexpr int kSmem = kOffWords + 4 * kStages * kWords + 1024;  // + alignment
+  static constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(128) flash_bwd_dq_kernel(AttnArgs a) {
-  using C = DqTile<T, HD>;
-  constexpr int BM = C::kBM, BN = C::kBN, LD = C::kLD, LDT = C::kLDT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sdO = sQ + BM * LD;
-  T* sK = sdO + BM * LD;
-  T* sV = sK + BN * LD;
-  T* sKt = sV + BN * LD;
-  float* sLse2 = reinterpret_cast<float*>(sKt + HD * LDT);
-  float* sDi = sLse2 + BM;
-  int* sValid = reinterpret_cast<int*>(sDi + BM);
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do, const DqArgs a) {
+  using C = DqTile<HD>;
+  constexpr int BM = C::kBM, BN = C::kBN, S = C::kStages, NW = C::kWords;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t bar_q = base + C::kOffBar;  // the Q and dO tiles
+  const uint32_t bar_full = bar_q + 8;       // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * S;
+  uint32_t* words = reinterpret_cast<uint32_t*>(sm + C::kOffWords);
 
   const int m0 = blockIdx.x * BM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int n_steps = (a.skv + BN - 1) / BN;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
-  const float* lse = a.lse + ((int64_t)b * a.h + h) * a.sq;
-  const float* di = a.di + ((int64_t)b * a.h + h) * a.sq;
-
-  const int mvalid = min(BM, a.sq - m0);
-  load_rows<T, BM, HD, LD, C::kThreads>(sQ, q + m0 * a.q_ss, a.q_ss, mvalid);
-  load_rows<T, BM, HD, LD, C::kThreads>(sdO, dout + m0 * a.do_ss, a.do_ss,
-                                        mvalid);
-  for (int i = threadIdx.x; i < BM; i += C::kThreads) {
-    // rows past the end get P = 0 (LSE = +inf) and D = 0
-    sLse2[i] = i < mvalid ? lse[m0 + i] * kLog2e : INFINITY;
-    sDi[i] = i < mvalid ? di[m0 + i] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
-  const int lr0 = warp * 16 + g;
-  const float lse2[2] = {sLse2[lr0], sLse2[lr0 + 8]};
-  const float dsum[2] = {sDi[lr0], sDi[lr0 + 8]};
 
-  float dq[HD / 8][4];
+  if (threadIdx.x >= 256) {
+    // ---- producer: warpgroup 2, its first warp issues the copies ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        prefetch_tensor_map(&tm_k);
+        prefetch_tensor_map(&tm_v);
+        mbar_arrive_expect_tx(bar_q, 2 * C::kQBytes);
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const float sc = a.scale * kLog2e;
-
-  for (int n0 = 0; n0 < a.skv; n0 += BN) {
-    __syncthreads();
-    const int nvalid = min(BN, a.skv - n0);
-    load_rows<T, BN, HD, LD, C::kThreads>(sK, k + n0 * a.k_ss, a.k_ss, nvalid);
-    load_rows<T, BN, HD, LD, C::kThreads>(sV, v + n0 * a.v_ss, a.v_ss, nvalid);
-    load_rows_transposed<T, BN, HD, LDT, C::kThreads>(sKt, k + n0 * a.k_ss,
-                                                       a.k_ss, nvalid);
-    for (int i = threadIdx.x; i < BN; i += C::kThreads) {
-      sValid[i] = (i < nvalid) && (mask == nullptr || mask[n0 + i] != 0);
-    }
-    __syncthreads();
-
-    float s[BN / 8][4];
-    float dp[BN / 8][4];
+        for (int hf = 0; hf < HD / 64; ++hf) {
+          tma_load_4d(base + hf * BM * 128, &tm_q, bar_q, hf * 64, h, m0, b);
+          tma_load_4d(base + C::kOffDO + hf * BM * 128, &tm_do, bar_q, hf * 64, h, m0, b);
+        }
+      }
+      const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
+      for (int j = 0; j < n_steps; ++j) {
+        const int s = j % S;
+        const int n0 = j * BN;
+        uint32_t w[NW];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-    warp_mma_smem<T, BN / 8, HD>(s, sQ + warp * 16 * LD, LD, sK, LD, lane);
-    warp_mma_smem<T, BN / 8, HD>(dp, sdO + warp * 16 * LD, LD, sV, LD, lane);
+        for (int i = 0; i < NW; ++i) {
+          const int key = n0 + 32 * i + lane;
+          const bool ok = key < a.skv && (mask == nullptr || mask[key] != 0);
+          w[i] = __ballot_sync(0xffffffffu, ok);
+        }
+        mbar_wait(bar_empty + 8 * s, ((j / S) & 1) ^ 1);
+        if (lane == 0) {
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
+          for (int i = 0; i < NW; ++i) words[s * NW + i] = w[i];
+          const uint32_t bar = bar_full + 8 * s;
+          mbar_arrive_expect_tx(bar, 2 * C::kKVBytes);
+          const uint32_t dk = base + C::kOffK + s * C::kKVBytes;
+          const uint32_t dv = base + C::kOffV + s * C::kKVBytes;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = n * 8 + 2 * t + (c & 1);
-        const int r = c >> 1;
-        const float p = sValid[col] ? exp2f(s[n][c] * sc - lse2[r]) : 0.f;
-        dp[n][c] = p * (dp[n][c] - dsum[r]) * a.scale;
+          for (int hf = 0; hf < HD / 64; ++hf) {
+            tma_load_4d(dk + hf * BN * 128, &tm_k, bar, hf * 64, h, n0, b);
+            tma_load_4d(dv + hf * BN * 128, &tm_v, bar, hf * 64, h, n0, b);
+          }
+        }
+        __syncwarp();
       }
     }
-    warp_mma_regs<T, HD / 8, BN / 16>(dq, dp, sKt, LDT, lane);
-  }
+  } else {
+    // ---- consumers: warpgroup cw owns query rows m0 + 64 cw + [0, 64) ----
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
 
-  T* out = static_cast<T*>(a.out0) + (int64_t)b * a.sq * a.h * HD + h * HD;
-  store_rows<T, HD / 8>(out, (int64_t)a.h * HD, m0 + warp * 16, a.sq, dq, 1.f,
-                        1.f, lane);
+    // this thread's rows r0 and r0 + 8: LSE times log2 e (+inf past Sq, so
+    // P = 0 there) and D
+    const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2);
+    float neg_lse2[2], dsum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const int64_t i = ((int64_t)b * a.h + h) * a.sq + row;
+      neg_lse2[r] = row < a.sq ? -a.lse[i] * kLog2e : -INFINITY;
+      dsum[r] = row < a.sq ? a.di[i] : 0.f;
+    }
+
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+    const float sc = a.scale * kLog2e;
+    const uint32_t q_rows = base + cw * 64 * 128;
+    const uint32_t do_rows = base + C::kOffDO + cw * 64 * 128;
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % S;
+      mbar_wait(bar_full + 8 * s, (j / S) & 1);
+      const uint32_t sk = base + C::kOffK + s * C::kKVBytes;
+      const uint32_t sv = base + C::kOffV + s * C::kKVBytes;
+
+      // S = Q K^T, then dP = dO V^T, as two groups in flight together
+      float sacc[BN / 2], dp[BN / 2];
+      fence_regs(sacc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 elements a k-step
+        wgmma_ss<T, BN>(sacc, desc_k_major(q_rows + (kk / 4) * BM * 128 + off),
+                        desc_k_major(sk + (kk / 4) * BN * 128 + off), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<T, BN>(dp, desc_k_major(do_rows + (kk / 4) * BM * 128 + off),
+                        desc_k_major(sv + (kk / 4) * BN * 128 + off), kk > 0);
+      }
+      wgmma_commit();
+
+      // P = exp2(S * scale * log2 e - LSE * log2 e) while dP is computed. A
+      // key that is masked or past Skv gets P = 0 by a select, not a
+      // multiply: a row with no valid key has LSE = -0.7 f32max, whose log2
+      // overflows to -inf, so its exponent is +inf and 0 * inf would be NaN
+      wgmma_wait<1>();
+      fence_regs(sacc);
+      uint32_t w[NW];
+      uint32_t all = 0xffffffffu;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        w[i] = words[s * NW + i];
+        all &= w[i];
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        sacc[i] = exp2_approx(fmaf(sacc[i], sc, neg_lse2[(i >> 1) & 1]));
+      if (all != 0xffffffffu) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int bit = 8 * (i % 4) + 2 * t + (c & 1);
+            sacc[4 * i + c] = ((w[i / 4] >> bit) & 1u) ? sacc[4 * i + c] : 0.f;
+          }
+        }
+      }
+
+      // dS = P * (dP - D) * scale, rounded to T as the A fragments of
+      // dQ += dS K, 16 keys a k-step
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t dsa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float d = dsum[r & 1];
+          dsa[kk][r] = Elem<T>::pack(sacc[i] * (dp[i] - d) * a.scale,
+                                     sacc[i + 1] * (dp[i + 1] - d) * a.scale);
+        }
+      }
+      fence_regs(dq);
+      fence_regs(dsa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<T, HD>(dq, dsa[kk], desc_mn_major(sk + kk * 16 * 128, BN * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+    const int64_t row_stride = (int64_t)a.h * HD;
+    T* out = static_cast<T*>(a.dq) + (int64_t)b * a.sq * row_stride + h * HD;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      if (r0 < a.sq)
+        *reinterpret_cast<uint32_t*>(out + r0 * row_stride + c) =
+            Elem<T>::pack(dq[4 * i], dq[4 * i + 1]);
+      if (r0 + 8 < a.sq)
+        *reinterpret_cast<uint32_t*>(out + (r0 + 8) * row_stride + c) =
+            Elem<T>::pack(dq[4 * i + 2], dq[4 * i + 3]);
+    }
+  }
 }
+
+// Whether each instance's shared-memory limit is set, per device. File-local
+// on purpose: a function-local static of a template is one object across all
+// loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
+// same process would skip the call.
+namespace {
+bool g_smem_set[4][64];
+template <typename T, int HD>
+constexpr int smem_flag() {
+  return (std::is_same<T, __half>::value ? 2 : 0) + (HD == 128 ? 1 : 0);
+}
+}  // namespace
 
 template <typename T, int HD>
-cudaError_t run_dq(const AttnArgs& a, cudaStream_t stream) {
-  using C = DqTile<T, HD>;
-  dim3 grid((a.sq + C::kBM - 1) / C::kBM, a.h, a.b);
-  return launch(flash_bwd_dq_kernel<T, HD>, grid, C::kThreads, C::kSmem, stream,
-                a);
-}
-
-template <typename T>
-cudaError_t run_dq_hd(const AttnArgs& a, int hd, cudaStream_t stream) {
-  if (hd == 64) return run_dq<T, 64>(a, stream);
-  if (hd == 128) return run_dq<T, 128>(a, stream);
-  return cudaErrorInvalidValue;
+cudaError_t run_dq(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                   const CUtensorMap& tdo, const DqArgs& a, int b, cudaStream_t stream) {
+  using C = DqTile<HD>;
+  cudaError_t err =
+      set_smem_once(flash_bwd_dq_kernel<T, HD>, C::kSmem, g_smem_set[smem_flag<T, HD>()]);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + C::kBM - 1) / C::kBM, a.h, b);
+  flash_bwd_dq_kernel<T, HD><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo, a);
+  return cudaGetLastError();
 }
 
 }  // namespace dpt
@@ -147,27 +316,37 @@ extern "C" int dpt_flash_bwd_dq(
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, long long mask_sb, float scale, int is_fp16,
     void* stream) {
-  dpt::AttnArgs a = {};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
+  using Tile = dpt::DqTile<128>;
+  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = dpt::hopper::make_bshd_map(&tq, q, is_fp16, b, sq, h, hd, q_sb, q_ss,
+                                               q_sh, Tile::kBM);
+  if (err == cudaSuccess)
+    err = dpt::hopper::make_bshd_map(&tdo, dout, is_fp16, b, sq, h, hd, do_sb, do_ss,
+                                     do_sh, Tile::kBM);
+  if (err == cudaSuccess)
+    err = dpt::hopper::make_bshd_map(&tk, k, is_fp16, b, skv, h, hd, k_sb, k_ss, k_sh,
+                                     Tile::kBN);
+  if (err == cudaSuccess)
+    err = dpt::hopper::make_bshd_map(&tv, v, is_fp16, b, skv, h, hd, v_sb, v_ss, v_sh,
+                                     Tile::kBN);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dpt::DqArgs a = {};
   a.lse = static_cast<const float*>(lse);
   a.di = static_cast<const float*>(di);
   a.mask = static_cast<const int*>(mask);
-  a.out0 = dq;
-  a.b = b;
+  a.mask_sb = mask_sb;
+  a.dq = dq;
   a.h = h;
   a.sq = sq;
   a.skv = skv;
-  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
-  a.do_sb = do_sb; a.do_ss = do_ss; a.do_sh = do_sh;
-  a.mask_sb = mask_sb;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_fp16 ? dpt::run_dq_hd<__half>(a, hd, s)
-                            : dpt::run_dq_hd<__nv_bfloat16>(a, hd, s);
+  if (hd == 64)
+    err = is_fp16 ? dpt::run_dq<__half, 64>(tq, tk, tv, tdo, a, b, s)
+                  : dpt::run_dq<__nv_bfloat16, 64>(tq, tk, tv, tdo, a, b, s);
+  else
+    err = is_fp16 ? dpt::run_dq<__half, 128>(tq, tk, tv, tdo, a, b, s)
+                  : dpt::run_dq<__nv_bfloat16, 128>(tq, tk, tv, tdo, a, b, s);
   return static_cast<int>(err);
 }

@@ -1,7 +1,7 @@
 // Flash-attention forward (K1) for Hopper: wgmma with TMA tile copies.
 //
 // Replaces the Pallas TPU kernel diffusion_pipe_tpu/ops/flash_attention.py
-// `_fwd_kernel` / `_fwd_kernel_nomask` (lines 59 and 126), launched by
+// `_fwd_kernel` / `_fwd_kernel_nomask` (lines 59 and 204), launched by
 // `_flash_forward`.
 //
 // Computes O = softmax(scale * Q K^T) V and the natural-log LSE per query row,

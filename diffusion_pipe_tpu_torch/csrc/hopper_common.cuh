@@ -1,7 +1,8 @@
-// Hopper pieces of the flash-attention forward (K1) and dK/dV (K3) kernels:
-// TMA tile loads through 4-D tensor maps, mbarriers, wgmma descriptors and
-// the fence/commit/wait wrappers, register hand-over between warpgroups and
-// the once-per-device shared-memory attribute. Built for sm_90a only.
+// Hopper pieces of the flash-attention forward (K1), dQ (K2) and dK/dV (K3)
+// kernels: TMA tile loads through 4-D tensor maps, mbarriers, wgmma
+// descriptors and the fence/commit/wait wrappers, register hand-over between
+// warpgroups and the once-per-device shared-memory attribute. Built for
+// sm_90a only.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 16-bit elements (128 bytes), the 16-byte chunk c of row
@@ -9,12 +10,14 @@
 // columns is two such column halves, one after the other. wgmma reads them
 // with 128-byte-swizzle descriptors:
 // - K-major (the reduction index runs along the 128-byte rows: Q and K in
-//   S = Q K^T): 8-row groups 1024 bytes apart (SBO); a k-step of 16 elements
-//   moves the start address by 32 bytes inside a half;
-// - MN-major (the output column runs along the rows: V in O = P V, dO and Q
-//   in dV = P^T dO and dK = dS^T Q): 8-row groups along k 1024 bytes apart
-//   (SBO), column halves one tile-half apart (LBO); a k-step of 16 rows
-//   moves the start by 2048 bytes. No tile is ever stored transposed.
+//   S = Q K^T, dO and V in dP = dO V^T): 8-row groups 1024 bytes apart
+//   (SBO); a k-step of 16 elements moves the start address by 32 bytes
+//   inside a half;
+// - MN-major (the output column runs along the rows: V in O = P V, K in
+//   dQ = dS K, dO and Q in dV = P^T dO and dK = dS^T Q): 8-row groups along
+//   k 1024 bytes apart (SBO), column halves one tile-half apart (LBO); a
+//   k-step of 16 rows moves the start by 2048 bytes. No tile is ever stored
+//   transposed.
 #pragma once
 
 #include <cuda.h>

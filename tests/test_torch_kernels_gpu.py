@@ -8,14 +8,16 @@ a machine without them:
 
 Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128 and
 64 (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
-tile, a key mask, a ragged Sq=200 that is no multiple of K1's 128-row query
-tile, heads 2-3 of six as a strided view, and Sq=4096 against Skv=128, where
-K3 splits its query loop over blocks): each kernel's error against the f32
-plain result must be at most twice the plain version's in the same dtype,
-plus 1e-3 of the reference's largest magnitude. K3 gives the same bits on
-two launches, with and without the query split. A batch element whose keys
-are all masked gets O = 0, the mask value as its LSE and zero gradients,
-with and without the query split.
+tile, a key mask, a ragged Sq=200 that is no multiple of K1's and K2's
+128-row query tile, heads 2-3 of six as a strided view, Sq=4096 against
+Skv=128, where K3 splits its query loop over blocks, Sq=328 against Skv=50,
+and a masked Skv=1000 of 16 key steps against Sq=130): each kernel's error
+against the f32 plain result must be at most twice the plain version's in
+the same dtype, plus 1e-3 of the reference's largest magnitude. K3 gives the
+same bits on two launches, with and without the query split, and K2 at the
+Flux-dev and Wan2.1 cross-attention shapes. A batch element whose keys are
+all masked gets O = 0, the mask value as its LSE and zero gradients, with
+and without the query split.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
@@ -33,7 +35,12 @@ B, H = 1, 2
 CASES = {"nomask": (256, 256, False, None), "kv_mask": (256, 256, True, None),
          "ragged": (256, 300, False, None), "cross": (256, 40, False, None),
          "ragged_q": (200, 300, False, None), "head_view": (256, 256, False, slice(2, 4)),
-         "long_q_short_kv": (4096, 128, False, None)}
+         "long_q_short_kv": (4096, 128, False, None),
+         # K2's tile edges (128 query rows a block, 64 keys a step, 3 stages):
+         # Sq no multiple of 128 against Skv shorter than one key step, and
+         # Skv no multiple of it, masked, over enough steps to refill the ring
+         "short_kv_ragged_q": (328, 50, False, None),
+         "ragged_steps_masked": (130, 1000, True, None)}
 
 
 @pytest.fixture
@@ -110,6 +117,27 @@ def test_dkv_is_deterministic(path, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["flux", "wan_cross"])
+def test_dq_is_deterministic(shape, cuda_device):
+    """Two K2 launches on the same inputs give the same bits, at the shapes
+    of the main paths (bf16, D 128): Flux-dev's joint attention (B 2, H 24,
+    S 1536) and Wan2.1's cross-attention (Sq 21504, Skv 512, H 12)."""
+    b, sq, skv, h = (2, 1536, 1536, 24) if shape == "flux" else (1, 21504, 512, 12)
+    rng = np.random.default_rng(17)
+    q, do = (torch.from_numpy(rng.standard_normal((b, sq, h, 128), dtype=np.float32))
+             .to(cuda_device, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, skv, h, 128), dtype=np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    scale = 128 ** -0.5
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, None, scale)
+    di = port_fa.row_dot(do, o)
+    dq1 = port_fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)
+    dq2 = port_fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dq1).all()) and torch.equal(dq1, dq2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("path", ["query_split", "no_split"])
 @pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -117,7 +145,7 @@ def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
     """Batch element 0 has no valid key: O = 0, LSE = DEFAULT_MASK_VALUE and
     dQ = dK = dV = 0 from the kernels, on K3's split path (4 key tiles) and
     without it (2 x 24 heads x 3 key tiles); element 1 keeps a random mask
-    and matches the plain version."""
+    and its O, dQ, dK and dV match the plain version."""
     sq, skv, h = (4096, 128, 2) if path == "query_split" else (256, 384, 24)
     rng = np.random.default_rng(13)
     q, do = (torch.from_numpy(rng.standard_normal((2, sq, h, d), dtype=np.float32))
@@ -140,10 +168,11 @@ def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
     def plain(q, k, v, do):
         o, lse = port_fa.flash_forward_plain(q, k, v, mask, scale)
         di = port_fa.row_dot(do, o)
-        return (o, *port_fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale))
+        return (o, port_fa.flash_bwd_dq_plain(q, k, v, mask, lse, di, do, scale),
+                *port_fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale))
 
     refs = plain(q.float(), k.float(), v.float(), do.float())
-    for got, plain_out, ref in zip((o, dk, dv), plain(q, k, v, do), refs):
+    for got, plain_out, ref in zip((o, dq, dk, dv), plain(q, k, v, do), refs):
         err = (got[1].float() - ref[1]).abs().max().item()
         plain_err = (plain_out[1].float() - ref[1]).abs().max().item()
         assert err <= 2 * plain_err + 1e-3 * ref[1].abs().max().item(), (err, plain_err)

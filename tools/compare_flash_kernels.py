@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times this tree's flash-attention kernels K1 (forward) and K3 (dK/dV)
-against another tree's, in one process on one GPU.
+"""Times this tree's flash-attention kernels K1 (forward), K2 (dQ) and K3
+(dK/dV) against another tree's, in one process on one GPU.
 
     git archive <commit> diffusion_pipe_tpu_torch | tar -x -C build/parent
     python3 tools/compare_flash_kernels.py --parent build/parent
@@ -91,6 +91,8 @@ def main():
         calls = {
             "flash_fwd": {fa: (lambda fa=fa: fa.flash_fwd_cuda(q, k, v, None, scale))
                           for fa in (old_fa, new_fa)},
+            "flash_bwd_dq": {fa: (lambda fa=fa: (fa.flash_bwd_dq_cuda(
+                q, k, v, None, lse, di, do, scale),)) for fa in (old_fa, new_fa)},
             "flash_bwd_dkv": {fa: (lambda fa=fa: fa.flash_bwd_dkv_cuda(
                 q, k, v, None, lse, di, do, scale)) for fa in (old_fa, new_fa)},
         }
