@@ -41,6 +41,17 @@ Phases, each printing one JSON line (or more):
                      output one of the two bf16 neighbours of f32(p) + f32(u),
                      and the mean over 64 seeds within 4 sigma of the f32
                      sum; then its time beside its bound.
+   int8-kernels   -- H1 (per-row int8 quantization, with and without the
+                     column pre-scale) and H2 (int32 rescale to bf16) bit for
+                     bit against their plain versions at the Flux path's
+                     shapes, timed beside their bytes bound (device time
+                     from torch.profiler, since a launch takes the wrapper
+                     longer on the host than the kernel on the device; the
+                     launch rate beside as launch_ms); then one int8
+                     linear (H1, torch._int_mm, H2) forward and its int8
+                     dgrad against torch.matmul in bf16 at three Flux block
+                     shapes (ff_in, the single blocks' proj_out, and the
+                     two-row norm1_linear, which int_mm pads to 32 rows).
 3. reference      -- a two-block Flux at head dim 128 (bf16 on the card,
                      through the kernels) against the same weights in f32 on
                      the CPU (plain attention): output, loss and LoRA grads.
@@ -51,6 +62,18 @@ Phases, each printing one JSON line (or more):
                      five timed steps with the launch counters set to 0 just
                      before: every loss finite, LoRA factors moved, frozen
                      weights unchanged, and 114 / 57 / 57 launches per step.
+   slice-fp8-int8 -- the main path as bench.py runs it, cell
+                     flux-dev-lora-512-fp8-int8: the same trainer with the
+                     block weights stored in fp8 and pre-quantized to int8 by
+                     init_train_state, int8_matmul "fwd_bwd" and
+                     activation_checkpointing "attn". One warm-up step, five
+                     timed: finite losses, LoRA moved, the int8 weights
+                     unchanged, every block linear int8 with real scales,
+                     57 / 57 / 57 flash launches and 1406 H1 and H2 launches
+                     a step (494 linears x forward and recompute, and the
+                     dgrads of the 418 whose input needs a gradient: not
+                     the 76 adaLN linears, fed by the frozen embedders),
+                     and a peak below the bf16 phase's.
 5. reference-wan  -- a two-block Wan at head dim 128 (dim 256, 2 heads, a
                      3x10x10 latent grid = 75 tokens, 40 text tokens), full
                      fine-tuning, bf16 on the card against f32 on the CPU:
@@ -66,8 +89,9 @@ Phases, each printing one JSON line (or more):
                      launches and one K4 launch per bf16 trainable tensor
                      per step.
 
-Then it prints the kernels' JSON line (each kernel at the Wan path's shape,
-with its numbers at the other shapes beside), the card's name and power
+Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
+their numbers at the other shapes beside; H1 and H2, which replace no
+Pallas kernel, at the Flux fp8-int8 path's), the card's name and power
 limit from nvidia-smi, and last {"ok": true, "device": {...}}. Any failed
 check raises and exits non-zero. Float32 references run with TF32 off
 (matmul and cuDNN).
@@ -100,8 +124,16 @@ KERNEL_SOURCES = {  # wrapper name -> (source, the TPU kernel it replaces)
                       "diffusion_pipe_tpu/ops/flash_attention.py:264"),
     "sr_add": ("diffusion_pipe_tpu_torch/csrc/stochastic_round.cu",
                "diffusion_pipe_tpu/ops/quant.py:22"),
+    # not Pallas kernels: the XLA-fused quantization and rescale around the
+    # JAX package's int8 dot_general
+    "quant_rows": ("diffusion_pipe_tpu_torch/csrc/int8_quant.cu",
+                   "diffusion_pipe_tpu/models/layers.py:126 (not Pallas)"),
+    "rescale_i32": ("diffusion_pipe_tpu_torch/csrc/int8_quant.cu",
+                    "diffusion_pipe_tpu/models/layers.py:157 (not Pallas)"),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+INT8 = ("quant_rows", "rescale_i32")
+NO_INT8 = {name: 0 for name in INT8}
 
 
 class CheckFailed(Exception):
@@ -131,6 +163,25 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, kernel, iters=20):
+    """Mean device time a call of fn spends in the CUDA kernels whose name
+    holds `kernel`, from torch.profiler, after one warm-up: for a kernel
+    shorter than its wrapper's host time, where cuda_ms measures the launch
+    rate instead."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(len(us) == iters, f"the profiler saw {len(us)} {kernel} kernels in {iters} calls")
+    return sum(us) / 1e3 / iters
+
+
 def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -138,9 +189,9 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 
 
 def _kernel_modules():
-    from diffusion_pipe_tpu_torch.ops import flash_attention, quant
+    from diffusion_pipe_tpu_torch.ops import flash_attention, int8_quant, quant
 
-    return flash_attention, quant
+    return flash_attention, quant, int8_quant
 
 
 def reset_launch_counts():
@@ -149,8 +200,8 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """{kernel name: launches since the last reset} for K1-K4, each kernel
-    named by its wrapper without the "_cuda" suffix."""
+    """{kernel name: launches since the last reset} for K1-K4, H1 and H2,
+    each kernel named by its wrapper without the "_cuda" suffix."""
     return {name.removesuffix("_cuda"): n for mod in _kernel_modules()
             for name, n in mod.launch_counts().items()}
 
@@ -487,6 +538,111 @@ def phase_sr_kernel():
     return out
 
 
+INT8_H1_CASES = {  # the Flux path's H1 inputs at ff_in: (rows, columns, column pre-scale)
+    "forward_ff_in": (2048, 3072, False),     # x, bf16
+    "dgrad_ff_in": (2048, 12288, True),       # the cotangent times the weight's scales
+}
+INT8_H2_SHAPE = (2048, 12288)  # ff_in's int32 product, rescaled to bf16
+# (rows, in, out) of Flux block linears: ff_in, the single blocks' proj_out
+# and norm1_linear (the batch's two rows, padded to 32 for torch._int_mm)
+INT8_LINEAR_SHAPES = {"ff_in": (2048, 3072, 12288), "single_proj_out": (3072, 15360, 3072),
+                      "norm1_linear": (2, 3072, 18432)}
+
+
+def _h1_timing(iq, case, m, k, prescale, gen):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    col = torch.rand(k, generator=gen, device="cuda") * 1e-2 if prescale else None
+    got8, got_s = iq.quant_rows_cuda(x, col)
+    want8, want_s = iq.quant_rows_plain(x, col)
+    torch.cuda.synchronize()
+    equal = torch.equal(got8, want8) and torch.equal(got_s, want_s)
+    err = (got8.int() - want8.int()).abs().max().item()
+    # bf16 in, the pre-scale's f32 vector, int8 out and an f32 scale a row;
+    # |v| max, divide, round, clamp (and the multiply) an element
+    nbytes = 2 * m * k + (4 * k if prescale else 0) + m * k + 4 * m
+    flops = (6 if prescale else 5) * m * k
+    t, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    rec = dict(ms=kernel_device_ms(lambda: iq.quant_rows_cuda(x, col), "quant_rows_kernel"),
+               launch_ms=cuda_ms(lambda: iq.quant_rows_cuda(x, col)),
+               plain_ms=cuda_ms(lambda: iq.quant_rows_plain(x, col), 5), library_ms=None,
+               bound_ms=t, bound_by=by, bytes=nbytes, flops=flops, max_abs_err=err)
+    rec["bound_share"] = t / rec["ms"]
+    emit(phase="int8-kernels", kernel="quant_rows", case=case, shape=[m, k],
+         column_prescale=prescale, bit_equal=equal, **rec)
+    check(equal, f"H1 ({case}) differs from its plain version")
+    return rec
+
+
+def _h2_timing(iq, gen):
+    m, n = INT8_H2_SHAPE
+    y = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    rs = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3
+    cs = torch.rand(n, generator=gen, device="cuda") * 1e-3
+    got = iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16)
+    want = iq.rescale_i32_plain(y, rs, cs, torch.bfloat16)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    nbytes = 4 * m * n + 2 * m * n + 4 * m + 4 * n  # int32 in, bf16 out, the scales
+    flops = 3 * m * n  # convert and two multiplies an element
+    t, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    rec = dict(ms=kernel_device_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16),
+                                   "rescale_kernel"),
+               launch_ms=cuda_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16)),
+               plain_ms=cuda_ms(lambda: iq.rescale_i32_plain(y, rs, cs, torch.bfloat16), 5),
+               library_ms=None, bound_ms=t, bound_by=by, bytes=nbytes, flops=flops,
+               max_abs_err=(got.float() - want.float()).abs().max().item())
+    rec["bound_share"] = t / rec["ms"]
+    emit(phase="int8-kernels", kernel="rescale_i32", case="ff_in", shape=[m, n],
+         bit_equal=equal, **rec)
+    check(equal, "H2 differs from its plain version")
+    return rec
+
+
+def _int8_linear_timing(layers, iq, m, k, n, gen):
+    """One int8 linear's forward (H1, torch._int_mm, H2) and its int8 dgrad
+    (H1 with the pre-scale, a transposed copy of w8, torch._int_mm, H2)
+    against torch.matmul in bf16 on the same shapes, with torch._int_mm
+    alone beside; and the int8 forward's error against the bf16 product."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)).to(
+        torch.float8_e4m3fn)
+    w8, scale = layers.quantize_kernel_int8(w)
+    wb = w.to(torch.bfloat16)
+    x8, _ = iq.quant_rows_cuda(x)
+    y = layers._int8_forward(x, w8, scale)
+    ref = torch.matmul(x, wb.t()).float()
+    rec = dict(
+        int8_forward_ms=cuda_ms(lambda: layers._int8_forward(x, w8, scale)),
+        int_mm_ms=cuda_ms(lambda: iq.int_mm(x8, w8.t())),
+        bf16_forward_ms=cuda_ms(lambda: torch.matmul(x, wb.t())),
+        int8_dgrad_ms=cuda_ms(lambda: layers._int8_pq_dgrad8(g, w8, scale)),
+        bf16_dgrad_ms=cuda_ms(lambda: torch.matmul(g, wb)),
+        int8_forward_rel_l2=((y.float() - ref).norm() / ref.norm()).item())
+    check(math.isfinite(rec["int8_forward_rel_l2"]) and rec["int8_forward_rel_l2"] < 5e-2,
+          f"int8 linear [{m}, {k}] x [{k}, {n}] off the bf16 product: {rec}")
+    return rec
+
+
+def phase_int8_kernels():
+    """H1 and H2 checked and timed at the Flux path's shapes, and one int8
+    linear against bf16 at three block shapes; returns {kernel: timing}."""
+    from diffusion_pipe_tpu_torch.models import layers
+    from diffusion_pipe_tpu_torch.ops import int8_quant as iq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h1 = {case: _h1_timing(iq, case, *shape, gen) for case, shape in INT8_H1_CASES.items()}
+    h2 = _h2_timing(iq, gen)
+    _free()
+    linears = {name: _int8_linear_timing(layers, iq, *shape, gen)
+               for name, shape in INT8_LINEAR_SHAPES.items()}
+    emit(phase="int8-linear", shapes={k: list(v) for k, v in INT8_LINEAR_SHAPES.items()},
+         timing=linears)
+    _free()
+    return {"quant_rows": h1, "rescale_i32": h2}
+
+
 # --- phase 3 ------------------------------------------------------------------
 
 
@@ -608,13 +764,56 @@ def build_slice(cfg=SLICE_CONFIG, device="cuda", latent_hw=64, txt_len=512,
     return pipeline, state, step, batch, gen
 
 
-def phase_slice(**slice_kw):
+# the adaLN modulation linears: their input, silu(temb), comes from the
+# embedders alone, which LoRA leaves frozen, so it needs no gradient
+MODULATION = ("norm1_linear", "norm1_context_linear", "norm_linear")
+
+
+def _expected_launches(pipeline):
+    """Launches a step of the Flux path's kernels for the pipeline's config:
+    K1 once a block under "attn" and twice under "full" checkpointing, K2 and
+    K3 once; H1 and H2 once an int8 linear for its forward, again for the
+    checkpointed recompute, and under "fwd_bwd" once more for its dgrad,
+    which autograd skips where the input needs no gradient (the 76
+    modulation linears, with LoRA)."""
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+
+    fc = pipeline.flux_config
+    blocks = fc.num_layers + fc.num_single_layers
+    int8 = [n for n, m in pipeline.model.named_modules()
+            if isinstance(m, LoraDense) and m.kernel_scale is not None]
+    no_dgrad = sum(int(n.endswith(MODULATION)) for n in int8) if fc.lora_rank else 0
+    dgrads = len(int8) - no_dgrad if fc.int8_matmul == "fwd_bwd" else 0
+    launches = len(int8) * (2 if fc.remat else 1) + dgrads
+    return {"flash_fwd": blocks * (2 if fc.remat == "full" else 1),
+            "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks, "sr_add": 0,
+            "quant_rows": launches, "rescale_i32": launches}
+
+
+def _int8_weights(model):
+    """(block linears, those whose weight is int8 with real scales: finite,
+    positive and not the ones they start as, weight bytes of the block
+    linears)."""
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+
+    linears = [m for m in model.modules() if isinstance(m, LoraDense) and m.lora_a is not None]
+    real = [m for m in linears if m.weight.dtype == torch.int8 and m.kernel_scale is not None
+            and bool(torch.isfinite(m.kernel_scale).all() and (m.kernel_scale > 0).all())
+            and not bool((m.kernel_scale == 1).all())]
+    nbytes = sum(m.weight.numel() * m.weight.element_size() for m in linears)
+    return len(linears), len(real), nbytes
+
+
+def phase_slice(phase="slice", cell="flux-dev-lora-512", cfg=SLICE_CONFIG, bf16_peak=None,
+                **slice_kw):
+    """The Flux path at cfg; with bf16_peak (the bf16 phase's peak) also
+    the fp8-int8 checks: every block linear int8 with real scales, and a
+    lower peak."""
     t0 = time.perf_counter()
-    pipeline, state, step, batch, gen = build_slice(**slice_kw)
+    pipeline, state, step, batch, gen = build_slice(cfg=cfg, **slice_kw)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
-    fc = pipeline.flux_config
     model = pipeline.model
     n_params = sum(p.numel() for p in model.parameters())
     lora = list(state.trainable.values())
@@ -622,6 +821,7 @@ def phase_slice(**slice_kw):
     n_lora = sum(p.numel() for p in lora)
     lora0 = [p.detach().clone() for p in lora]
     frozen0 = _fingerprint(frozen)
+    linears, int8_real, block_weight_bytes = _int8_weights(model)
     batch_size = batch["latents"].shape[0]
 
     torch.cuda.reset_peak_memory_stats()
@@ -641,21 +841,34 @@ def phase_slice(**slice_kw):
     peak = torch.cuda.max_memory_allocated()
 
     per_step = {k: v / TIMED_STEPS for k, v in counts.items()}
-    blocks = fc.num_layers + fc.num_single_layers
-    expected = {"flash_fwd": 2 * blocks, "flash_bwd_dq": blocks,
-                "flash_bwd_dkv": blocks, "sr_add": 0}
+    expected = _expected_launches(pipeline)
     moved = sum(int(not torch.equal(p, p0)) for p, p0 in zip(lora, lora0))
     frozen_same = torch.equal(_fingerprint(frozen), frozen0)
-    emit(phase="slice", cell="flux-dev-lora-512", params=n_params, lora_params=n_lora,
+    emit(phase=phase, cell=cell,
+         params=n_params, lora_params=n_lora, block_linears=linears,
+         int8_block_linears=int8_real, block_weight_bytes=block_weight_bytes,
          init_s=init_s, warmup_s=warm_s, warmup_loss=warm_loss, step_s=step_s,
          samples_per_s=batch_size / step_s, losses=losses, grad_norms=norms,
-         peak_memory_bytes=peak, launches=counts, launches_per_step=per_step,
-         lora_tensors_moved=moved, lora_tensors=len(lora), frozen_unchanged=frozen_same)
+         peak_memory_bytes=peak, bf16_phase_peak_bytes=bf16_peak, launches=counts,
+         launches_per_step=per_step, lora_tensors_moved=moved, lora_tensors=len(lora),
+         frozen_unchanged=frozen_same)
     check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
     check(moved > 0, "no LoRA factor changed")
     check(frozen_same, "frozen weights changed")
     check(per_step == expected, f"launches per step {per_step}, expected {expected}")
-    return counts
+    if bf16_peak is not None:
+        check(int8_real == linears, f"{linears - int8_real} of {linears} block linears "
+              "lack an int8 weight with real scales")
+        check(peak < bf16_peak, f"peak {peak} not below the bf16 phase's {bf16_peak}")
+    return counts, peak
+
+
+FP8_INT8_CONFIG = {  # flux-dev-lora-512-fp8-int8: bench.py's Flux row
+    **SLICE_CONFIG,
+    "model": {**SLICE_CONFIG["model"], "transformer_dtype": "float8",
+              "int8_matmul": "fwd_bwd"},
+    "activation_checkpointing": "attn",
+}
 
 
 # --- phase 5 ------------------------------------------------------------------
@@ -786,7 +999,7 @@ def phase_slice_wan(**slice_kw):
 
     per_step = {k: v / WAN_TIMED_STEPS for k, v in counts.items()}
     expected = {"flash_fwd": 4 * wc.num_layers, "flash_bwd_dq": 2 * wc.num_layers,
-                "flash_bwd_dkv": 2 * wc.num_layers, "sr_add": n_bf16}
+                "flash_bwd_dkv": 2 * wc.num_layers, "sr_add": n_bf16, **NO_INT8}
     changed = [int(not torch.equal(p, p0)) for p, p0 in zip(trainable, start)]
     moved_elements = sum(int((p != p0).sum()) for p, p0 in zip(trainable, start))
     del start
@@ -811,31 +1024,44 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernels_line(timings, sr_timing, flux_counts, wan_counts, ptxas):
-    """One entry per kernel at the Wan path's shape (K1-K3: the
+def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
+                 ptxas):
+    """One entry per kernel. K1-K4 at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
-    kernel's numbers at the other shapes beside. Each carries its share of
-    the bound (bound_ms / ms); K1 its factor against SDPA's forward
-    (library_factor), K3 the factor of K2 + K3 against SDPA's backward; K1,
-    K2 and K3 the ptxas registers, spills and wgmma serialization of their
-    bf16, D = 128 build."""
+    kernel's numbers at the other shapes beside, with the Flux paths'
+    launches (bf16 and fp8-int8). H1 and H2 (which replace no Pallas kernel)
+    at the fp8-int8 Flux path's ff_in shape, launches from its timed steps
+    (H1's dgrad case beside). Each carries its share of the bound (bound_ms /
+    ms); K1 its factor against SDPA's forward (library_factor), K3 the
+    factor of K2 + K3 against SDPA's backward; K1, K2 and K3 the ptxas
+    registers, spills and wgmma serialization of their bf16, D = 128
+    build."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd")
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
+        launches = wan_counts[name]
         if name == "sr_add":
             main = dict(sr_timing["bf16_u"])
             main["bound_share"] = main["bound_ms"] / main["ms"]
             beside = {"f32_u": {k: sr_timing["f32_u"][k] for k in keys}}
+        elif name == "quant_rows":
+            main = int8_timing[name]["forward_ff_in"]
+            beside = {"dgrad_ff_in": {k: int8_timing[name]["dgrad_ff_in"][k]
+                                      for k in keys + ("bound_share",)}}
+            launches = fp8_counts[name]
+        elif name == "rescale_i32":
+            main, beside, launches = int8_timing[name], {}, fp8_counts[name]
         else:
             main = timings["wan_cross"][name]
             beside = {shape: {k: timings[shape][name][k] for k in keys + extra
                               if k in timings[shape][name]}
                       for shape in ("wan_self", "flux")}
             beside["flux"]["launches"] = flux_counts[name]
+            beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
-                     launches=wan_counts[name], **{k: main[k] for k in keys},
+                     launches=launches, **{k: main[k] for k in keys},
                      **{k: main[k] for k in extra if k in main})
         if name in FLASH:
             entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
@@ -861,13 +1087,18 @@ def main():
     ptxas = phase_build()
     timings = phase_kernels()
     sr_timing = phase_sr_kernel()
+    int8_timing = phase_int8_kernels()
     phase_reference()
-    flux_counts = phase_slice()
+    flux_counts, bf16_peak = phase_slice()
+    _free()
+    fp8_counts, _ = phase_slice(phase="slice-fp8-int8", cell="flux-dev-lora-512-fp8-int8",
+                                cfg=FP8_INT8_CONFIG, bf16_peak=bf16_peak)
     _free()
     phase_reference_wan()
     wan_counts = phase_slice_wan()
 
-    print(kernels_line(timings, sr_timing, flux_counts, wan_counts, ptxas))
+    print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
+                       ptxas))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,12 @@ function:
 - a Dense `kernel` [in, out] becomes `weight` [out, in]; the Conv3d
   `kernel` [kt, kh, kw, in, out] (Wan's patch embedding) becomes `weight`
   [out, in, kt, kh, kw];
-- `bias`, `lora_a` [in, rank], `lora_b` [rank, out], RMSNorm `scale` and
-  the other parameters keep their names and layout (lora_a stays stored
-  unshifted);
+- `bias`, `lora_a` [in, rank], `lora_b` [rank, out], RMSNorm `scale`,
+  `kernel_scale` [out] and the other parameters keep their names and layout
+  (lora_a stays stored unshifted);
+- float8 and int8 leaves cross by their bits: an int8 `kernel` [in, out]
+  (pre-quantized) becomes an int8 `weight` [out, in], an ml_dtypes
+  float8_e4m3fn array a torch.float8_e4m3fn tensor;
 - the scanned block stacks carry a leading [L] axis, split into the
   ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux)
   or `blocks.{i}.*` (Wan).
@@ -47,9 +50,16 @@ def _leaf(path, arr) -> tuple:
     return name, arr
 
 
+# ml_dtypes' float8 arrays: torch.from_numpy takes none, so they cross as bytes
+_FLOAT8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no numpy twin in torch
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    if arr.dtype.name in _FLOAT8:
+        bits = np.ascontiguousarray(arr).view(np.uint8)
+        return torch.from_numpy(bits.copy()).view(_FLOAT8[arr.dtype.name])
     return torch.tensor(arr)  # a copy: arrays from JAX are read-only
 
 
@@ -58,7 +68,8 @@ def jax_to_state_dict(params: Mapping[str, Any],
     """State_dict entries for every leaf of `params` (see module docstring).
 
     A subtree (e.g. only the trainable LoRA leaves) gives the matching subset
-    of entries. dtype casts every tensor when set.
+    of entries. dtype casts every tensor wider than a byte (not the fp8 or
+    int8 weights) when set.
     """
     if "params" in params and len(params) == 1:
         params = params["params"]
@@ -75,5 +86,20 @@ def jax_to_state_dict(params: Mapping[str, Any],
             key = ".".join(path[:-1] + (name,))
             out[key] = _to_tensor(val)
     if dtype is not None:
-        out = {k: v.to(dtype) for k, v in out.items()}
+        out = {k: v.to(dtype) if v.element_size() > 1 else v for k, v in out.items()}
     return out
+
+
+def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """model.load_state_dict(state_dict), where an integer entry (an int8
+    weight of a pre-quantized state) first replaces its float parameter by a
+    frozen integer one of the entry's dtype, since a copy into the float
+    parameter would convert the values."""
+    params = dict(model.named_parameters())
+    for key, val in state_dict.items():
+        p = params.get(key)
+        if p is not None and not val.is_floating_point() and p.is_floating_point():
+            owner, name = key.rsplit(".", 1) if "." in key else ("", key)
+            setattr(model.get_submodule(owner), name, torch.nn.Parameter(
+                torch.empty(val.shape, dtype=val.dtype, device=p.device), requires_grad=False))
+    model.load_state_dict(state_dict)

@@ -18,7 +18,7 @@ from ..common import dtype_from_string
 from . import register_model
 from .base import BasePipeline
 from .flux_model import FluxConfig, FluxTransformer
-from .layers import init_module_weights, remat_spec
+from .layers import block_kernel_kwargs, init_module_weights, remat_spec
 from ..training.flow import TimestepDistribution, sample_timesteps
 
 
@@ -52,9 +52,8 @@ class FluxPipeline(BasePipeline):
     def __init__(self, config: Dict[str, Any], device=None):
         super().__init__(config, device)
         mc = self.model_config
-        for key in ("transformer_dtype", "int8_matmul", "bypass_guidance_embedding"):
-            if mc.get(key):
-                raise NotImplementedError(f"model.{key} is not ported yet")
+        if mc.get("bypass_guidance_embedding"):
+            raise NotImplementedError("model.bypass_guidance_embedding is not ported yet")
         if int(config.get("blocks_to_swap", 0) or 0) > 0:
             raise NotImplementedError("blocks_to_swap is not ported yet")
         self.tdist = TimestepDistribution.from_model_config(mc)
@@ -72,6 +71,7 @@ class FluxPipeline(BasePipeline):
             param_dtype=dtype,
             guidance_embeds=bool(mc.get("guidance_embeds", True)),
             remat=remat_spec(self.config),
+            **block_kernel_kwargs(mc),
         )
         if adapter.get("type") == "lora":
             kwargs.update(

@@ -6,20 +6,22 @@ through the single blocks, timestep and guidance embedded at x1000, joint
 attention with multi-axis RoPE, the output cut to the image tokens. The
 blocks live in nn.ModuleLists (the JAX package scans a stacked [L] axis;
 interop.py splits it). With `remat` set, each block runs under
-torch.utils.checkpoint, so its forward -- attention kernel included -- is
-recomputed in the backward. Block swap, prefetch, sequence sharding, fp8
-storage and the int8 matmuls are not ported yet.
+torch.utils.checkpoint, so its forward is recomputed in the backward:
+attention kernel included under "full", the flash forward's saved O and
+LSE under "attn". The block linears (14 a double block, 6 a single block)
+take base_kernel_dtype (fp8 storage) and int8_matmul; the embedders, norms
+and head keep param_dtype, as in the JAX package. Block swap, prefetch and
+sequence sharding are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from .layers import (
@@ -30,6 +32,7 @@ from .layers import (
     apply_rope,
     layer_norm,
     modulate,
+    remat_call,
     rope_frequencies,
 )
 
@@ -55,6 +58,10 @@ class FluxConfig:
     lora_dropout: float = 0.0
     lora_dtype: torch.dtype = torch.float32
     remat: str = ""
+    # the block linears' base weights: storage dtype (None: param_dtype; the
+    # JAX package's transformer_dtype, e.g. float8) and W8A8 int8 compute
+    base_kernel_dtype: Optional[torch.dtype] = None
+    int8_matmul: Any = False
 
     @property
     def hidden_size(self) -> int:
@@ -77,11 +84,13 @@ class FluxConfig:
         return FluxConfig(**defaults)
 
     def dense(self, in_features: int, features: int) -> LoraDense:
-        """A block linear: LoRA on, in the model's dtypes."""
+        """A block linear: LoRA on, in the model's dtypes, its base weight
+        stored in base_kernel_dtype and multiplied in int8 under int8_matmul."""
         return LoraDense(in_features, features, dtype=self.dtype,
                          param_dtype=self.param_dtype, lora_rank=self.lora_rank,
                          lora_alpha=self.lora_alpha, lora_dropout=self.lora_dropout,
-                         lora_dtype=self.lora_dtype)
+                         lora_dtype=self.lora_dtype, kernel_dtype=self.base_kernel_dtype,
+                         int8_matmul=self.int8_matmul)
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -215,7 +224,7 @@ class FluxTransformer(nn.Module):
 
     def _run(self, block, *args):
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            return remat_call(self.cfg.remat, block, *args)
         return block(*args)
 
     def forward(

@@ -14,6 +14,16 @@ onto the other:
 - RMSNorm.scale [dim].
 - PatchEmbed3d.weight is torch's Conv3d layout [out, in, kt, kh, kw] (the
   Flax Conv `kernel` [kt, kh, kw, in, out] transposed).
+- With int8_matmul, LoraDense also has `kernel_scale` [out] f32 (ones until
+  prequantize_int8_ replaces the frozen weight with its int8 image and
+  writes the real per-output-channel scales).
+
+The int8 linears (int8_dot, int8_dot_bwd8, int8_pq_dot, int8_pq_dot_bwd8)
+follow the JAX functions of the same names operand for operand; their
+quantization and rescale are ops/int8_quant.py (H1, H2 on the card). The
+JAX per-output-channel reduction over axis -2 of a kernel [in, out] is a
+per-row reduction of the port's [out, in] weight, and its per-input-channel
+one a per-column reduction.
 """
 
 from __future__ import annotations
@@ -24,6 +34,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from ..common import dtype_from_string
+from ..ops.flash_attention import FLASH_FWD_OP
+from ..ops.int8_quant import int_mm, quant_rows, rescale_i32
 
 # Flax's lecun_normal draws a normal truncated to [-2, 2] and rescales it by
 # this constant so the result has the requested variance.
@@ -41,6 +57,129 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
     w.copy_(tmp.mul_(std))
 
 
+# --- W8A8 int8 linears ------------------------------------------------------------
+
+
+def _rows2d(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+def _as_quantizable(w: torch.Tensor) -> torch.Tensor:
+    """A float weight in a dtype H1 reads: fp8 goes to bf16, which holds
+    every fp8 value exactly."""
+    return w if w.dtype in (torch.bfloat16, torch.float32) else w.to(torch.bfloat16)
+
+
+def quantize_kernel_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel absmax int8 image of a weight [out, in]: (w8 int8
+    [out, in], scale f32 [out]), the JAX quantize_kernel_int8 of the kernel
+    [in, out] transposed."""
+    w8, scale = quant_rows(_as_quantizable(w))
+    return w8, scale.reshape(-1)
+
+
+def _int8_forward(x, w8, w_scale):
+    """(x8 @ w8^T) * x_scale * w_scale in x's dtype: x [..., in], w8 [out,
+    in] int8, w_scale [out] f32 (the JAX _int8pq_fwd_impl, cast to the
+    layer's dtype as LoraDense casts it)."""
+    x8, x_scale = quant_rows(_rows2d(x))
+    y = rescale_i32(int_mm(x8, w8.t()), x_scale, w_scale, x.dtype)
+    return y.reshape(*x.shape[:-1], w8.shape[0])
+
+
+def _zero_like_if(ctx, i, t):
+    """The zero cotangent the JAX functions return for a weight input."""
+    return torch.zeros_like(t) if ctx.needs_input_grad[i] else None
+
+
+class _Int8Dot(torch.autograd.Function):
+    """int8_dot: dynamic W8A8 product against a float weight [out, in]; the
+    backward is straight-through in f32 (dx = g W) with a zero weight
+    cotangent, trainable weight or not, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        w8, w_scale = quantize_kernel_int8(w)
+        ctx.save_for_backward(w)
+        return _int8_forward(x, w8, w_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dx = (g.float() @ w.float()).to(g.dtype) if ctx.needs_input_grad[0] else None
+        return dx, _zero_like_if(ctx, 1, w)
+
+
+class _Int8DotBwd8(_Int8Dot):
+    """int8_dot_bwd8: int8_dot whose dgrad is an int8 product too, per-row
+    cotangent scales times per-input-channel weight scales."""
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, _zero_like_if(ctx, 1, w)
+        g8, g_scale = quant_rows(_rows2d(g))
+        # per input channel: the rows of w^T [in, out]
+        wt8, wt_scale = quant_rows(_as_quantizable(w).t())
+        dx = rescale_i32(int_mm(g8, wt8.t()), g_scale, wt_scale, g.dtype)
+        return dx.reshape(*g.shape[:-1], w.shape[1]), _zero_like_if(ctx, 1, w)
+
+
+class _Int8PqDot(torch.autograd.Function):
+    """int8_pq_dot: W8A8 product against a pre-quantized weight (w8 [out,
+    in] int8, w_scale [out] f32). The dgrad is (g * w_scale) in bf16 times
+    w8 in bf16, summed in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w8, w_scale):
+        ctx.save_for_backward(w8, w_scale)
+        return _int8_forward(x, w8, w_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        w8, w_scale = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, _zero_like_if(ctx, 2, w_scale)
+        gs = (g.float() * w_scale).to(torch.bfloat16)
+        if g.dtype == torch.bfloat16:
+            # a bf16 product rounds its f32 sum once, as the cast does
+            dx = gs @ w8.to(torch.bfloat16)
+        else:
+            # bf16 x bf16 products are exact in f32
+            dx = (gs.float() @ w8.float()).to(g.dtype)
+        return dx, None, _zero_like_if(ctx, 2, w_scale)
+
+
+class _Int8PqDotBwd8(_Int8PqDot):
+    """int8_pq_dot_bwd8: int8_pq_dot with an int8 dgrad; the weight's column
+    scales fold into the cotangent before its per-row quantization (H1's
+    column pre-scale)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        w8, w_scale = ctx.saved_tensors
+        dx = _int8_pq_dgrad8(g, w8, w_scale) if ctx.needs_input_grad[0] else None
+        return dx, None, _zero_like_if(ctx, 2, w_scale)
+
+
+def _int8_pq_dgrad8(g, w8, w_scale):
+    """int8_pq_dot_bwd8's dx: (g * w_scale) quantized per row, times w8 as
+    int8, rescaled by the rows' scales, in g's dtype."""
+    g8, g_scale = quant_rows(_rows2d(g), w_scale)
+    # _int_mm wants both operands K-major: a transposed copy of w8 for this
+    # call (the contraction runs over its output channels)
+    w8t = w8.t().contiguous()
+    dx = rescale_i32(int_mm(g8, w8t.t()), g_scale, None, g.dtype)
+    return dx.reshape(*g.shape[:-1], w8.shape[1])
+
+
+int8_dot = _Int8Dot.apply
+int8_dot_bwd8 = _Int8DotBwd8.apply
+int8_pq_dot = _Int8PqDot.apply
+int8_pq_dot_bwd8 = _Int8PqDotBwd8.apply
+
+
 class LoraDense(nn.Module):
     """y = x W^T + b + (alpha/rank) * (x (A - bound)) B, computed in `dtype`.
 
@@ -52,15 +191,22 @@ class LoraDense(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
                  lora_rank: int = 0, lora_alpha: float = 0.0,
-                 lora_dropout: float = 0.0, lora_dtype=torch.float32):
+                 lora_dropout: float = 0.0, lora_dtype=torch.float32,
+                 kernel_dtype=None, int8_matmul=False):
         super().__init__()
         if lora_dropout > 0.0:
             raise NotImplementedError("LoRA dropout is not ported yet")
+        if int8_matmul not in (False, True, "fwd", "fwd_bwd"):
+            raise ValueError(f"int8_matmul must be false, true, 'fwd' or 'fwd_bwd', "
+                             f"not {int8_matmul!r}")
         self.in_features = in_features
         self.features = features
         self.dtype = dtype
         self.lora_rank = lora_rank
-        self.weight = nn.Parameter(torch.empty(features, in_features, dtype=param_dtype))
+        self.int8_matmul = int8_matmul
+        # kernel_dtype: the storage dtype of the base weight alone (e.g. fp8)
+        self.weight = nn.Parameter(torch.empty(features, in_features,
+                                               dtype=kernel_dtype or param_dtype))
         self.bias = (nn.Parameter(torch.empty(features, dtype=param_dtype))
                      if use_bias else None)
         if lora_rank > 0:
@@ -70,6 +216,10 @@ class LoraDense(nn.Module):
             self.lora_b = nn.Parameter(torch.empty(lora_rank, features, dtype=lora_dtype))
         else:
             self.lora_a = self.lora_b = None
+        # the int8 weight's per-output-channel scales, ones until
+        # prequantize_int8_ writes the real ones
+        self.kernel_scale = (nn.Parameter(torch.empty(features, dtype=torch.float32))
+                             if int8_matmul else None)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -82,11 +232,23 @@ class LoraDense(nn.Module):
             tmp.uniform_(0.0, 2 * self.lora_bound, generator=generator)
             self.lora_a.copy_(tmp)
             self.lora_b.zero_()
+        if self.kernel_scale is not None:
+            self.kernel_scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.to(self.dtype)
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        y = F.linear(h, self.weight.to(self.dtype), bias)
+        if self.int8_matmul:
+            fwd_bwd = self.int8_matmul == "fwd_bwd"
+            if self.weight.is_floating_point():
+                y = (int8_dot_bwd8 if fwd_bwd else int8_dot)(h, self.weight)
+            else:
+                y = (int8_pq_dot_bwd8 if fwd_bwd else int8_pq_dot)(
+                    h, self.weight, self.kernel_scale)
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype)
+        else:
+            bias = None if self.bias is None else self.bias.to(self.dtype)
+            y = F.linear(h, self.weight.to(self.dtype), bias)
         if self.lora_a is not None:
             a = (self.lora_a - self.lora_bound).to(self.dtype)
             y = y + self.lora_scaling * ((h @ a) @ self.lora_b.to(self.dtype))
@@ -231,19 +393,71 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.reshape(x.shape).to(x.dtype)
 
 
+@torch.no_grad()
+def prequantize_int8_(model: nn.Module) -> int:
+    """In place, the JAX prequantize_int8_tree: every frozen LoraDense with
+    a kernel_scale and a float weight gets the weight's int8 image (a frozen
+    int8 parameter) and its real per-output-channel scales. One weight at a
+    time, so the model never holds two copies of its weights. Trainable
+    weights stay float (they need real gradients). Returns the count."""
+    n = 0
+    for m in model.modules():
+        if (isinstance(m, LoraDense) and m.kernel_scale is not None
+                and m.weight.is_floating_point() and not m.weight.requires_grad):
+            w8, scale = quantize_kernel_int8(m.weight)
+            m.weight = nn.Parameter(w8, requires_grad=False)
+            m.kernel_scale.copy_(scale)
+            n += 1
+    return n
+
+
+def block_kernel_kwargs(model_config) -> dict:
+    """base_kernel_dtype and int8_matmul of a model config from `[model]`'s
+    transformer_dtype (e.g. "float8": fp8 storage of the block weights) and
+    int8_matmul, as the JAX pipelines read them."""
+    td = model_config.get("transformer_dtype")
+    return dict(base_kernel_dtype=dtype_from_string(td) if td else None,
+                int8_matmul=model_config.get("int8_matmul", False))
+
+
+REMAT_SPECS = ("full", "attn")
+
+
 def remat_spec(config) -> str:
-    """`activation_checkpointing` as a remat spec: "" (off) or "full" (each
-    block's forward is recomputed in the backward). The JAX package's other
-    policies ("dots", "attn", "offload_attn", "unsloth") are not ported yet."""
+    """`activation_checkpointing` as a remat spec: "" (off), "full" (each
+    block's forward is recomputed in the backward) or "attn" (the same, but
+    the flash-attention forward's O and LSE are saved, so the backward never
+    re-runs K1). The JAX package's "dots", "offload_attn", "unsloth" and
+    "offload_dots" are not ported yet."""
     ac = config.get("activation_checkpointing", False)
     if not ac:
         return ""
     spec = str(config.get("remat_policy", "full")) if ac is True else str(ac)
-    if spec != "full":
+    if spec not in REMAT_SPECS:
         raise NotImplementedError(
-            f"activation_checkpointing {spec!r} is not ported yet; use true"
+            f"activation_checkpointing {spec!r} is not ported yet; use true or 'attn'"
         )
     return spec
+
+
+def _save_flash_out(ctx, op, *args, **kwargs):
+    """The "attn" policy, jax.checkpoint_policies.save_only_these_names(
+    "flash_out"): keep the flash forward's outputs, recompute the rest."""
+    if op is FLASH_FWD_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _attn_context():
+    return create_selective_checkpoint_contexts(_save_flash_out)
+
+
+def remat_call(spec: str, block, *args):
+    """block(*args) under torch.utils.checkpoint with the remat spec's
+    policy ("full" or "attn")."""
+    if spec == "attn":
+        return checkpoint(block, *args, use_reentrant=False, context_fn=_attn_context)
+    return checkpoint(block, *args, use_reentrant=False)
 
 
 def init_module_weights(module: nn.Module, generator: torch.Generator) -> None:

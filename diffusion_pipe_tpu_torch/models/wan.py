@@ -8,8 +8,7 @@ latent grid, and t scaled to [0, 1000] for the model. The noise and t come
 from a torch.Generator, or are passed in as tensors (the tests feed the JAX
 package's draws). Not ported: i2v/flf2v/ti2v, the VAE, UMT5 and CLIP
 encoders and the uncached-text path, pretrained weights, export, block swap,
-sequence sharding, fp8 storage, int8 matmuls and the pipeline-parallel
-program.
+sequence sharding and the pipeline-parallel program.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from ..training.flow import TimestepDistribution, sample_timesteps
 from . import register_model
 from .base import BasePipeline
 from .flux import resize_mask_to_latents
-from .layers import init_module_weights, remat_spec
+from .layers import block_kernel_kwargs, init_module_weights, remat_spec
 from .wan_model import WanConfig, WanTransformer
 
 WAN_VARIANTS = {"t2v-1.3b": WanConfig.t2v_1_3b, "t2v-14b": WanConfig.t2v_14b}
@@ -31,7 +30,7 @@ WAN_VARIANTS = {"t2v-1.3b": WanConfig.t2v_1_3b, "t2v-14b": WanConfig.t2v_14b}
 # config keys of the JAX pipeline that select paths not ported yet
 _NOT_PORTED_TOP = ("blocks_to_swap", "stream_prefetch", "sequence_sharding",
                    "swap_activation_checkpointing")
-_NOT_PORTED_MODEL = ("transformer_dtype", "int8_matmul", "ckpt_path", "skyreels")
+_NOT_PORTED_MODEL = ("ckpt_path", "skyreels")
 
 
 @register_model("wan", "wan21", "wan22")
@@ -61,7 +60,8 @@ class WanPipeline(BasePipeline):
         adapter = self.config.get("adapter", {})
         dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
         kwargs: Dict[str, Any] = dict(dtype=dtype, param_dtype=dtype,
-                                      remat=remat_spec(self.config))
+                                      remat=remat_spec(self.config),
+                                      **block_kernel_kwargs(mc))
         if adapter.get("type") == "lora":
             kwargs.update(
                 lora_rank=int(adapter["rank"]),

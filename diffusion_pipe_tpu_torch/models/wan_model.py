@@ -8,23 +8,25 @@ its learnable [1, 6, dim] table plus the time projection, and the modulated
 head with unpatchify. The blocks live in an nn.ModuleList (the JAX package
 scans a stacked [L] axis; interop.py splits it), and every per-block
 parameter keeps the shape of the JAX per-block slice. With `remat` set, each
-block runs under torch.utils.checkpoint, so its forward -- attention kernels
-included -- is recomputed in the backward.
+block runs under torch.utils.checkpoint, so its forward is recomputed in
+the backward: attention kernels included under "full", the flash forwards'
+saved O and LSE under "attn". The block linears take base_kernel_dtype (fp8
+storage) and int8_matmul; the embeddings and the head keep their dtypes, as
+in the JAX package.
 
 Not ported: i2v/flf2v (CLIP image context), ti2v, block swap and prefetch,
-sequence sharding, fp8 storage and the int8 matmuls.
+and sequence sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from .layers import (
@@ -33,6 +35,7 @@ from .layers import (
     RMSNorm,
     apply_rope,
     layer_norm,
+    remat_call,
     rope_frequencies,
     sinusoidal_timestep_embedding,
 )
@@ -61,6 +64,10 @@ class WanConfig:
     lora_dropout: float = 0.0
     lora_dtype: torch.dtype = torch.float32
     remat: str = ""
+    # the block linears' base weights: storage dtype (None: param_dtype; the
+    # JAX package's transformer_dtype, e.g. float8) and W8A8 int8 compute
+    base_kernel_dtype: Optional[torch.dtype] = None
+    int8_matmul: Any = False
 
     @property
     def head_dim(self) -> int:
@@ -91,11 +98,13 @@ class WanConfig:
         return WanConfig(**d)
 
     def dense(self, in_features: int, features: int) -> LoraDense:
-        """A block linear: LoRA on, in the model's dtypes."""
+        """A block linear: LoRA on, in the model's dtypes, its base weight
+        stored in base_kernel_dtype and multiplied in int8 under int8_matmul."""
         return LoraDense(in_features, features, dtype=self.dtype,
                          param_dtype=self.param_dtype, lora_rank=self.lora_rank,
                          lora_alpha=self.lora_alpha, lora_dropout=self.lora_dropout,
-                         lora_dtype=self.lora_dtype)
+                         lora_dtype=self.lora_dtype, kernel_dtype=self.base_kernel_dtype,
+                         int8_matmul=self.int8_matmul)
 
 
 def _modulation_init_(w: torch.Tensor, dim: int, generator: torch.Generator) -> None:
@@ -187,7 +196,7 @@ class WanTransformer(nn.Module):
 
     def _run(self, block, *args):
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            return remat_call(self.cfg.remat, block, *args)
         return block(*args)
 
     def forward(self, x, t, context):

@@ -14,6 +14,12 @@ gradients.
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises on a shape or dtype the kernel does
 not take. Each kernel wrapper counts its launches in `.launches`.
+
+The forward (K1, or its plain version on the CPU) is the custom op
+FLASH_FWD_OP, so that selective activation checkpointing can name it: the
+"attn" remat policy (models/layers.py) saves its O and LSE, and the
+recompute in the backward takes them from the checkpoint instead of
+launching K1 again (nor counting a launch).
 """
 
 from __future__ import annotations
@@ -316,12 +322,28 @@ def flash_backward(q, k, v, kv_mask, o, lse, do, scale):
     return dq, dk, dv
 
 
+# registered under the top-level package's name, so that a second copy of
+# the package (a parent tree loaded beside this one) registers its own op
+_OP_NAMESPACE = __name__.split(".")[0]
+
+
+@torch.library.custom_op(
+    f"{_OP_NAMESPACE}::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, float scale) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, kv_mask, scale):
+    return flash_forward(q, k, v, kv_mask, scale)
+
+
+FLASH_FWD_OP = getattr(torch.ops, _OP_NAMESPACE).flash_fwd.default
+
+
 class FlashAttention(torch.autograd.Function):
-    """Forward returns (O, LSE); backward runs the dQ and dK/dV kernels."""
+    """Forward returns (O, LSE) through FLASH_FWD_OP; backward runs the dQ
+    and dK/dV kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale):
-        o, lse = flash_forward(q, k, v, kv_mask, scale)
+        o, lse = _flash_fwd_op(q, k, v, kv_mask, scale)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)

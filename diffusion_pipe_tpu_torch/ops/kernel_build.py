@@ -30,6 +30,7 @@ SOURCES = {
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "stochastic_round": "stochastic_round.cu",
+    "int8_quant": "int8_quant.cu",
 }
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 

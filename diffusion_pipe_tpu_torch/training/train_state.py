@@ -31,10 +31,12 @@ def predicate_from_config(config: dict) -> Callable:
 
 def partition_params(model: nn.Module, predicate: Callable) -> Dict[str, nn.Parameter]:
     """Set requires_grad from `predicate(name, param)`; return the trainable
-    parameters by name, in module order."""
+    parameters by name, in module order. An integer parameter (an int8
+    weight after prequantization) stays frozen whatever the predicate says:
+    it can carry no gradient."""
     trainable = {}
     for name, p in model.named_parameters():
-        keep = bool(predicate(name, p))
+        keep = p.is_floating_point() and bool(predicate(name, p))
         p.requires_grad_(keep)
         if keep:
             trainable[name] = p

@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..interop import load_state_dict
+from ..models.layers import prequantize_int8_
 from .train_state import TrainState, partition_params
 
 
@@ -25,12 +27,15 @@ def init_train_state(pipeline, optimizer: Callable, generator: torch.Generator,
                      predicate: Callable,
                      state_dict: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
     """Initialise the pipeline's weights (then load `state_dict` over them
-    when given), split trainable from frozen, and build the optimizer from
-    the factory that get_optimizer returned."""
+    when given, int8 weights included), split trainable from frozen,
+    pre-quantize the frozen int8_matmul weights once (as the JAX
+    init_train_state does), and build the optimizer from the factory that
+    get_optimizer returned."""
     pipeline.init_params(generator)
     if state_dict is not None:
-        pipeline.model.load_state_dict(state_dict)
+        load_state_dict(pipeline.model, state_dict)
     trainable = partition_params(pipeline.model, predicate)
+    prequantize_int8_(pipeline.model)
     return TrainState(step=0, examples=0, trainable=trainable,
                       optimizer=optimizer(list(trainable.values())))
 

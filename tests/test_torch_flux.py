@@ -23,12 +23,17 @@ from diffusion_pipe_tpu.training import flow as jflow
 from diffusion_pipe_tpu.training import losses as jlosses
 from diffusion_pipe_tpu.training.train_state import lora_predicate as jax_lora
 from diffusion_pipe_tpu.training.train_state import merge_params, partition_params
+from diffusion_pipe_tpu.training.optimizers import get_optimizer as jax_get_optimizer
+from diffusion_pipe_tpu.training.trainer import init_train_state as jax_init_train_state
 from diffusion_pipe_tpu.training.trainer import make_loss_fn
 from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
 from diffusion_pipe_tpu_torch.models import get_model_class
+from diffusion_pipe_tpu_torch.models.layers import LoraDense
 from diffusion_pipe_tpu_torch.training import flow as tflow
 from diffusion_pipe_tpu_torch.training import losses as tlosses
+from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
+from diffusion_pipe_tpu_torch.training.trainer import init_train_state
 from torch_port_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import (JAX_FAST_COMPILE, jax_draws, random_params, tiny_batch,
                                 tiny_flux_config)
@@ -142,3 +147,67 @@ def test_losses_match(loss_cfg):
     t = tlosses.masked_loss(*(torch.from_numpy(a) for a in (out, target, mask)),
                             per_example_weights=torch.from_numpy(w), **kw_t)
     np.testing.assert_allclose(t.item(), float(j), rtol=1e-6)
+
+
+
+def _int8_config(mode):
+    cfg = tiny_flux_config(activation_checkpointing="attn")
+    cfg["model"] = dict(cfg["model"], transformer_dtype="float8", int8_matmul=mode)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def jax_int8_state():
+    """The JAX state after init_train_state for the tiny Flux with fp8 block
+    weights and int8_matmul (its frozen block weights pre-quantized to
+    int8), as a port state_dict; both int8 modes share its structure."""
+    cfg = _int8_config("fwd_bwd")
+    pipeline = jax_model_class("flux")(cfg)
+    params = random_params(pipeline, seed=5, lora_b_std=0.05)
+    state = jax_init_train_state(pipeline, jax_get_optimizer(cfg), jax.random.PRNGKey(0),
+                                 jax_lora, params=params)
+    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(state.trainable, state.frozen)))
+    return state, sd
+
+
+@pytest.mark.parametrize("mode", [True, "fwd_bwd"], ids=["int8", "int8_fwd_bwd"])
+def test_fp8_int8_attn_loss_and_lora_grads_match(jax_int8_state, mode):
+    """Tiny Flux LoRA with transformer_dtype "float8", int8_matmul `mode`
+    and activation_checkpointing "attn". The JAX state crosses through
+    interop.py (int8 weights, real scales) into the port's
+    init_train_state, which loads it unchanged; the same noise and t.
+    Tolerances: 3e-5 relative on the loss and 5e-4 abs / 5e-3 rel on each
+    LoRA gradient, against a measured 5.4e-6 and 1.4e-4 abs at most (fwd_bwd;
+    5e-7 and 1.8e-5 with int8 True). The difference comes from the
+    activations' int8 rounding: the JAX reference runs under jit, where XLA
+    multiplies by 1/127 instead of dividing by 127, so a per-row scale can
+    differ by one ulp and a value at a .5 boundary round the other way;
+    every other step is f32, summed in another order."""
+    state, sd = jax_int8_state
+    cfg = _int8_config(mode)
+    jpipe = jax_model_class("flux")(cfg)
+    jbatch = {k: jnp.asarray(v) for k, v in tiny_batch(11).items()}
+    ref_loss, grads = jax.jit(jax.value_and_grad(make_loss_fn(jpipe)),
+                              compiler_options=JAX_FAST_COMPILE)(state.trainable, state.frozen,
+                                                                 jbatch, KEY)
+    ref_grads = jax_to_state_dict(jax.tree.map(np.asarray, grads))
+
+    pipe = get_model_class("flux")(cfg, device="cpu")
+    port = init_train_state(pipe, get_optimizer(cfg), torch.Generator().manual_seed(0),
+                            lora_predicate, state_dict=sd)
+    blocks = [m for m in pipe.model.modules() if isinstance(m, LoraDense) and m.lora_a is not None]
+    assert len(blocks) == 40
+    assert all(m.weight.dtype == torch.int8 and m.kernel_scale is not None for m in blocks)
+    for k, v in pipe.model.state_dict().items():
+        assert torch.equal(v, sd[k]), k  # loaded unchanged: nothing re-quantized
+    batch = tiny_batch(11)
+    noise, t = jax_draws(jpipe, KEY, batch)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    inputs, target, mask = pipe.prepare_inputs(tbatch, noise=noise, t=t)
+    loss = pipe.loss_fn(pipe.forward(inputs), target, mask)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=3e-5)
+    assert set(port.trainable) == set(ref_grads) and len(ref_grads) == 80
+    for name, p in port.trainable.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
+                                   atol=5e-4, rtol=5e-3, err_msg=name)

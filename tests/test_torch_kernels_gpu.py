@@ -21,6 +21,12 @@ and without the query split.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
+
+The quantization and rescale around the int8 product (H1, H2): bit for bit
+equal to their plain versions (bf16 and f32 inputs, with and without H1's
+column pre-scale, 2 / 17 / 2048 rows, row-strided views); torch._int_mm
+through the zero-row padding below 17 rows; int8_pq_dot_bwd8 on the card
+against the plain path on the CPU.
 """
 
 import numpy as np
@@ -28,7 +34,7 @@ import pytest
 import torch
 
 from diffusion_pipe_tpu_torch.ops import flash_attention as port_fa
-from diffusion_pipe_tpu_torch.ops import quant
+from diffusion_pipe_tpu_torch.ops import int8_quant, quant
 
 B, H = 1, 2
 # name: (Sq, Skv, masked, heads of a wider tensor taken as a strided view)
@@ -220,3 +226,96 @@ def test_stochastic_round_kernel_matches_plain(udtype, cuda_device):
     trunc = (p.float() + u.float())[4:].view(torch.int32) & -65536  # toward zero
     g = got[4:].float()
     assert bool(((g == trunc.view(torch.float32)) | (g == (trunc + 65536).view(torch.float32))).all())
+
+
+# --- H1 / H2 around the int8 product ---------------------------------------------
+
+
+def _quant_inputs(rows, cols, dtype, dev, seed=5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, cols)) * np.exp(rng.standard_normal((rows, 1)))
+    x[0, :] = 0.0  # a zero row: scale 0, int8 0
+    x[-1, 3] = 1e3  # a large outlier that sets its row's scale
+    col = (0.5 + rng.random(cols)).astype(np.float32)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev, dtype),
+            torch.from_numpy(col).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 17, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prescale", [False, True])
+def test_quant_rows_kernel_matches_plain(rows, dtype, prescale, cuda_device):
+    """H1 bit for bit against its plain version (the JAX expression in
+    torch), on the card: int8 image and f32 scales, with and without the
+    per-column pre-scale, on a contiguous input and on a row-strided view."""
+    x, col = _quant_inputs(rows, 3072, dtype, cuda_device)
+    col = col if prescale else None
+    int8_quant.reset_launch_counts()
+    for xin in (x, torch.cat([x, x], dim=1)[:, 3072:]):
+        got8, got_s = int8_quant.quant_rows_cuda(xin, col)
+        want8, want_s = int8_quant.quant_rows_plain(xin, col)
+        torch.cuda.synchronize()
+        assert got8.dtype == torch.int8 and got_s.shape == (rows, 1)
+        assert torch.equal(got8, want8)
+        assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert int8_quant.launch_counts()["quant_rows_cuda"] == 2
+    assert not got8[0].any() and got_s[0].item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 17, 2048])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_rescale_kernel_matches_plain(rows, out_dtype, cuda_device):
+    """H2 bit for bit against its plain version: both scales, only the row
+    scale (the bwd8 dgrads), and a row-strided int32 input."""
+    rng = np.random.default_rng(6)
+    y = torch.from_numpy(rng.integers(-2 ** 24, 2 ** 24, (rows, 1024), dtype=np.int32))
+    rs = torch.from_numpy((rng.random((rows, 1)) * 1e-3).astype(np.float32))
+    cs = torch.from_numpy((rng.random(1024) * 1e-2).astype(np.float32))
+    y, rs, cs = (t.to(cuda_device) for t in (y, rs, cs))
+    for yin, r, c in ((y, rs, cs), (y, rs, None), (torch.cat([y, y], 1)[:, 512:1536], rs, cs)):
+        got = int8_quant.rescale_i32_cuda(yin, r, c, out_dtype)
+        want = int8_quant.rescale_i32_plain(yin, r, c, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int_mm_padding_path(cuda_device):
+    """torch._int_mm refuses 16 rows or fewer on the card; int_mm pads 2 and
+    16 rows to 32 and gives the CPU product's bits (17 rows go straight)."""
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.integers(-127, 128, (18432, 3072), dtype=np.int8))
+    for rows in (2, 16, 17):
+        a = torch.from_numpy(rng.integers(-127, 128, (rows, 3072), dtype=np.int8))
+        want = torch._int_mm(a, w.t())
+        got = int8_quant.int_mm(a.to(cuda_device), w.to(cuda_device).t())
+        torch.cuda.synchronize()
+        assert got.shape == (rows, 18432) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 2048])
+def test_int8_pq_dot_bwd8_matches_cpu(rows, cuda_device):
+    """int8_pq_dot_bwd8 (the Flux path's int8 linear) on the card through
+    H1, torch._int_mm and H2, forward and dgrad, against the plain path on
+    the CPU: the same bits, and one H1 and one H2 launch each way."""
+    from diffusion_pipe_tpu_torch.models import layers
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((rows, 3072)).astype(np.float32)).to(torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((rows, 1024)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((1024, 3072)) / 55).astype(np.float32))
+    w8, scale = layers.quantize_kernel_int8(w.to(torch.float8_e4m3fn))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev).detach().requires_grad_(True)
+        int8_quant.reset_launch_counts()
+        y = layers.int8_pq_dot_bwd8(xd, w8.to(dev), scale.to(dev))
+        y.backward(g.to(dev))
+        outs[str(dev)] = (y.detach().cpu(), xd.grad.cpu(), int8_quant.launch_counts())
+    (y_cpu, dx_cpu, n_cpu), (y_gpu, dx_gpu, n_gpu) = outs.values()
+    assert torch.equal(y_gpu, y_cpu) and torch.equal(dx_gpu, dx_cpu)
+    assert n_cpu == {"quant_rows_cuda": 0, "rescale_i32_cuda": 0}
+    assert n_gpu == {"quant_rows_cuda": 2, "rescale_i32_cuda": 2}

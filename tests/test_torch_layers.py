@@ -134,5 +134,8 @@ def test_interop_splits_stacks_and_keeps_bf16():
 def test_remat_spec():
     assert tl.remat_spec({}) == ""
     assert tl.remat_spec({"activation_checkpointing": True}) == "full"
-    with pytest.raises(NotImplementedError):
-        tl.remat_spec({"activation_checkpointing": "attn"})
+    assert tl.remat_spec({"activation_checkpointing": "attn"}) == "attn"
+    assert tl.remat_spec({"activation_checkpointing": True, "remat_policy": "attn"}) == "attn"
+    for spec in ("offload_attn", "dots", "unsloth", "offload_dots"):
+        with pytest.raises(NotImplementedError):
+            tl.remat_spec({"activation_checkpointing": spec})

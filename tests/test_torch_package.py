@@ -75,8 +75,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     pipe = get_model_class("flux")(cfg, device="cpu")
     assert pipe.device.type == "cpu"
     with pytest.raises(NotImplementedError):
-        get_model_class("flux")(dict(cfg, model=dict(cfg["model"], transformer_dtype="float8")),
-                                device="cpu")
+        get_model_class("flux")(
+            dict(cfg, model=dict(cfg["model"], bypass_guidance_embedding=True)), device="cpu")
 
 
 def test_config_matches_jax_package():

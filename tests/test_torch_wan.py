@@ -36,6 +36,9 @@ from diffusion_pipe_tpu.training.flow import sample_timesteps
 from diffusion_pipe_tpu.training.optimizers import get_optimizer as jax_get_optimizer
 from diffusion_pipe_tpu.training.train_state import TrainState, merge_params, partition_params
 from diffusion_pipe_tpu.training.train_state import full_ft_predicate as jax_full_ft
+from diffusion_pipe_tpu.training.train_state import lora_predicate as jax_lora
+from diffusion_pipe_tpu.training.trainer import init_train_state as jax_init_train_state
+from diffusion_pipe_tpu.training.trainer import make_loss_fn as jax_make_loss_fn
 from diffusion_pipe_tpu.training.trainer import make_train_step as jax_make_step
 from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
 from diffusion_pipe_tpu_torch.models import get_model_class
@@ -43,7 +46,8 @@ from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import JAX_FAST_COMPILE, bf16_ulp, draw_noise_and_t, random_params
+from torch_port_helpers import (JAX_FAST_COMPILE, bf16_ulp, draw_noise_and_t, jax_draws,
+                                random_params)
 
 KEY = jax.random.PRNGKey(4)
 LR = 5e-3
@@ -260,3 +264,48 @@ def test_bf16_gradient_accumulation_keeps_f32_grads(bf16_runs):
     for p in state.trainable.values():
         st = state.optimizer.state[p]
         assert st["mu"].dtype == st["nu"].dtype == torch.float32
+
+
+def test_lora_fp8_int8_attn_loss_and_grads_match():
+    """Tiny Wan LoRA (rank 4) with transformer_dtype "float8", int8_matmul
+    "fwd_bwd" and activation_checkpointing "attn": the JAX state after
+    init_train_state (block weights pre-quantized to int8) crosses through
+    interop.py into the port's init_train_state unchanged; the same noise
+    and t. Tolerances: 2e-4 relative on the loss and 5e-4 abs / 5e-3 rel on
+    each LoRA gradient, against a measured 3.4e-5 and 6.5e-5 abs at most
+    (the largest gradient is 3.3e-2), the same with the JAX side run op by
+    op. Every int8 linear gives the JAX function's bits on the same input
+    (tests/test_torch_int8.py), and with int8_matmul off the two agree to
+    5e-7; the expected source is an activation at a .5 boundary of its int8
+    grid (the cross-attention inputs hold values exactly on one) that
+    rounds the other way when an f32 step before it differs by one ulp,
+    carried to the loss through the 27-token tiny model."""
+    cfg = tiny_wan_config(activation_checkpointing="attn",
+                          adapter={"type": "lora", "rank": 4, "alpha": 4, "dropout": 0.0})
+    cfg["model"] = dict(cfg["model"], transformer_dtype="float8", int8_matmul="fwd_bwd")
+    jpipe = jax_model_class("wan")(cfg)
+    params = random_params(jpipe, seed=5, lora_b_std=0.05)
+    jstate = jax_init_train_state(jpipe, jax_get_optimizer(cfg), jax.random.PRNGKey(0),
+                                  jax_lora, params=params)
+    batch = wan_batch(11)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    ref_loss, grads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jpipe)),
+                              compiler_options=JAX_FAST_COMPILE)(
+        jstate.trainable, jstate.frozen, jbatch, KEY)
+    ref_grads = jax_to_state_dict(jax.tree.map(np.asarray, grads))
+    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(jstate.trainable,
+                                                                 jstate.frozen)))
+
+    pipe = get_model_class("wan")(cfg, device="cpu")
+    state = init_train_state(pipe, get_optimizer(cfg), torch.Generator().manual_seed(0),
+                             predicate_from_config(cfg), state_dict=sd)
+    assert sum(int(p.dtype == torch.int8) for p in pipe.model.parameters()) == 2 * 10
+    noise, t = jax_draws(jpipe, KEY, batch)
+    inputs, target, mask = pipe.prepare_inputs(_torch_batch(batch), noise=noise, t=t)
+    loss = pipe.loss_fn(pipe.forward(inputs), target, mask)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=2e-4)
+    assert set(state.trainable) == set(ref_grads) and len(ref_grads) == 2 * 10 * 2
+    for name, p in state.trainable.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
+                                   atol=5e-4, rtol=5e-3, err_msg=name)

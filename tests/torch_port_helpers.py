@@ -2,7 +2,8 @@
 
 Weights are made with numpy from a seed on the JAX package's parameter
 structure (jax.eval_shape of its init, no compile): kernels lecun-scaled
-normals, biases, modulation tables and norm scales perturbed away from 0
+normals (cast to fp8 where the structure stores them so), biases,
+modulation tables and norm scales perturbed away from 0
 and 1 so the mapping of each leaf is tested, LoRA A stored uniform in
 [0, 2*sqrt(6/in)) as the JAX package stores it, LoRA B zero or a small
 normal.
@@ -55,8 +56,9 @@ def random_params(pipeline, seed, lora_b_std=0.0):
     def fill(path, leaf):
         name = path[-1].key
         shape = leaf.shape
-        if name == "kernel":
-            return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(np.float32)
+        if name == "kernel":  # fp8 storage keeps its dtype (transformer_dtype)
+            k = (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(np.float32)
+            return k.astype(leaf.dtype) if leaf.dtype.itemsize == 1 else k
         if name == "lora_a":
             bound = np.sqrt(6.0 / shape[-2])
             return rng.uniform(0.0, 2 * bound, shape).astype(np.float32)

@@ -2,11 +2,16 @@
 """Where the time of one of the port's training steps goes, on one GPU.
 
     python3 tools/profile_torch_step.py              # flux-dev-lora-512
+    python3 tools/profile_torch_step.py --slice flux-fp8-int8
+                                                     # flux-dev-lora-512-fp8-int8
     python3 tools/profile_torch_step.py --slice wan  # wan-1.3b-t2v-fullft-sr
+    ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
 full-width Flux-dev, LoRA r32, adamw8bit, per-block checkpointing, batch 2 at
-512 px; or chip_smoke.build_wan_slice: full-width Wan2.1-1.3B t2v, full
+512 px, with chip_smoke.FP8_INT8_CONFIG the same with fp8 block weights
+pre-quantized to int8, int8_matmul "fwd_bwd" and "attn" checkpointing as
+bench.py runs it; or chip_smoke.build_wan_slice: full-width Wan2.1-1.3B t2v, full
 fine-tuning in bf16, adamw with stochastic rounding, per-block
 checkpointing, one 81-frame 512 px clip), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
@@ -18,7 +23,9 @@ activities). Prints one JSON line with:
   window (1 - idle share), and device_busy_share_unprofiled: the same busy
   time over the unprofiled step time below;
 - device_ms_per_step by kernel category: the three flash kernels, the
-  stochastic-rounding kernel, GEMMs (cuBLAS/CUTLASS names), everything else;
+  stochastic-rounding kernel, the int8 quantization and rescale kernels
+  (H1, H2), GEMMs (cuBLAS/CUTLASS names, the int8 ones included),
+  everything else;
 - the top 15 kernels by device time;
 - unprofiled host-clock times (each ended by a synchronize) of a whole step,
   of forward + backward alone, and of optimizer.step() alone;
@@ -45,7 +52,7 @@ sys.path.insert(0, str(ROOT))
 
 GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|sm90_", re.IGNORECASE)
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-           "sr_add_kernel")
+           "sr_add_kernel", "quant_rows_kernel", "rescale_kernel")
 STEPS = 2
 
 
@@ -104,19 +111,27 @@ def forward_matmul_flops(pipeline, batch, gen):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--slice", choices=("flux", "wan"), default="flux")
+    ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan"), default="flux")
+    ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
+                    help="activation_checkpointing in place of the slice's own")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
         return 2
     import chip_smoke
 
-    if args.slice == "wan":
-        cell, cfg = "wan-1.3b-t2v-fullft-sr", chip_smoke.WAN_SLICE_CONFIG
-        pipeline, state, step, batch, gen = chip_smoke.build_wan_slice()
-    else:
-        cell, cfg = "flux-dev-lora-512", chip_smoke.SLICE_CONFIG
-        pipeline, state, step, batch, gen = chip_smoke.build_slice()
+    cell, cfg, build = {
+        "wan": ("wan-1.3b-t2v-fullft-sr", chip_smoke.WAN_SLICE_CONFIG,
+                chip_smoke.build_wan_slice),
+        "flux-fp8-int8": ("flux-dev-lora-512-fp8-int8", chip_smoke.FP8_INT8_CONFIG,
+                          chip_smoke.build_slice),
+        "flux": ("flux-dev-lora-512", chip_smoke.SLICE_CONFIG, chip_smoke.build_slice),
+    }[args.slice]
+    if args.checkpointing:
+        policy = True if args.checkpointing == "true" else args.checkpointing
+        cfg = {**cfg, "activation_checkpointing": policy}
+        cell += f" (activation_checkpointing {args.checkpointing})"
+    pipeline, state, step, batch, gen = build(cfg)
     sr = bool(cfg["optimizer"].get("stochastic_rounding", False))
     forwards = 3 if "adapter" in cfg else 4
     step(state, batch, gen)
