@@ -73,7 +73,31 @@ Phases, each printing one JSON line (or more):
                      a step (494 linears x forward and recompute, and the
                      dgrads of the 418 whose input needs a gradient: not
                      the 76 adaLN linears, fed by the frozen embedders),
-                     and a peak below the bf16 phase's.
+                     and a peak below the bf16 phase's. Then, on the same
+                     model, eight pairs of adjacent steps under "attn" and
+                     under activation_checkpointing = true (57 against 114
+                     K1 launches a step), the order alternating: the "attn"
+                     step must take no longer (the mean difference within
+                     twice its standard error; phase
+                     slice-fp8-int8-attn-vs-true).
+   vae            -- the Flux VAE at full width, random weights from the
+                     seed written in the diffusers layout and loaded by the
+                     Flux pipeline's caching function, bf16 on the card: the
+                     encode of a 2 x 3 x 512 x 512 batch within 3e-2
+                     (relative L2) of the same weights in f32 on the CPU,
+                     and its device time.
+   driver         -- the same cell through the training driver,
+                     `python -m diffusion_pipe_tpu_torch.train` (called as
+                     train.main): 8 seeded 512 px PNGs and 2 for eval under
+                     build/smoke/, the caching phase with the vae phase's
+                     VAE and seeded T5/CLIP stand-ins, 3 steps with the
+                     9-quantile eval, a resume to step 5: finite losses,
+                     the step counter, the loader position of an
+                     uninterrupted run, metrics.jsonl, LoRA moved and int8
+                     unchanged, the 988-key adapter, the launches (57 / 57 /
+                     57 and 1,406 H1 and H2 a step, 57 and 494 an eval
+                     forward), and the step time beside the fp8-int8
+                     phase's (the difference is the driver's host cost).
 5. reference-wan  -- a two-block Wan at head dim 128 (dim 256, 2 heads, a
                      3x10x10 latent grid = 75 tokens, 40 text tokens), full
                      fine-tuning, bf16 on the card against f32 on the CPU:
@@ -91,7 +115,8 @@ Phases, each printing one JSON line (or more):
 
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
-Pallas kernel, at the Flux fp8-int8 path's), the card's name and power
+Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
+driver phase), the card's name and power
 limit from nvidia-smi, and last {"ok": true, "device": {...}}. Any failed
 check raises and exits non-zero. Float32 references run with TF32 off
 (matmul and cuDNN).
@@ -805,10 +830,11 @@ def _int8_weights(model):
 
 
 def phase_slice(phase="slice", cell="flux-dev-lora-512", cfg=SLICE_CONFIG, bf16_peak=None,
-                **slice_kw):
+                attn_vs_true=False, **slice_kw):
     """The Flux path at cfg; with bf16_peak (the bf16 phase's peak) also
     the fp8-int8 checks: every block linear int8 with real scales, and a
-    lower peak."""
+    lower peak. attn_vs_true: then the same model in alternating "attn" and
+    `true` steps (_attn_vs_true). Returns (launches, peak, step seconds)."""
     t0 = time.perf_counter()
     pipeline, state, step, batch, gen = build_slice(cfg=cfg, **slice_kw)
     torch.cuda.synchronize()
@@ -860,7 +886,74 @@ def phase_slice(phase="slice", cell="flux-dev-lora-512", cfg=SLICE_CONFIG, bf16_
         check(int8_real == linears, f"{linears - int8_real} of {linears} block linears "
               "lack an int8 weight with real scales")
         check(peak < bf16_peak, f"peak {peak} not below the bf16 phase's {bf16_peak}")
-    return counts, peak
+    if attn_vs_true:
+        _attn_vs_true(phase, pipeline, state, step, batch, gen)
+    return counts, peak, step_s
+
+
+ATTN_VS_TRUE_PAIRS = 8
+
+
+def _attn_vs_true(phase, pipeline, state, step, batch, gen):
+    """The cell under "attn" and under activation_checkpointing = true on
+    the same model (the checkpointing spec is read at each forward; both
+    compute the same losses and gradients, and true only launches K1 again
+    in the recompute), in pairs of adjacent steps whose order alternates,
+    each step ended by a synchronize. The host sets this step's time, and
+    its steps scatter by about 0.15 s: pairing keeps the host's drift out of
+    each difference. The "attn" step must take no longer than the true one:
+    the mean of the pairs' differences (attn - true) may not exceed twice
+    its standard error. Beside the wall clock, each step's process CPU time
+    (every thread of this process): the host's work, which other tenants of
+    the host's cores do not stretch, and which C1 was about."""
+    import dataclasses
+    import statistics
+
+    model = pipeline.model
+    specs = {"attn": model.cfg, "true": dataclasses.replace(model.cfg, remat="full")}
+    times = {name: [] for name in specs}
+    cpu = {name: [] for name in specs}
+    counts = {name: {} for name in specs}
+    try:
+        for i in range(ATTN_VS_TRUE_PAIRS):
+            for name in (("attn", "true") if i % 2 == 0 else ("true", "attn")):
+                model.cfg = specs[name]
+                reset_launch_counts()
+                c0, t0 = time.process_time(), time.perf_counter()
+                m = step(state, batch, gen)
+                check(math.isfinite(m["loss"].item()), f"non-finite loss under {name}")
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+                cpu[name].append(time.process_time() - c0)
+                for k, v in launch_counts().items():
+                    counts[name][k] = counts[name].get(k, 0) + v
+    finally:
+        model.cfg = specs["attn"]
+
+    def paired(x):
+        diffs = [a - t for a, t in zip(x["attn"], x["true"])]
+        return (statistics.fmean(diffs), statistics.stdev(diffs) / math.sqrt(len(diffs)),
+                sum(int(d < 0) for d in diffs))
+
+    mean_diff, stderr, attn_faster = paired(times)
+    cpu_diff, cpu_stderr, attn_cheaper = paired(cpu)
+    step_s = {name: statistics.fmean(t) for name, t in times.items()}
+    per_step = {name: {k: v / ATTN_VS_TRUE_PAIRS for k, v in c.items()}
+                for name, c in counts.items()}
+    emit(phase=f"{phase}-attn-vs-true", pairs=ATTN_VS_TRUE_PAIRS,
+         attn_step_s=step_s["attn"], true_step_s=step_s["true"],
+         attn_median_s=statistics.median(times["attn"]),
+         true_median_s=statistics.median(times["true"]),
+         mean_diff_s=mean_diff, diff_stderr_s=stderr, pairs_attn_faster=attn_faster,
+         attn_cpu_s=statistics.fmean(cpu["attn"]), true_cpu_s=statistics.fmean(cpu["true"]),
+         cpu_mean_diff_s=cpu_diff, cpu_diff_stderr_s=cpu_stderr, pairs_attn_less_cpu=attn_cheaper,
+         attn_steps_s=times["attn"], true_steps_s=times["true"], attn_cpu_steps_s=cpu["attn"],
+         true_cpu_steps_s=cpu["true"], launches_per_step=per_step)
+    blocks = pipeline.flux_config.num_layers + pipeline.flux_config.num_single_layers
+    check(per_step["attn"]["flash_fwd"] == blocks and per_step["true"]["flash_fwd"] == 2 * blocks,
+          f"K1 launches a step: {per_step}")
+    check(mean_diff <= 2 * stderr,
+          f'"attn" steps slower than true\'s by {mean_diff:.4f} s (standard error {stderr:.4f} s)')
 
 
 FP8_INT8_CONFIG = {  # flux-dev-lora-512-fp8-int8: bench.py's Flux row
@@ -869,6 +962,317 @@ FP8_INT8_CONFIG = {  # flux-dev-lora-512-fp8-int8: bench.py's Flux row
               "int8_matmul": "fwd_bwd"},
     "activation_checkpointing": "attn",
 }
+
+
+# --- the caching VAE and the training driver -----------------------------------
+
+SMOKE_DIR = ROOT / "build" / "smoke"  # listed in .gitignore, inside the checkout
+VAE_BATCH = (2, 3, 512, 512)
+VAE_REL_L2 = 3e-2  # bf16 on the card against f32 on the CPU, relative L2
+VAE_TIMED = 5
+
+
+def _fresh_dir(path):
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def phase_vae():
+    """The Flux VAE at full width (VAEConfig.flux: 83.8 M parameters), random
+    weights from SEED written in the diffusers layout through the port's
+    safetensors writer and loaded back by the Flux pipeline's VAE function
+    (convert_diffusers_vae) in bf16 on the card, as the driver's caching
+    phase loads it: the encode of a 2 x 3 x 512 x 512 batch against the same
+    file's weights in f32 on the CPU, and its device time. Returns the
+    weights' folder (the driver's model.vae_path)."""
+    import numpy as np
+
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.autoencoder_kl import (
+        AutoencoderKL, VAEConfig, convert_diffusers_vae, diffusers_vae_state_dict)
+
+    vae_dir = _fresh_dir(SMOKE_DIR / "vae")
+    seeded = AutoencoderKL(VAEConfig.flux())
+    seeded.init_weights(torch.Generator().manual_seed(SEED))
+    path = vae_dir / "diffusion_pytorch_model.safetensors"
+    safetensors_io.save_file(diffusers_vae_state_dict(seeded), path)
+    ref = AutoencoderKL(VAEConfig.flux())
+    ref.load_state_dict(convert_diffusers_vae(safetensors_io.load_file(path), ref.config))
+    del seeded
+
+    pipeline = get_model_class("flux")(_driver_config(vae_dir), device="cuda")
+    encode = pipeline.get_call_vae_fn()
+    pixels = np.random.default_rng(SEED).uniform(-1, 1, VAE_BATCH).astype(np.float32)
+    t0 = time.perf_counter()
+    z = encode(pixels)["latents"]
+    first_call_s = time.perf_counter() - t0
+    vae = pipeline._load_vae()
+    x = torch.from_numpy(pixels).cuda()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: vae.encode(x), iters=VAE_TIMED)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        z_ref = ref.encode(torch.from_numpy(pixels))
+    cpu_s = time.perf_counter() - t0
+    rel = (torch.linalg.vector_norm(z - z_ref) / torch.linalg.vector_norm(z_ref)).item()
+    emit(phase="vae", config="VAEConfig.flux", params=sum(p.numel() for p in vae.parameters()),
+         weights_bytes=path.stat().st_size, input_shape=list(VAE_BATCH),
+         latent_shape=list(z.shape), dtype=str(next(vae.parameters()).dtype),
+         encode_ms=ms, first_call_s=first_call_s, cpu_f32_encode_s=cpu_s, rel_l2=rel,
+         tolerance=VAE_REL_L2)
+    check(tuple(z.shape) == (2, 16, 64, 64), f"latents {tuple(z.shape)}")
+    check(bool(torch.isfinite(z).all()), "non-finite latents")
+    check(rel <= VAE_REL_L2, f"VAE encode off the f32 CPU result: rel L2 {rel}")
+    return vae_dir
+
+
+DRIVER_IMAGES, DRIVER_EVAL_IMAGES = 8, 2
+DRIVER_STEPS, DRIVER_RESUMED_STEPS = 3, 5
+DRIVER_TOML = """# flux-dev-lora-512-fp8-int8 (bench.py's Flux row) through the driver
+output_dir = "{root}/out"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 100
+micro_batch_size_per_gpu = 2
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 1
+eval_before_first_step = true
+activation_checkpointing = "attn"
+
+[model]
+type = "flux"
+dtype = "bfloat16"
+transformer_dtype = "float8"
+int8_matmul = "fwd_bwd"
+guidance = 1.0
+vae_path = "{vae}"
+
+[adapter]
+type = "lora"
+rank = 32
+
+[optimizer]
+type = "adamw8bit"
+lr = 1e-4
+"""
+
+
+def _driver_config(vae_dir):
+    """The driver's config as a dict (what set_config_defaults gives)."""
+    import tomllib
+
+    from diffusion_pipe_tpu_torch.config import set_config_defaults
+
+    return set_config_defaults(tomllib.loads(DRIVER_TOML.format(root=SMOKE_DIR, vae=vae_dir)))
+
+
+def _write_images(folder, n, seed):
+    import numpy as np
+    from PIL import Image
+
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray((rng.random((512, 512, 3)) * 255).astype(np.uint8)).save(
+            folder / f"image{i}.png")
+        (folder / f"image{i}.txt").write_text(f"a seeded picture, number {i}")
+
+
+def _driver_step_times(metrics_file):
+    """Host seconds between consecutive train/loss records of one call: a
+    whole step of the driver (loader, host-to-device copies, the step, the
+    loss read back), the first step of each call left out."""
+    recs = [json.loads(line) for line in metrics_file.read_text().splitlines()]
+    train = [r for r in recs if "train/loss" in r]
+    return [b["time"] - a["time"] for a, b in zip(train, train[1:]) if b["step"] == a["step"] + 1
+            and a["step"] != DRIVER_STEPS]
+
+
+def phase_driver(vae_dir, fp8_step_s):
+    """bench.py's Flux row (flux-dev-lora-512-fp8-int8) through the driver,
+    python -m diffusion_pipe_tpu_torch.train, called as main(argv): 8
+    seeded 512 px PNGs with captions and 2 for eval, the caching phase
+    (--cache_only) with the vae phase's weights, then 3 steps with the
+    9-quantile eval before the first, then a resume to step 5. The
+    transformer starts from random init (no checkpoint here), and the text
+    encoders are seeded stand-ins at T5's [512, 4096] and CLIP's [768] (no
+    T5/CLIP weights here either). Checks: finite losses, the step counter at
+    5, the loader position of an uninterrupted run, train/loss for every
+    step and the nine eval quantiles in metrics.jsonl, every LoRA factor
+    moved in each call and the int8 weights unchanged, the adapter's 988
+    keys (2 per LoRA linear: the JAX export's count), and the launches:
+    57 / 57 / 57 flash and 1,406 H1 and H2 a training step, plus 57 K1 and
+    494 H1 and H2 an eval forward and 494 H1 a call for the pre-quantization
+    of the frozen weights. Returns the driver's launches."""
+    from diffusion_pipe_tpu_torch import safetensors_io, train
+    from diffusion_pipe_tpu_torch.models import flux
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+    from diffusion_pipe_tpu_torch.training import trainer
+
+    root = _fresh_dir(SMOKE_DIR / "driver")
+    _write_images(root / "train", DRIVER_IMAGES, SEED)
+    _write_images(root / "eval", DRIVER_EVAL_IMAGES, SEED + 1)
+    (root / "dataset.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/train"\n')
+    (root / "eval.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/eval"\n')
+    cfg_path = root / "flux_fp8_int8.toml"
+    cfg_path.write_text(DRIVER_TOML.format(root=root, vae=vae_dir))
+    argv = ["--config", str(cfg_path)]
+
+    captured = []
+    real_init = trainer.init_train_state
+    real_te = flux.FluxPipeline.get_call_text_encoder_fns
+
+    def init_and_keep(pipeline, *a, **kw):
+        state = real_init(pipeline, *a, **kw)
+        int8 = [p for p in pipeline.model.parameters() if p.dtype == torch.int8]
+        captured.append((pipeline, state, _fingerprint(int8)))
+        return state
+
+    def run(extra, steps, lora_before):
+        """One train.main call: its launches and peak, and what its state
+        shows after it (lora_before: {name: tensor} or None for the init)."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        check(train.main(argv + extra) == 0, f"train.main {extra} failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        pipeline, state, int8_print = captured.pop()
+        int8 = [p for p in pipeline.model.parameters() if p.dtype == torch.int8]
+        out = dict(steps=steps, wall_s=wall_s, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   int8_weights=len(int8),
+                   int8_unchanged=bool(torch.equal(_fingerprint(int8), int8_print)),
+                   lora_tensors=len(state.trainable),
+                   lora_tensors_moved=sum(int(not torch.equal(p.cpu(), lora_before[n]))
+                                          for n, p in state.trainable.items()))
+        fc = pipeline.flux_config
+        shape = dict(step=_expected_launches(pipeline), blocks=fc.num_layers + fc.num_single_layers,
+                     linears=sum(int(isinstance(m, LoraDense) and m.kernel_scale is not None)
+                                 for m in pipeline.model.modules()))
+        del pipeline, state, int8
+        _free()
+        return out, shape
+
+    trainer.init_train_state = init_and_keep
+    flux.FluxPipeline.get_call_text_encoder_fns = (
+        lambda self: flux.seeded_text_encoder_fns(512, 4096, 768))
+    try:
+        t0 = time.perf_counter()
+        check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
+        cache_s = time.perf_counter() - t0
+        _free()
+        # the LoRA factors as initialised: init_train_state's, from the seed
+        init = {}
+
+        def init_and_copy(pipeline, *a, **kw):
+            state = init_and_keep(pipeline, *a, **kw)
+            init.update({n: p.detach().cpu().clone() for n, p in state.trainable.items()})
+            return state
+
+        trainer.init_train_state = init_and_copy
+        first, shape = run(["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS, init)
+        trainer.init_train_state = init_and_keep
+        run_dir = next((root / "out").iterdir())
+        at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
+                              map_location="cpu", weights_only=True)["trainable"]
+        second, _ = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS)],
+                        DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
+        del init, at_first
+    finally:
+        trainer.init_train_state = real_init
+        flux.FluxPipeline.get_call_text_encoder_fns = real_te
+    calls = [first, second]
+
+    # each call: H1 once a frozen block weight when init_train_state
+    # pre-quantizes it, then a training step's launches a step; the first
+    # call also an eval forward's (no backward, no recompute) for each of
+    # the 9 quantiles x the eval batches before step 1
+    eval_forwards = 9 * -(-DRIVER_EVAL_IMAGES // 2)
+    per_forward = {"flash_fwd": shape["blocks"], "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                   "sr_add": 0, "quant_rows": shape["linears"], "rescale_i32": shape["linears"]}
+    init = {k: shape["linears"] if k == "quant_rows" else 0 for k in per_forward}
+    expected = [{k: init[k] + v * first["steps"] + per_forward[k] * eval_forwards
+                 for k, v in shape["step"].items()},
+                {k: init[k] + v * second["steps"] for k, v in shape["step"].items()}]
+
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+    evals = [r for r in recs if any(k.startswith("eval/") for k in r)]
+    quantiles = sorted(k for r in evals for k in r if "loss_quantile_" in k)
+    final = run_dir / f"global_step{DRIVER_RESUMED_STEPS}"
+    meta = json.loads((final / "client_state.json").read_text())
+    saved_step = torch.load(final / "state.pt", map_location="cpu", weights_only=True)["step"]
+    adapter = safetensors_io.load_file(run_dir / "epoch1" / "adapter_model.safetensors")
+    uninterrupted, loader_cost = _uninterrupted_loader_state(root, DRIVER_RESUMED_STEPS)
+    step_times = _driver_step_times(run_dir / "metrics.jsonl")
+    step_s = sum(step_times) / len(step_times)
+    emit(phase="driver", cell="flux-dev-lora-512-fp8-int8", cache_only_s=cache_s,
+         calls=calls, expected_launches=expected, losses=losses, eval=evals,
+         step_s=step_s, step_times_s=step_times, samples_per_s=2 / step_s,
+         slice_fp8_int8_step_s=fp8_step_s, host_cost_s=step_s - fp8_step_s,
+         final_step=saved_step, loader_state=meta.get("custom_loader"),
+         uninterrupted_loader_state=uninterrupted, loader_cost=loader_cost,
+         adapter_keys=len(adapter))
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
+    check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
+    check(len(quantiles) == 9, f"eval quantiles {quantiles}")
+    check(saved_step == DRIVER_RESUMED_STEPS and meta["step"] == DRIVER_RESUMED_STEPS,
+          f"step counter {saved_step}")
+    check(meta.get("custom_loader") == uninterrupted,
+          f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
+    check(all(c["int8_unchanged"] and c["int8_weights"] == 494 for c in calls),
+          "int8 weights changed")
+    check(all(c["lora_tensors_moved"] == c["lora_tensors"] == 988 for c in calls),
+          "LoRA factors did not all move")
+    check(len(adapter) == 2 * 494, f"adapter keys {len(adapter)}, expected 988")
+    for c, want in zip(calls, expected):
+        check(c["launches"] == want, f"driver launches {c['launches']}, expected {want}")
+    total = {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
+    check(all(total[k] > 0 for k in FLASH + INT8), f"a kernel of the driver's path idle: {total}")
+    return total
+
+
+def _uninterrupted_loader_state(root, steps):
+    """The loader position after `steps` pulls of a fresh loader over the
+    cached dataset (no training): an uninterrupted run's. Also the host
+    time of a pull (cache reads and collation) and of the batch's copy to
+    the card, over the pulls after the first, and which cache reader
+    served them ("native": native/cache_reader.cpp, else "python")."""
+    from diffusion_pipe_tpu_torch.config import load_toml, normalize_batch_size_map
+    from diffusion_pipe_tpu_torch.data.dataset import Dataset
+    from diffusion_pipe_tpu_torch.data.loader import DatasetManager, PipelineDataLoader
+    from diffusion_pipe_tpu_torch.models import get_model_class
+
+    pipeline = get_model_class("flux")(_driver_config(SMOKE_DIR / "vae"), device="cuda")
+    ds = Dataset(load_toml(root / "dataset.toml"), pipeline)
+    manager = DatasetManager(pipeline)
+    manager.register(ds)
+    manager.cache()  # complete: reads the metadata and cache indexes only
+    ds.post_init(0, 1, normalize_batch_size_map(2), 1, full_global=True)
+    loader = PipelineDataLoader(ds, 1)
+    pull_s, copy_s = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, batch = next(loader)
+        t1 = time.perf_counter()
+        on_card = {k: v.to("cuda") for k, v in batch.items()}
+        torch.cuda.synchronize()
+        if i:
+            pull_s.append(t1 - t0)
+            copy_s.append(time.perf_counter() - t1)
+    del on_card
+    readers = sorted({b.latent_cache.last_reader for b in ds.all_size_bucket_datasets()})
+    return loader.state_dict(), {
+        "pull_ms": 1e3 * sum(pull_s) / len(pull_s), "copy_to_card_ms": 1e3 * sum(copy_s) / len(copy_s),
+        "batch_bytes": sum(v.numel() * v.element_size() for v in batch.values()),
+        "cache_readers": readers}
 
 
 # --- phase 5 ------------------------------------------------------------------
@@ -1025,14 +1429,16 @@ def nvidia_smi_line():
 
 
 def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                 ptxas):
+                 driver_counts, ptxas):
     """One entry per kernel. K1-K4 at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
     kernel's numbers at the other shapes beside, with the Flux paths'
     launches (bf16 and fp8-int8). H1 and H2 (which replace no Pallas kernel)
     at the fp8-int8 Flux path's ff_in shape, launches from its timed steps
-    (H1's dgrad case beside). Each carries its share of the bound (bound_ms /
+    (H1's dgrad case beside). launches_driver: each kernel's launches in
+    the driver phase's two train.main calls (bench.py's Flux row through
+    the training driver, eval included). Each carries its share of the bound (bound_ms /
     ms); K1 its factor against SDPA's forward (library_factor), K3 the
     factor of K2 + K3 against SDPA's backward; K1, K2 and K3 the ptxas
     registers, spills and wgmma serialization of their bf16, D = 128
@@ -1061,7 +1467,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
-                     launches=launches, **{k: main[k] for k in keys},
+                     launches=launches, launches_driver=driver_counts[name],
+                     **{k: main[k] for k in keys},
                      **{k: main[k] for k in extra if k in main})
         if name in FLASH:
             entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
@@ -1089,16 +1496,21 @@ def main():
     sr_timing = phase_sr_kernel()
     int8_timing = phase_int8_kernels()
     phase_reference()
-    flux_counts, bf16_peak = phase_slice()
+    flux_counts, bf16_peak, _ = phase_slice()
     _free()
-    fp8_counts, _ = phase_slice(phase="slice-fp8-int8", cell="flux-dev-lora-512-fp8-int8",
-                                cfg=FP8_INT8_CONFIG, bf16_peak=bf16_peak)
+    fp8_counts, _, fp8_step_s = phase_slice(
+        phase="slice-fp8-int8", cell="flux-dev-lora-512-fp8-int8", cfg=FP8_INT8_CONFIG,
+        bf16_peak=bf16_peak, attn_vs_true=True)
+    _free()
+    vae_dir = phase_vae()
+    _free()
+    driver_counts = phase_driver(vae_dir, fp8_step_s)
     _free()
     phase_reference_wan()
     wan_counts = phase_slice_wan()
 
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                       ptxas))
+                       driver_counts, ptxas))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

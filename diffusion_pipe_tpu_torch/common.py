@@ -1,11 +1,14 @@
-"""Shared small utilities: dtype mapping, device choice, math helpers.
+"""Shared small utilities: dtype mapping, device choice, media extensions,
+timing, math helpers.
 
 PyTorch counterpart of diffusion_pipe_tpu/common.py.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import Optional, Union
 
 import torch
@@ -22,6 +25,13 @@ DTYPE_MAP = {
     "float8_e4m3fn": torch.float8_e4m3fn,
     "float8_e5m2": torch.float8_e5m2,
 }
+
+
+VIDEO_EXTENSIONS = {
+    ".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v", ".wmv", ".flv",
+    ".mpg", ".mpeg", ".gif",
+}
+IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".webp", ".bmp", ".tiff", ".tif"}
 
 
 def dtype_from_string(name):
@@ -46,8 +56,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return torch.device("cuda")
 
 
+def round_to_nearest_multiple(x: int, multiple: int) -> int:
+    return int(round(x / multiple) * multiple)
+
+
+def round_down_to_multiple(x: int, multiple: int) -> int:
+    return (int(x) // multiple) * multiple
+
+
 def round_up_to_multiple(x: int, multiple: int) -> int:
     return -(-int(x) // multiple) * multiple
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def get_lin_function(x1: float = 256, y1: float = 0.5, x2: float = 4096,
@@ -62,3 +84,21 @@ def time_shift(mu: float, sigma: float, t):
     """Flux-style timestep shift."""
     e_mu = math.exp(mu)
     return e_mu / (e_mu + (1 / t - 1) ** sigma)
+
+
+@contextlib.contextmanager
+def log_duration(name: str, enabled: bool = True):
+    """Print how long the block took."""
+    start = time.time()
+    try:
+        yield
+    finally:
+        if enabled:
+            print(f"{name}: {time.time() - start:.3f}s")
+
+
+def first_not_none(*vals):
+    for v in vals:
+        if v is not None:
+            return v
+    return None

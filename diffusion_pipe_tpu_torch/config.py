@@ -8,7 +8,8 @@ dict; call sites map them with common.dtype_from_string.
 from __future__ import annotations
 
 import json
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import tomllib
 
@@ -101,4 +102,63 @@ def set_config_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
     config.setdefault("caching_batch_size", 1)
     config.setdefault("seed", 0)
     config.setdefault("optimizer", {"type": "adamw"})
+    return config
+
+
+def normalize_batch_size_map(value) -> Dict[Optional[int], int]:
+    """micro_batch_size_per_gpu as a {resolution: bs} map: an int applies to
+    every resolution (key None); a list holds [resolution, bs] pairs."""
+    if value is None:
+        return {None: 1}
+    if isinstance(value, int):
+        return {None: value}
+    if isinstance(value, dict):
+        return {(None if k in (None, "default") else int(k)): int(v)
+                for k, v in value.items()}
+    return {int(x[0]): int(x[1]) for x in value}
+
+
+def lookup_batch_size(bs_map: Dict[Optional[int], int], resolution) -> int:
+    """The micro batch size for a bucket resolution: the exact key, else the
+    largest configured resolution <= the bucket's, else the default."""
+    if resolution in bs_map:
+        return bs_map[resolution]
+    keyed = sorted(k for k in bs_map if k is not None)
+    chosen = None
+    for k in keyed:
+        if resolution is not None and k <= resolution:
+            chosen = k
+    if chosen is not None:
+        return bs_map[chosen]
+    if None in bs_map:
+        return bs_map[None]
+    return bs_map[keyed[0]]
+
+
+def resolve_batch_size_maps(config: Dict[str, Any]) -> Dict[str, Dict]:
+    """The four batch-size maps: train / eval x any / image buckets."""
+    mbs = normalize_batch_size_map(config.get("micro_batch_size_per_gpu", 1))
+    eval_mbs = (
+        normalize_batch_size_map(config["eval_micro_batch_size_per_gpu"])
+        if "eval_micro_batch_size_per_gpu" in config
+        else mbs
+    )
+    image_mbs = (
+        normalize_batch_size_map(config["image_micro_batch_size_per_gpu"])
+        if "image_micro_batch_size_per_gpu" in config
+        else mbs
+    )
+    eval_image_mbs = (
+        normalize_batch_size_map(config["eval_image_micro_batch_size_per_gpu"])
+        if "eval_image_micro_batch_size_per_gpu" in config
+        else eval_mbs
+    )
+    return {"train": mbs, "eval": eval_mbs, "image": image_mbs,
+            "eval_image": eval_image_mbs}
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    config = load_toml(path)
+    set_config_defaults(config)
+    config["_config_path"] = os.path.abspath(path)
     return config

@@ -19,6 +19,11 @@ function:
   ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux)
   or `blocks.{i}.*` (Wan).
 
+vae_to_state_dict does the same for the JAX AutoencoderKL's parameters
+(models/autoencoder_kl.py): a Conv `kernel` [kh, kw, in, out] becomes
+`weight` [out, in, kh, kw], a Dense `kernel` is transposed, and a GroupNorm
+`scale` becomes `weight`.
+
 Only numpy and torch are used here.
 """
 
@@ -90,11 +95,14 @@ def jax_to_state_dict(params: Mapping[str, Any],
     return out
 
 
-def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],
+                    partial: bool = False) -> None:
     """model.load_state_dict(state_dict), where an integer entry (an int8
     weight of a pre-quantized state) first replaces its float parameter by a
     frozen integer one of the entry's dtype, since a copy into the float
-    parameter would convert the values."""
+    parameter would convert the values. partial: entries the dict lacks
+    keep their values (a converted checkpoint holds no adapter factors);
+    an entry the model lacks still raises."""
     params = dict(model.named_parameters())
     for key, val in state_dict.items():
         p = params.get(key)
@@ -102,4 +110,24 @@ def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tenso
             owner, name = key.rsplit(".", 1) if "." in key else ("", key)
             setattr(model.get_submodule(owner), name, torch.nn.Parameter(
                 torch.empty(val.shape, dtype=val.dtype, device=p.device), requires_grad=False))
-    model.load_state_dict(state_dict)
+    unexpected = model.load_state_dict(state_dict, strict=not partial).unexpected_keys
+    if unexpected:
+        raise KeyError(f"entries the model does not have: {unexpected[:5]}")
+
+
+def vae_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port AutoencoderKL's state_dict from the JAX VAE's parameters."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        arr = np.asarray(arr)
+        name = path[-1]
+        if name == "kernel" and arr.ndim == 4:
+            name, arr = "weight", np.transpose(arr, (3, 2, 0, 1))
+        elif name == "kernel":
+            name, arr = "weight", arr.T
+        elif name == "scale":
+            name = "weight"
+        out[".".join(path[:-1] + (name,))] = _to_tensor(np.ascontiguousarray(arr))
+    return out

@@ -1,17 +1,22 @@
-"""Flux pipeline: training-input preparation around FluxTransformer.
+"""Flux pipeline: training-input preparation around FluxTransformer, and
+what the training driver needs of it.
 
-Counterpart of diffusion_pipe_tpu/models/flux.py (prepare_inputs, forward,
-random init). Rectified-flow noising with logit-normal t, 2x2 latent
-patchify, 3-axis image position ids, the guidance vector from config. The
-noise and t come from a torch.Generator, or are passed in as tensors (the
-tests feed the JAX package's draws). Loading pretrained weights, adapter
-export, sampling and the caching encoders are not ported yet.
+Counterpart of diffusion_pipe_tpu/models/flux.py: rectified-flow noising
+with logit-normal t, 2x2 latent patchify, 3-axis image position ids, the
+guidance vector from config (prepare_inputs, forward, random init); the
+diffusers/BFL weight loading, the VAE and text-encoder functions of the
+caching phase (each builds its model at its first call), and the
+diffusers-lora adapter export and import. The noise and t come from a
+torch.Generator, or are passed in as tensors (the tests feed the JAX
+package's draws). Sampling (`--test_sample`) is not ported yet.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..common import dtype_from_string
@@ -43,6 +48,26 @@ def resize_mask_to_latents(mask: torch.Tensor, h: int, w: int, c: int) -> torch.
     m = torch.nn.functional.interpolate(mask.float()[:, None], size=(h, w),
                                         mode="nearest-exact")
     return m.expand(-1, c, -1, -1)
+
+
+def seeded_text_encoder_fns(t5_len: int, t5_dim: int, clip_dim: int):
+    """Stand-in T5 and CLIP functions: each caption's embeddings are normal
+    draws of numpy's generator seeded from the caption's hash (the JAX
+    package's `_tiny` hook, the same values at the same sizes)."""
+    from ..data.bucketing import seed_from_hash
+
+    def draws(captions, shape):
+        return torch.from_numpy(np.stack([
+            np.random.default_rng(seed_from_hash(c)).standard_normal(shape).astype(np.float32)
+            for c in captions]))
+
+    def t5_fn(captions):
+        return {"t5_embed": draws(captions, (t5_len, t5_dim))}
+
+    def clip_fn(captions):
+        return {"clip_embed": draws(captions, (clip_dim,))}
+
+    return [t5_fn, clip_fn]
 
 
 @register_model("flux", "flex", "flux-kontext")
@@ -149,3 +174,127 @@ class FluxPipeline(BasePipeline):
 
     def forward(self, model_inputs):
         return self.model(**model_inputs)
+
+    # --- pretrained weights -------------------------------------------------
+
+    def load_weights(self) -> Dict[str, torch.Tensor]:
+        """The pretrained transformer as a state dict of the port's names:
+        model.transformer_path (a safetensors file or folder), else
+        model.diffusers_path/transformer; diffusers or BFL keys, with
+        model.merge_adapters fused in first."""
+        from .flux_convert import convert_bfl_flux, convert_diffusers_flux
+        from .weights import load_safetensors_dir, merge_adapters_into_state_dict
+
+        mc = self.model_config
+        path = mc.get("transformer_path")
+        if path is None:
+            path = str(Path(mc["diffusers_path"]) / "transformer")
+        sd = merge_adapters_into_state_dict(load_safetensors_dir(path),
+                                            mc.get("merge_adapters", []))
+        if any(k.startswith("double_blocks.") for k in sd):
+            return convert_bfl_flux(sd, self.flux_config)
+        return convert_diffusers_flux(sd, self.flux_config)
+
+    # --- caching encoders ---------------------------------------------------
+
+    def _load_vae(self):
+        """The VAE on the pipeline's device in the model dtype: random at a
+        small width under the `_tiny` test hook, else from model.vae_path
+        (or diffusers_path/vae) in the diffusers layout."""
+        if getattr(self, "_vae", None) is None:
+            from .autoencoder_kl import AutoencoderKL, VAEConfig, convert_diffusers_vae
+            from .weights import load_safetensors_dir
+
+            mc = self.model_config
+            dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
+            if mc.get("_tiny", False):
+                cfg = VAEConfig(latent_channels=16, block_out_channels=(8, 8, 16, 16),
+                                norm_num_groups=4, layers_per_block=1,
+                                scaling_factor=1.0, shift_factor=0.0, dtype=dtype)
+                vae = AutoencoderKL(cfg).to(self.device)
+                vae.init_weights(torch.Generator(device=self.device).manual_seed(0))
+            else:
+                cfg = VAEConfig.flux(dtype=dtype)
+                path = mc.get("vae_path") or str(Path(mc["diffusers_path"]) / "vae")
+                sd = convert_diffusers_vae(load_safetensors_dir(path), cfg)
+                with torch.device("meta"):
+                    vae = AutoencoderKL(cfg)
+                vae = vae.to_empty(device=self.device)
+                vae.load_state_dict(sd)
+            self._vae = vae.eval().requires_grad_(False)
+        return self._vae
+
+    def get_call_vae_fn(self):
+        """fn(pixels [B, 3, H, W] or [B, 3, 1, H, W] in [-1, 1], numpy) ->
+        {"latents": [B, 16, H/8, W/8] f32 CPU tensor}; the VAE loads at the
+        first call."""
+
+        def fn(pixels):
+            vae = self._load_vae()
+            x = torch.from_numpy(np.asarray(pixels, np.float32))
+            if x.dim() == 5:  # (B, C, F=1, H, W) -> image
+                x = x[:, :, 0]
+            with torch.no_grad():
+                z = vae.encode(x.to(self.device))
+            return {"latents": z.float().cpu()}
+
+        return fn
+
+    def get_call_text_encoder_fns(self):
+        """[T5 fn, CLIP fn], each captions -> {name: f32 CPU tensor}. Under
+        the `_tiny` hook, seeded draws at the tiny widths (16 T5 tokens);
+        otherwise transformers' T5 and CLIP from model.t5_path / clip_path
+        (or the diffusers folder), loaded at their first call."""
+        from .text_encoders import HFTextEncoder
+
+        mc = self.model_config
+        cfg = self.flux_config
+        if mc.get("_tiny", False):
+            return seeded_text_encoder_fns(16, cfg.joint_attention_dim,
+                                           cfg.pooled_projection_dim)
+        base = mc.get("diffusers_path")
+        te_dtype = dtype_from_string(mc.get("text_encoder_dtype") or mc.get("dtype", "bfloat16"))
+        t5 = HFTextEncoder(
+            "t5", mc.get("t5_path", str(Path(base or "") / "text_encoder_2")),
+            max_length=int(mc.get("max_sequence_length", 512)),
+            tokenizer_path=mc.get("t5_tokenizer_path",
+                                  str(Path(base) / "tokenizer_2") if base else None),
+            device=self.device, dtype=te_dtype)
+        clip = HFTextEncoder(
+            "clip_pooled", mc.get("clip_path", str(Path(base or "") / "text_encoder")),
+            max_length=77,
+            tokenizer_path=mc.get("clip_tokenizer_path",
+                                  str(Path(base) / "tokenizer") if base else None),
+            device=self.device, dtype=te_dtype)
+
+        def t5_fn(captions):
+            return {"t5_embed": t5.encode(captions)}
+
+        def clip_fn(captions):
+            return {"clip_embed": clip.encode(captions)}
+
+        return [t5_fn, clip_fn]
+
+    # --- adapters -----------------------------------------------------------
+
+    def save_adapter(self, out_dir, trainable) -> None:
+        """The trainable LoRA factors as diffusers-lora safetensors
+        (adapter_model.safetensors), keys and bits as the JAX export."""
+        from .. import safetensors_io
+        from .flux_convert import export_lora_diffusers
+
+        sd = export_lora_diffusers(trainable, self.flux_config)
+        safetensors_io.save_file(sd, str(Path(out_dir) / "adapter_model.safetensors"))
+
+    def load_adapter(self, path) -> Dict[str, torch.Tensor]:
+        """adapter.init_from_existing: the LoRA factors of the one
+        safetensors file in `path` (exported by either package), as a
+        partial state dict to load over the initialised model."""
+        from .. import safetensors_io
+        from .flux_convert import import_lora_diffusers
+
+        files = sorted(Path(path).glob("*.safetensors"))
+        if len(files) != 1:
+            raise RuntimeError(f"init_from_existing: expected exactly one safetensors file "
+                               f"in {path}, found {len(files)}")
+        return import_lora_diffusers(safetensors_io.load_file(files[0]), self.flux_config)

@@ -29,16 +29,16 @@ one a per-column reduction.
 from __future__ import annotations
 
 import math
+from collections import deque
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint
 
 from ..common import dtype_from_string
-from ..ops.flash_attention import FLASH_FWD_OP
+from ..ops import flash_attention as fa
 from ..ops.int8_quant import int_mm, quant_rows, rescale_i32
 
 # Flax's lecun_normal draws a normal truncated to [-2, 2] and rescales it by
@@ -440,16 +440,14 @@ def remat_spec(config) -> str:
     return spec
 
 
-def _save_flash_out(ctx, op, *args, **kwargs):
-    """The "attn" policy, jax.checkpoint_policies.save_only_these_names(
-    "flash_out"): keep the flash forward's outputs, recompute the rest."""
-    if op is FLASH_FWD_OP:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
 def _attn_context():
-    return create_selective_checkpoint_contexts(_save_flash_out)
+    """The "attn" policy, jax.checkpoint_policies.save_only_these_names(
+    "flash_out"): the forward records each flash forward's O and LSE in a
+    store of its own checkpoint call (so GAS's several forwards before one
+    backward keep theirs apart), the recompute takes them back instead of
+    launching K1, and the store goes with the call's backward."""
+    store = deque()
+    return fa.record_forwards(store), fa.replay_forwards(store)
 
 
 def remat_call(spec: str, block, *args):

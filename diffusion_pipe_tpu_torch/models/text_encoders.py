@@ -1,0 +1,62 @@
+"""Text-encoder wrappers for the caching phase: transformers' torch T5 and
+CLIP text models.
+
+Counterpart of diffusion_pipe_tpu/models/text_encoders.py, which runs the
+Flax classes; here T5EncoderModel and CLIPTextModel run on the pipeline's
+device. transformers is imported when an encoder first loads, so the port
+imports without it. Weights and tokenizers load from the same
+diffusers-layout folders as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+
+class HFTextEncoder:
+    """Lazy wrapper around a transformers torch text encoder.
+
+    kind: 't5' | 'clip' | 'clip_pooled'; path: a folder with the weights
+    (tokenizer_path overrides where the tokenizer is). encode(captions)
+    returns the last hidden state [B, max_length, D] (or CLIP's pooled
+    output [B, D]) as f32 CPU tensors.
+    """
+
+    def __init__(self, kind: str, path: str, max_length: int,
+                 tokenizer_path: Optional[str] = None, device=None,
+                 dtype: torch.dtype = torch.float32):
+        if kind not in ("t5", "clip", "clip_pooled"):
+            raise NotImplementedError(kind)
+        self.kind = kind
+        self.path = path
+        self.max_length = max_length
+        self.tokenizer_path = tokenizer_path or path
+        self.device = device
+        self.dtype = dtype
+        self._model = None
+        self._tokenizer = None
+
+    def _load(self):
+        if self._model is not None:
+            return
+        from transformers import AutoTokenizer
+
+        self._tokenizer = AutoTokenizer.from_pretrained(self.tokenizer_path)
+        if self.kind == "t5":
+            from transformers import T5EncoderModel as cls
+        else:
+            from transformers import CLIPTextModel as cls
+        self._model = cls.from_pretrained(self.path, dtype=self.dtype).to(self.device).eval()
+
+    @torch.no_grad()
+    def encode(self, captions: List[str]) -> torch.Tensor:
+        self._load()
+        tok = self._tokenizer(captions, padding="max_length", truncation=True,
+                              max_length=self.max_length, return_tensors="pt")
+        ids = tok["input_ids"].to(self.device)
+        mask = tok["attention_mask"].to(self.device)
+        out = self._model(input_ids=ids, attention_mask=mask)
+        emb = out.pooler_output if self.kind == "clip_pooled" else out.last_hidden_state
+        return emb.float().cpu()

@@ -15,16 +15,18 @@ A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises on a shape or dtype the kernel does
 not take. Each kernel wrapper counts its launches in `.launches`.
 
-The forward (K1, or its plain version on the CPU) is the custom op
-FLASH_FWD_OP, so that selective activation checkpointing can name it: the
-"attn" remat policy (models/layers.py) saves its O and LSE, and the
-recompute in the backward takes them from the checkpoint instead of
-launching K1 again (nor counting a launch).
+Under the "attn" remat policy (models/layers.py) each checkpointed block
+runs its forward inside `record_forwards(store)`, which appends the O and
+LSE of every flash forward to that block's own list, and its recompute in
+the backward inside `replay_forwards(store)`, which hands them back in
+order instead of launching K1 again (nor counting a launch).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from collections import deque
 from typing import Optional, Tuple
 
 import torch
@@ -322,28 +324,57 @@ def flash_backward(q, k, v, kv_mask, o, lse, do, scale):
     return dq, dk, dv
 
 
-# registered under the top-level package's name, so that a second copy of
-# the package (a parent tree loaded beside this one) registers its own op
-_OP_NAMESPACE = __name__.split(".")[0]
+# --- saved forwards of the "attn" policy -------------------------------------
+
+# (mode, store) while a checkpointed block runs under "attn": "record" appends
+# each forward's (O, LSE) to the block's store, "replay" takes them back in
+# order. A plain global, not a thread-local: the recompute runs on autograd's
+# device thread while the thread that called backward() waits.
+_forwards: Optional[Tuple[str, deque]] = None
 
 
-@torch.library.custom_op(
-    f"{_OP_NAMESPACE}::flash_fwd", mutates_args=(),
-    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, float scale) -> (Tensor, Tensor)")
-def _flash_fwd_op(q, k, v, kv_mask, scale):
-    return flash_forward(q, k, v, kv_mask, scale)
+@contextlib.contextmanager
+def _forwards_mode(mode: str, store: deque):
+    global _forwards
+    outer, _forwards = _forwards, (mode, store)
+    try:
+        yield
+    finally:
+        _forwards = outer
 
 
-FLASH_FWD_OP = getattr(torch.ops, _OP_NAMESPACE).flash_fwd.default
+def record_forwards(store: deque):
+    """Within: every flash forward appends its (O, LSE) to `store`."""
+    return _forwards_mode("record", store)
+
+
+def replay_forwards(store: deque):
+    """Within: every flash forward returns the next (O, LSE) of `store`,
+    recorded by the same call's forward, and launches nothing."""
+    return _forwards_mode("replay", store)
+
+
+def _forward_or_replay(q, k, v, kv_mask, scale):
+    if _forwards is None:
+        return flash_forward(q, k, v, kv_mask, scale)
+    mode, store = _forwards
+    if mode == "replay":
+        if not store:
+            raise RuntimeError("replay of a flash forward that was not recorded")
+        return store.popleft()
+    o, lse = flash_forward(q, k, v, kv_mask, scale)
+    # detached aliases: autograd gives the recompute's outputs their own history
+    store.append((o.detach(), lse.detach()))
+    return o, lse
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward returns (O, LSE) through FLASH_FWD_OP; backward runs the dQ
-    and dK/dV kernels."""
+    """Forward returns (O, LSE) from K1 (or, in an "attn" recompute, from
+    the block's recorded forward); backward runs the dQ and dK/dV kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale):
-        o, lse = _flash_fwd_op(q, k, v, kv_mask, scale)
+        o, lse = _forward_or_replay(q, k, v, kv_mask, scale)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)

@@ -1,0 +1,282 @@
+"""The port's training driver:
+
+    python -m diffusion_pipe_tpu_torch.train --config X.toml [--device cpu]
+        [--resume_from_checkpoint [RUN]] [--regenerate_cache] [--cache_only]
+        [--trust_cache] [--reset_dataloader] [--reset_optimizer]
+        [--reset_optimizer_params] [--max_steps N] [--profile_steps N]
+        [--i_know_what_i_am_doing]
+
+Counterpart of the top-level train.py of the JAX package, on the same TOML
+surface: the caching phase (dataset scan, aspect/size bucketing, latents
+and text embeddings into the cache), the run directory, the train loop with
+the 9-quantile eval, epoch and step triggers, checkpoints and resume, and
+the adapter export. It runs on the card unless --device names another
+device, and raises when CUDA is absent and no device was named.
+
+Noise and timesteps of step N come from a generator seeded with N, and the
+eval's from one seeded per (quantile, batch): a resumed run takes the steps
+of an uninterrupted one. --profile_steps N writes a torch.profiler trace of
+steps [1, N + 1) to run_dir/profile.
+
+Not ported yet, each raising NotImplementedError: pipeline_stages or
+tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
+optimizer (A10), --test_sample and --dump_dataset (A5), full fine-tuning's
+diffusers-layout export (A4), and families other than Flux (Wan's VAE and
+UMT5 come with A7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import shutil
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+TIMESTEP_QUANTILES_FOR_EVAL = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9]
+EVAL_SEED = 12345
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--device", default=None,
+                   help="torch device to train on (default: cuda, which must exist)")
+    p.add_argument("--resume_from_checkpoint", nargs="?", const=True, default=False)
+    p.add_argument("--regenerate_cache", action="store_true")
+    p.add_argument("--cache_only", action="store_true")
+    p.add_argument("--trust_cache", action="store_true")
+    p.add_argument("--reset_dataloader", action="store_true")
+    p.add_argument("--reset_optimizer", action="store_true")
+    # keep the optimizer moments but restart the LR schedule
+    p.add_argument("--reset_optimizer_params", action="store_true")
+    p.add_argument("--dump_dataset", type=Path, default=None)
+    p.add_argument("--i_know_what_i_am_doing", action="store_true")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--profile_steps", type=int, default=0)
+    p.add_argument("--test_sample", type=str, default=None)
+    return p.parse_args(argv)
+
+
+def _check_ported(config, args):
+    if int(config.get("pipeline_stages", 1)) > 1 or int(config.get("tensor_parallel", 1)) > 1:
+        raise NotImplementedError(
+            "pipeline_stages / tensor_parallel > 1 are not ported yet (ROADMAP A11)")
+    if config.get("blocks_to_swap") or str(
+            config.get("optimizer", {}).get("type", "")).lower() == "offload":
+        raise NotImplementedError(
+            "blocks_to_swap and optimizer.type = 'offload' are not ported yet (ROADMAP A10)")
+    if args.test_sample is not None or args.dump_dataset is not None:
+        raise NotImplementedError("--test_sample and --dump_dataset are not ported yet "
+                                  "(ROADMAP A5)")
+    from .models import get_model_class
+    from .models.flux import FluxPipeline
+
+    if get_model_class(config["model"]["type"]) is not FluxPipeline:
+        raise NotImplementedError(
+            f"the driver trains the Flux family so far; {config['model']['type']!r} needs "
+            "its VAE and text encoders ported (Wan: ROADMAP A7)")
+
+
+def _stop_profiler(profiler, run_dir: Path) -> None:
+    profiler.stop()
+    (run_dir / "profile").mkdir(exist_ok=True)
+    profiler.export_chrome_trace(str(run_dir / "profile" / "trace.json"))
+    print(f"profile written to {run_dir / 'profile'}")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from .common import resolve_device
+    from .config import load_config, load_toml, lookup_batch_size, resolve_batch_size_maps
+    from .data.dataset import Dataset
+    from .data.loader import DatasetManager, PipelineDataLoader
+    from .models import get_model_class
+    from .training.metrics import MetricsWriter
+    from .training.optimizers import get_optimizer
+    from .training.saver import Saver, get_most_recent_run_dir
+    from .training.train_state import predicate_from_config
+    from .training.trainer import init_train_state, make_eval_step, make_train_step
+
+    config = load_config(args.config)
+    _check_ported(config, args)
+    device = resolve_device(args.device)
+    dataset_config = load_toml(config["dataset"])
+    bs_maps = resolve_batch_size_maps(config)
+    pipeline = get_model_class(config["model"]["type"])(config, device=device)
+
+    # --- caching phase ------------------------------------------------------
+    support_video = pipeline.framerate is not None
+    train_data = Dataset(dataset_config, pipeline, support_video=support_video)
+    if not args.i_know_what_i_am_doing:
+        for d in train_data.directories:
+            n_res = len(d.resolutions or [])
+            if n_res > 3:
+                print(f"WARNING: {d.path} configures {n_res} resolutions. Each resolution "
+                      "multiplies the size-bucket count. Re-run with "
+                      "--i_know_what_i_am_doing to proceed anyway.")
+                return 1
+    eval_datasets = [(Path(p).stem, Dataset(load_toml(p), pipeline, support_video=support_video))
+                     for p in config.get("eval_datasets", [])]
+    manager = DatasetManager(pipeline, regenerate_cache=args.regenerate_cache,
+                             trust_cache=args.trust_cache,
+                             caching_batch_size=config.get("caching_batch_size", 1))
+    manager.register(train_data)
+    for _, ds in eval_datasets:
+        manager.register(ds)
+    manager.cache()
+    if args.cache_only:
+        print("Cache generated. Exiting.")
+        return 0
+
+    # --- run dir ------------------------------------------------------------
+    output_dir = Path(config["output_dir"])
+    if args.resume_from_checkpoint is True:
+        run_dir = Path(get_most_recent_run_dir(output_dir))
+    elif args.resume_from_checkpoint:
+        run_dir = output_dir / str(args.resume_from_checkpoint)
+    else:
+        run_dir = output_dir / datetime.datetime.now().strftime("%Y%m%d_%H-%M-%S")
+        run_dir.mkdir(parents=True, exist_ok=True)
+        shutil.copy(args.config, run_dir / Path(args.config).name)
+        if os.path.exists(config["dataset"]):
+            shutil.copy(config["dataset"], run_dir / Path(config["dataset"]).name)
+    print(f"run_dir: {run_dir}")
+
+    # --- weights / optimizer ------------------------------------------------
+    gas = config["gradient_accumulation_steps"]
+    train_data.post_init(0, 1, bs_maps["train"], gas,
+                         image_micro_batch_size=bs_maps["image"], full_global=True)
+    for _, ds in eval_datasets:
+        ds.post_init(0, 1, bs_maps["eval"], config["eval_gradient_accumulation_steps"],
+                     image_micro_batch_size=bs_maps["eval_image"], full_global=True)
+    # one loader pull = gas microbatches = one optimizer step
+    steps_per_epoch = max(1, len(train_data))
+    if config.get("eval_every_n_examples"):
+        bs = bs_maps["train"]
+        bs = bs if isinstance(bs, int) else lookup_batch_size(bs, None)
+        config["eval_every_n_steps"] = max(1, int(config["eval_every_n_examples"])
+                                           // max(1, bs * gas))
+        print(f"Computed eval_every_n_steps = {config['eval_every_n_steps']}")
+    config["_total_steps"] = int(config.get("epochs", 1)) * steps_per_epoch
+    base_lr = float(config.get("optimizer", {}).get("lr", 1e-4))
+    if "force_constant_lr" not in config and pipeline.lr_scale_map(base_lr):
+        raise NotImplementedError("per-module LR scales are not ported yet (ROADMAP A8)")
+    optimizer = get_optimizer(config)
+
+    try:
+        state_dict = pipeline.load_weights()
+        print("loaded pretrained weights")
+    except (NotImplementedError, KeyError, FileNotFoundError) as e:
+        print(f"WARNING: training from random init ({e!r})")
+        state_dict = None
+    if init_from_existing := config.get("adapter", {}).get("init_from_existing"):
+        state_dict = {**(state_dict or {}), **pipeline.load_adapter(init_from_existing)}
+        print(f"initialized adapter from {init_from_existing}")
+    gen = torch.Generator(device=device)
+    state = init_train_state(pipeline, optimizer, gen.manual_seed(config["seed"]),
+                             predicate_from_config(config), state_dict=state_dict,
+                             partial=True)
+    del state_dict
+
+    loader = PipelineDataLoader(train_data, gas)
+    saver = Saver(config, run_dir, pipeline, dataloader=loader)
+    if args.resume_from_checkpoint:
+        state, _ = saver.load_checkpoint(state, reset_optimizer=args.reset_optimizer,
+                                         reset_optimizer_params=args.reset_optimizer_params,
+                                         reset_dataloader=args.reset_dataloader)
+        print(f"resumed from step {state.step}")
+
+    monitoring = config.get("monitoring", {})
+    metrics_writer = MetricsWriter(run_dir, x_axis_examples=config.get("x_axis_examples", False),
+                                   enable_wandb=monitoring.get("enable_wandb", False),
+                                   wandb_config=monitoring or None)
+
+    ocfg = config.get("optimizer", {})
+    train_step = make_train_step(
+        pipeline, gradient_clipping=config.get("gradient_clipping", 1.0),
+        gradient_accumulation_steps=gas,
+        skip_invalid_grads=bool(ocfg.get("skip_invalid_grads", False)),
+        stochastic_rounding=bool(ocfg.get("stochastic_rounding", False)))
+    eval_step = make_eval_step(pipeline)
+
+    def run_eval(step_i, examples):
+        for name, ds in eval_datasets:
+            eval_loader = PipelineDataLoader(ds, config["eval_gradient_accumulation_steps"])
+            start = time.time()
+            quantile_losses = {q: [] for q in TIMESTEP_QUANTILES_FOR_EVAL}
+            for qi, q in enumerate(TIMESTEP_QUANTILES_FOR_EVAL):
+                eval_loader.reset()
+                for bi in range(ds.batches_per_epoch()):
+                    _, batch = next(eval_loader)
+                    # the noise differs per (quantile, batch), the same every eval
+                    gen.manual_seed(EVAL_SEED + qi * 1_000_003 + bi)
+                    loss = eval_step(pipeline.host_prepare(batch), gen, q)
+                    quantile_losses[q].append(float(loss))
+            out = {f"eval/{name}/loss_quantile_{q:.1f}": sum(v) / len(v)
+                   for q, v in quantile_losses.items()}
+            every = [x for v in quantile_losses.values() for x in v]
+            out[f"eval/{name}/loss"] = sum(every) / len(every)
+            out[f"eval/{name}/eval_time_sec"] = time.time() - start
+            metrics_writer.write(out, step_i, examples)
+
+    # --- train loop ---------------------------------------------------------
+    step_i = state.step
+    epoch = loader.epoch
+    epoch_losses = []
+    if config.get("eval_before_first_step", True) and not args.resume_from_checkpoint:
+        run_eval(step_i, state.examples)
+
+    max_steps = args.max_steps or config.get("max_steps", 10**12)
+    profile_from = state.step + 1  # the first step of a run warms up: not profiled
+    profiler = None
+    while True:
+        if args.profile_steps and step_i == profile_from:
+            profiler = torch.profiler.profile()
+            profiler.start()
+        if profiler is not None and step_i == profile_from + args.profile_steps:
+            _stop_profiler(profiler, run_dir)
+            profiler = None
+        _, batch = next(loader)
+        batch = pipeline.host_prepare(batch)
+        metrics = train_step(state, batch, gen.manual_seed(step_i))
+        step_i += 1
+        epoch_losses.append(float(metrics["loss"]))
+        if step_i % config.get("logging_steps", 1) == 0:
+            metrics_writer.write({f"train/{k}": float(v) for k, v in metrics.items()},
+                                 step_i, state.examples)
+            if int(metrics.get("skipped_params", 0)):
+                print(f"WARNING: {int(metrics['skipped_params'])} parameter updates were "
+                      "skipped due to Inf or NaN.")
+
+        if loader.epoch != epoch:
+            metrics_writer.write({"train/epoch_loss": sum(epoch_losses) / len(epoch_losses)},
+                                 step_i, state.examples)
+            epoch_losses = []
+            if saver.process_epoch(state, epoch, step_i) is None:
+                break
+            epoch = loader.epoch
+            if config.get("eval_every_n_epochs") and (epoch - 1) % config["eval_every_n_epochs"] == 0:
+                run_eval(step_i, state.examples)
+
+        if config.get("eval_every_n_steps") and step_i % config["eval_every_n_steps"] == 0:
+            run_eval(step_i, state.examples)
+
+        if saver.process_step(state, step_i, state.examples) or step_i >= max_steps:
+            break
+
+    if profiler is not None:
+        _stop_profiler(profiler, run_dir)
+    saver.save_checkpoint(state, step_i)
+    metrics_writer.close()
+    print(f"done at step {step_i}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,9 @@ Ported: `adamw8bit` (int8 moments, signed linear absmax per block of 256 --
 the JAX package's scheme, not bitsandbytes' dynamic map), plain `adamw`, and
 the learning-rate schedules. Both follow the optax chain of the JAX package:
 Adam direction, then `+ weight_decay * p` for parameters with ndim > 1, then
-`* -lr(step)`, and `apply_update` adds the result to the parameter.
+`* -lr(step)`, and `apply_update` adds the result to the parameter. The
+schedule counts from a parameter state's `schedule_offset` (0 unless
+--reset_optimizer_params restarted it; the bias corrections keep counting).
 
 adamw8bit does its update math in f32. adamw follows optax.adamw's dtypes:
 its moments start in the parameter's dtype (bf16 moments for a bf16
@@ -71,11 +73,18 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
-def apply_update(p: torch.Tensor, u: torch.Tensor, sr_seed: Optional[int] = None) -> None:
+def apply_update(p: torch.Tensor, u: torch.Tensor, sr_seed: Optional[int] = None,
+                 ok: Optional[torch.Tensor] = None) -> None:
     """p <- p + u in place, as optax.apply_updates: the sum in the promoted
     dtype, cast to p's. With sr_seed, a bf16 p instead becomes
     SR(f32(p) + f32(u)) through K4 (ops/quant.py), the JAX package's
-    `_apply_updates` with stochastic rounding; other dtypes add as before."""
+    `_apply_updates` with stochastic rounding; other dtypes add as before.
+    ok: a 0-dim bool tensor; where it is false the update is masked, as the
+    JAX step masks the update of a tensor whose gradient is not finite. The
+    mask is -0.0, not 0: x + (-0.0) is x for every x, the sign of a zero
+    included, so a masked tensor keeps its bits (also through K4)."""
+    if ok is not None:
+        u = torch.where(ok, u, torch.tensor(-0.0, dtype=u.dtype, device=u.device))
     if sr_seed is not None and p.dtype == torch.bfloat16:
         sr_add_(p, u, sr_seed)
     else:
@@ -91,7 +100,8 @@ class _UpdateRule(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Sequence[Optional[torch.Tensor]]] = None,
-             sr_step: Optional[int] = None):
+             sr_step: Optional[int] = None,
+             finite: Optional[Sequence[torch.Tensor]] = None):
         """grads: one gradient (or None, read as zeros) per parameter in the
         order of the param groups, in place of each p.grad -- the trainer
         hands in f32 gradients of bf16 parameters this way, which p.grad
@@ -99,7 +109,10 @@ class _UpdateRule(torch.optim.Optimizer):
         tensor at index i seeded with sr_step * SR_SEED_STRIDE + i (int32,
         wrapping). The JAX package seeds with the same formula, but indexes
         the leaves of its scanned block stacks, and its TPU bits cannot be
-        reproduced: the two agree in distribution, not bit for bit."""
+        reproduced: the two agree in distribution, not bit for bit.
+        finite: one 0-dim bool tensor per parameter; a parameter whose flag
+        is false keeps its value (its state still steps, as in the JAX
+        step, on the zeroed gradient the trainer hands in)."""
         loss = None if closure is None else closure()
         i = 0
         for group in self.param_groups:
@@ -109,7 +122,7 @@ class _UpdateRule(torch.optim.Optimizer):
                     g = torch.zeros_like(p)
                 u = self._update(p, g, self.state[p], group)
                 seed = None if sr_step is None else (sr_step * SR_SEED_STRIDE + i) & 0xFFFFFFFF
-                apply_update(p, u, seed)
+                apply_update(p, u, seed, None if finite is None else finite[i])
                 i += 1
         return loss
 
@@ -130,7 +143,7 @@ class AdamW8bit(_UpdateRule):
         if not st:
             zq, zs = quantize_blockwise(torch.zeros_like(g))
             st.update(step=0, m_q=zq, m_scale=zs, v_q=zq.clone(), v_scale=zs.clone())
-        lr = _lr_at(group["lr"], st["step"])
+        lr = _lr_at(group["lr"], st["step"] - st.get("schedule_offset", 0))
         st["step"] += 1
         count = st["step"]
         m = dequantize_blockwise(st["m_q"], st["m_scale"], g.shape, g.numel())
@@ -163,7 +176,7 @@ class AdamW(_UpdateRule):
         b1, b2 = group["betas"]
         if not st:
             st.update(step=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p))
-        lr = _lr_at(group["lr"], st["step"])
+        lr = _lr_at(group["lr"], st["step"] - st.get("schedule_offset", 0))
         st["step"] += 1
         count = st["step"]
         mu, nu = st["mu"], st["nu"]

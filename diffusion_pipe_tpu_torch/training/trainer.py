@@ -25,15 +25,18 @@ from .train_state import TrainState, partition_params
 
 def init_train_state(pipeline, optimizer: Callable, generator: torch.Generator,
                      predicate: Callable,
-                     state_dict: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+                     state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                     partial: bool = False) -> TrainState:
     """Initialise the pipeline's weights (then load `state_dict` over them
-    when given, int8 weights included), split trainable from frozen,
+    when given, int8 weights included; with `partial`, the entries it lacks
+    keep their initialisation, as the JAX complete_params fills the leaves a
+    converted checkpoint lacks), split trainable from frozen,
     pre-quantize the frozen int8_matmul weights once (as the JAX
     init_train_state does), and build the optimizer from the factory that
     get_optimizer returned."""
     pipeline.init_params(generator)
     if state_dict is not None:
-        load_state_dict(pipeline.model, state_dict)
+        load_state_dict(pipeline.model, state_dict, partial=partial)
     trainable = partition_params(pipeline.model, predicate)
     prequantize_int8_(pipeline.model)
     return TrainState(step=0, examples=0, trainable=trainable,
@@ -47,6 +50,18 @@ def make_loss_fn(pipeline, timestep_quantile=None):
         return pipeline.loss_fn(pipeline.forward(model_inputs), target, mask)
 
     return loss_fn
+
+
+def make_eval_step(pipeline):
+    """eval_step(batch, generator, quantile) -> f32 loss, without gradients:
+    t at the fixed quantile of the timestep distribution, the noise from
+    the generator."""
+
+    @torch.no_grad()
+    def eval_step(batch, generator, timestep_quantile):
+        return make_loss_fn(pipeline, timestep_quantile)(batch, generator)
+
+    return eval_step
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -85,7 +100,9 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
     given, replace the generator's draws and are split with the batch.
 
     skip_invalid_grads: a parameter whose gradient holds Inf/NaN keeps its
-    value this step, and its gradient counts as zero in the global norm.
+    value this step (its update is masked in optimizers.apply_update, as
+    the JAX step masks it), and its gradient counts as zero in the global
+    norm and in its optimizer state's update.
 
     stochastic_rounding: a bf16 parameter becomes SR(f32(p) + f32(u)),
     seeded with state.step (the count before this step) * 1000003 + its
@@ -126,18 +143,15 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
         if skip_invalid_grads:
             finite = [torch.isfinite(g).all() for g in grads]
             grads = [torch.where(ok, g, torch.zeros_like(g)) for g, ok in zip(grads, finite)]
-            before = [p.detach().clone() for p in params]
             metrics["skipped_params"] = sum((~ok).int() for ok in finite)
         grad_norm = global_norm(grads)
         metrics["grad_norm"] = grad_norm
         if gradient_clipping and gradient_clipping > 0:
             grads = clip_by_global_norm(grads, grad_norm, gradient_clipping)
-        state.optimizer.step(grads=grads,
-                             sr_step=state.step if stochastic_rounding else None)
+        step_kw = dict(grads=grads, sr_step=state.step if stochastic_rounding else None)
         if skip_invalid_grads:
-            with torch.no_grad():
-                for p, old, ok in zip(params, before, finite):
-                    p.copy_(torch.where(ok, p, old))
+            step_kw["finite"] = finite
+        state.optimizer.step(**step_kw)
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
         state.examples += batch_size

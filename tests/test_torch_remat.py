@@ -1,9 +1,10 @@
 """The "attn" activation-checkpointing policy of the port.
 
-Under "attn" every block runs under torch.utils.checkpoint with a selective
-policy that saves the flash-attention forward's outputs (the custom op
-ops/flash_attention.py FLASH_FWD_OP) and recomputes the rest, the
-counterpart of the JAX package's save_only_these_names("flash_out"). On the
+Under "attn" every block runs under torch.utils.checkpoint with a
+context_fn that records the flash-attention forward's outputs and hands them
+back in the recompute (ops/flash_attention.py record_forwards /
+replay_forwards), the counterpart of the JAX package's
+save_only_these_names("flash_out"). On the
 tiny Flux (LoRA) and the tiny Wan (full fine-tuning), in f32 on the CPU, the
 loss and every gradient must equal those of `activation_checkpointing =
 true` bit for bit (the same operations on the same inputs), and the plain

@@ -1,0 +1,68 @@
+"""The port's text encoders (models/text_encoders.py, transformers' torch
+classes) on tiny random models saved to disk with a word-level tokenizer.
+
+T5: the port's embeddings against the JAX package's HFTextEncoder (the
+Flax T5 loaded from the same files), f32, within 1e-5 of the largest
+magnitude (measured 6e-7). CLIP: the JAX package's Flax CLIP call does not
+run with this transformers version (its module asks for position_ids), so
+the port's pooled and last hidden states are held against
+transformers' CLIPTextModel run directly on the same padded tokens, bit
+for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from diffusion_pipe_tpu.models.text_encoders import HFTextEncoder as JaxEncoder
+from diffusion_pipe_tpu_torch.models.text_encoders import HFTextEncoder
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+CAPTIONS = ["a photo of cat", "dog b c"]
+WORDS = ["<pad>", "</s>", "<unk>", "a", "b", "c", "cat", "dog", "photo", "of"]
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import (CLIPTextConfig, CLIPTextModel, PreTrainedTokenizerFast, T5Config,
+                              T5EncoderModel)
+
+    root = tmp_path_factory.mktemp("te")
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(WORDS)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="<pad>", eos_token="</s>",
+                            unk_token="<unk>").save_pretrained(root / "tok")
+    torch.manual_seed(0)
+    T5EncoderModel(T5Config(vocab_size=len(WORDS), d_model=16, d_kv=4, d_ff=32, num_layers=2,
+                            num_heads=4, relative_attention_num_buckets=8, pad_token_id=0,
+                            eos_token_id=1, decoder_start_token_id=0)).save_pretrained(root / "t5")
+    CLIPTextModel(CLIPTextConfig(vocab_size=len(WORDS), hidden_size=16, intermediate_size=32,
+                                 num_hidden_layers=2, num_attention_heads=4,
+                                 max_position_embeddings=8, pad_token_id=0, eos_token_id=1,
+                                 bos_token_id=2)).save_pretrained(root / "clip")
+    return root
+
+
+def test_t5_matches_jax(models):
+    ref = np.asarray(JaxEncoder("t5", str(models / "t5"), 8,
+                                tokenizer_path=str(models / "tok")).encode(CAPTIONS))
+    ours = HFTextEncoder("t5", str(models / "t5"), 8, tokenizer_path=str(models / "tok"),
+                         device="cpu").encode(CAPTIONS)
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == ref.shape == (2, 8, 16)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kind", ["clip", "clip_pooled"])
+def test_clip_matches_transformers(models, kind):
+    from transformers import AutoTokenizer, CLIPTextModel
+
+    ours = HFTextEncoder(kind, str(models / "clip"), 8, tokenizer_path=str(models / "tok"),
+                         device="cpu").encode(CAPTIONS)
+    tok = AutoTokenizer.from_pretrained(models / "tok")(
+        CAPTIONS, padding="max_length", truncation=True, max_length=8, return_tensors="pt")
+    with torch.no_grad():
+        out = CLIPTextModel.from_pretrained(models / "clip")(
+            input_ids=tok["input_ids"], attention_mask=tok["attention_mask"])
+    ref = out.pooler_output if kind == "clip_pooled" else out.last_hidden_state
+    assert torch.equal(ours, ref)

@@ -1,0 +1,222 @@
+"""The port's training driver, python -m diffusion_pipe_tpu_torch.train, end
+to end on the CPU at tiny width.
+
+A dataset of PNGs with captions (two aspect-ratio buckets) and an eval set,
+a TOML shaped like examples/flux.toml (tiny Flux, LoRA, adamw8bit, "attn"
+checkpointing, eval every 2 steps, an export every epoch):
+- --cache_only fills the latent and text-embedding caches and stops;
+- a run of 4 steps trains, evaluates at the 9 quantiles, exports the
+  adapter (the JAX export's key count) and checkpoints; resumed, it takes 2
+  more steps. Its losses, eval losses, loader position and final LoRA
+  factors equal those of an uninterrupted 6-step run, bit for bit;
+- `-m` runs the same main; without --device it needs CUDA;
+- a resume with --reset_dataloader, --reset_optimizer or
+  --reset_optimizer_params restarts the loader, the optimizer state, or the
+  LR schedule only; --profile_steps writes a trace;
+- the options and families not ported yet raise NotImplementedError.
+"""
+
+import json
+import runpy
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from diffusion_pipe_tpu_torch import train
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+CONFIG = """output_dir = "{out}"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 10
+micro_batch_size_per_gpu = 2
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 1
+eval_every_n_steps = 2
+activation_checkpointing = "attn"
+{extra}
+[model]
+type = "flux"
+dtype = "float32"
+_tiny = true
+
+[adapter]
+type = "lora"
+rank = 4
+
+[optimizer]
+type = "adamw8bit"
+lr = 1e-3
+"""
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("cli")
+    for name, n, seed in (("train", 6, 0), ("eval", 2, 100)):
+        (root / name).mkdir()
+        for i in range(n):
+            rng = np.random.default_rng(seed + i)
+            w, h = (64, 64) if i % 3 else (96, 48)
+            Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(
+                root / name / f"im{i}.png")
+            (root / name / f"im{i}.txt").write_text(f"{name} picture {i}")
+    (root / "dataset.toml").write_text(
+        'resolutions = [64]\nenable_ar_bucket = true\nnum_ar_buckets = 3\n'
+        f'[[directory]]\npath = "{root}/train"\n')
+    (root / "eval.toml").write_text(f'resolutions = [64]\n[[directory]]\npath = "{root}/eval"\n')
+    return root
+
+
+@pytest.fixture(autouse=True)
+def no_tensorboard(monkeypatch):
+    """The JSONL mirror only: tensorboard's import is slow and optional."""
+    monkeypatch.setitem(sys.modules, "tensorboard", None)
+
+
+def _config(root, out, extra=""):
+    path = root / f"{out}.toml"
+    path.write_text(CONFIG.format(out=root / out, root=root, extra=extra))
+    return str(path)
+
+
+def _run_dir(root, out):
+    (run,) = (root / out).iterdir()
+    return run
+
+
+def _records(run):
+    return [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+
+
+def test_cache_train_eval_checkpoint_resume(root):
+    cfg = _config(root, "resumed")
+    assert train.main(["--config", cfg, "--device", "cpu", "--cache_only"]) == 0
+    caches = sorted(p.name for p in (root / "train" / "cache" / "flux").iterdir())
+    assert caches == ["cache_64x64x1", "cache_96x32x1", "metadata.json"]
+    assert not (root / "resumed").exists()
+
+    assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "4"]) == 0
+    run = _run_dir(root, "resumed")
+    assert (run / "latest").read_text() == "global_step4"
+    recs = _records(run)
+    assert [r["step"] for r in recs if "train/loss" in r] == [1, 2, 3, 4]
+    evals = [r for r in recs if "eval/eval/loss" in r]
+    assert [r["step"] for r in evals] == [0, 2, 4]
+    assert all(f"eval/eval/loss_quantile_{q / 10:.1f}" in r for r in evals for q in range(1, 10))
+    assert all(np.isfinite(r["train/loss"]) for r in recs if "train/loss" in r)
+    from safetensors.numpy import load_file
+
+    adapter = load_file(str(run / "epoch1" / "adapter_model.safetensors"))
+    assert len(adapter) == 2 * (14 * 2 + 6 * 2)  # the JAX export's keys for tiny Flux
+
+    assert train.main(["--config", cfg, "--device", "cpu", "--resume_from_checkpoint",
+                       "--max_steps", "6"]) == 0
+    assert train.main(["--config", _config(root, "straight"), "--device", "cpu",
+                       "--max_steps", "6"]) == 0
+    straight = _run_dir(root, "straight")
+    strip = [{k: v for k, v in r.items() if k not in ("time", "eval/eval/eval_time_sec")}
+             for r in _records(run)]
+    strip_straight = [{k: v for k, v in r.items() if k not in ("time", "eval/eval/eval_time_sec")}
+                      for r in _records(straight)]
+    assert [r["step"] for r in strip if "train/loss" in r] == [1, 2, 3, 4, 5, 6]
+    assert strip == strip_straight
+    for name in ("client_state.json",):
+        assert ((run / "global_step6" / name).read_text()
+                == (straight / "global_step6" / name).read_text())
+    a = torch.load(run / "global_step6" / "state.pt", weights_only=True)
+    b = torch.load(straight / "global_step6" / "state.pt", weights_only=True)
+    assert a["step"] == b["step"] == 6 and a["examples"] == b["examples"] == 12
+    for k, v in b["trainable"].items():
+        assert torch.equal(a["trainable"][k], v), k
+    for sa, sb in zip(a["optimizer"], b["optimizer"]):
+        assert sa.keys() == sb.keys()
+        assert all(torch.equal(sa[k], sb[k]) if torch.is_tensor(sb[k]) else sa[k] == sb[k]
+                   for k in sb)
+
+
+def test_module_entry_point_and_device_rule(root, monkeypatch):
+    cfg = _config(root, "module")
+    monkeypatch.setattr(sys, "argv", ["train", "--config", cfg, "--device", "cpu",
+                                      "--max_steps", "1"])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_module("diffusion_pipe_tpu_torch.train", run_name="__main__")
+    assert done.value.code == 0
+    assert (_run_dir(root, "module") / "global_step1" / "state.pt").exists()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--config", cfg])
+
+
+NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None, flags)
+    "pipeline_stages": ("pipeline_stages = 2", None, []),
+    "blocks_to_swap": ("blocks_to_swap = 2", None, []),
+    "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
+    "test_sample": ("", None, ["--test_sample", "a cat"]),
+    "dump_dataset": ("", None, ["--dump_dataset", "dump"]),
+    "wan": ("", ('type = "flux"', 'type = "wan"'), []),
+}
+
+
+@pytest.mark.parametrize("case", list(NOT_PORTED))
+def test_not_ported_yet_raises(root, case):
+    extra, replace, flags = NOT_PORTED[case]
+    cfg = _config(root, f"np_{case}", extra)
+    if replace is not None:
+        with open(cfg) as f:
+            text = f.read().replace(*replace)
+        with open(cfg, "w") as f:
+            f.write(text)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        train.main(["--config", cfg, "--device", "cpu", *flags])
+
+
+def test_full_fine_tuning_export_raises(root):
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.training.saver import Saver
+
+    cfg = {"save_every_n_epochs": 1, "model": {"type": "flux", "dtype": "float32", "_tiny": True}}
+    pipe = get_model_class("flux")(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        Saver(cfg, root / "fullft", pipe).save_model("step1", None)
+
+
+@pytest.mark.parametrize("flag", ["--reset_dataloader", "--reset_optimizer",
+                                  "--reset_optimizer_params"])
+def test_resume_resets(root, flag):
+    """2 steps, then a resume of 1 step with the flag: the loader starts
+    over, the optimizer state starts fresh, or the moments stay and the LR
+    schedule restarts from the checkpoint's step."""
+    out = "reset" + flag.replace("-", "_")
+    cfg = _config(root, out, 'warmup_steps = 4')
+    assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "2"]) == 0
+    run = _run_dir(root, out)
+    before = torch.load(run / "global_step2" / "state.pt", weights_only=True)
+    assert train.main(["--config", cfg, "--device", "cpu", "--resume_from_checkpoint",
+                       "--max_steps", "3", flag]) == 0
+    after = torch.load(run / "global_step3" / "state.pt", weights_only=True)
+    loader = json.loads((run / "global_step3" / "client_state.json").read_text())["custom_loader"]
+    opt = after["optimizer"][0]
+    assert after["step"] == 3
+    if flag == "--reset_dataloader":
+        assert loader == {"epoch": 1, "num_batches_pulled": 1}
+        assert opt["step"] == 3 and "schedule_offset" not in opt
+    elif flag == "--reset_optimizer":
+        assert loader == {"epoch": 1, "num_batches_pulled": 3}
+        assert opt["step"] == 1 and "schedule_offset" not in opt
+    else:
+        assert opt["step"] == 3 and opt["schedule_offset"] == 2
+        assert not torch.equal(opt["m_q"], before["optimizer"][0]["m_q"])
+
+
+def test_profile_steps_writes_a_trace(root):
+    cfg = _config(root, "profiled")
+    assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "3",
+                       "--profile_steps", "1"]) == 0
+    trace = _run_dir(root, "profiled") / "profile" / "trace.json"
+    assert trace.exists() and json.loads(trace.read_text())["traceEvents"]
