@@ -112,11 +112,45 @@ Phases, each printing one JSON line (or more):
                      trainable tensor changed, and 120 / 60 / 60 flash
                      launches and one K4 launch per bf16 trainable tensor
                      per step.
+   slice-wan-lora -- bench.py's Wan row, cell wan-1.3b-t2v-lora-attn
+                     (bench.py:52-72): the same model and batch with LoRA
+                     r32, adamw8bit, clip 1.0 and "attn"; one warm-up, five
+                     timed steps: finite losses, all 600 LoRA tensors moved,
+                     the base weights unchanged, 60 / 60 / 60 flash launches
+                     a step and no K4.
+7. kernels (i2v)  -- (run right after phase 2) K1-K3 against their plain
+                     versions, K2 / K3 deterministic, and timed beside
+                     bound, plain and SDPA at Wan i2v's image cross-attention (Sq 32,760 video
+                     tokens against Skv 257 CLIP tokens, flf2v 514, H 40).
+8. umt5           -- UMT5-XXL at full width and depth, seeded, bf16: the
+                     encode of 2 x 512 ids with padding, timed; two layers
+                     at full width against f32 on the CPU (rel. L2 3e-2).
+   clip-vision    -- the ViT-H/14 tower at full width on a 480 x 832 frame
+                     (257 x 1280 tokens), timed; two blocks against f32 on
+                     the CPU (3e-2).
+9. wan-vae        -- the Wan 2.1 VAE (dim 96, z 16) on 1x3x81x512x512 and
+                     the Wan 2.2 VAE (dim 160, z 48) on ti2v's
+                     1x3x121x704x1280, seeded, bf16, timed with their peaks;
+                     a 9-frame clip (128 px; 2.2: 64 px) encoded and decoded
+                     against f32 on the CPU (5e-2). The 2.1 weights are
+                     written in the reference layout under build/smoke/.
+10. driver-wan    -- bench.py's Wan row through train.main: 8 + 2 seeded
+                     512 px PNGs, --cache_only with those VAE weights
+                     (load_wan_vae) and seeded UMT5-shaped text, 3 steps
+                     with eval, a resume to 5; the same checks as driver,
+                     the adapter's 600 keys as export_wan_lora_comfyui
+                     gives them, 60 / 60 / 60 launches a step and 60 K1 an
+                     eval forward.
+11. slice-wan-i2v / slice-wan-ti2v -- four full-width blocks of i2v-14B
+                     (32,760 tokens, y and a 257-token CLIP context: K1
+                     three times a block) and of ti2v-5B (48-channel
+                     latents, 27,280 tokens), LoRA r32, adamw8bit, "attn":
+                     finite losses, moved factors, the launches.
 
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
-driver phase), the card's name and power
+driver phases and the other Wan cells), the card's name and power
 limit from nvidia-smi, and last {"ok": true, "device": {...}}. Any failed
 check raises and exits non-zero. Float32 references run with TF32 off
 (matmul and cuDNN).
@@ -1239,23 +1273,26 @@ def phase_driver(vae_dir, fp8_step_s):
     return total
 
 
-def _uninterrupted_loader_state(root, steps):
+def _uninterrupted_loader_state(root, steps, config=None, batch_size=2):
     """The loader position after `steps` pulls of a fresh loader over the
     cached dataset (no training): an uninterrupted run's. Also the host
     time of a pull (cache reads and collation) and of the batch's copy to
     the card, over the pulls after the first, and which cache reader
-    served them ("native": native/cache_reader.cpp, else "python")."""
+    served them ("native": native/cache_reader.cpp, else "python").
+    config: the driver's config (default the Flux driver's)."""
     from diffusion_pipe_tpu_torch.config import load_toml, normalize_batch_size_map
     from diffusion_pipe_tpu_torch.data.dataset import Dataset
     from diffusion_pipe_tpu_torch.data.loader import DatasetManager, PipelineDataLoader
     from diffusion_pipe_tpu_torch.models import get_model_class
 
-    pipeline = get_model_class("flux")(_driver_config(SMOKE_DIR / "vae"), device="cuda")
-    ds = Dataset(load_toml(root / "dataset.toml"), pipeline)
+    config = config or _driver_config(SMOKE_DIR / "vae")
+    pipeline = get_model_class(config["model"]["type"])(config, device="cuda")
+    ds = Dataset(load_toml(root / "dataset.toml"), pipeline,
+                 support_video=pipeline.framerate is not None)
     manager = DatasetManager(pipeline)
     manager.register(ds)
     manager.cache()  # complete: reads the metadata and cache indexes only
-    ds.post_init(0, 1, normalize_batch_size_map(2), 1, full_global=True)
+    ds.post_init(0, 1, normalize_batch_size_map(batch_size), 1, full_global=True)
     loader = PipelineDataLoader(ds, 1)
     pull_s, copy_s = [], []
     for i in range(steps):
@@ -1337,14 +1374,30 @@ WAN_SLICE_CONFIG = {  # wan-1.3b-t2v-fullft-sr
     "gradient_clipping": 1.0,
     "activation_checkpointing": True,
 }
+WAN_LORA_CONFIG = {  # wan-1.3b-t2v-lora-attn: bench.py's Wan row (bench.py:52-72)
+    "save_every_n_epochs": 1,
+    "model": {"type": "wan", "dtype": "bfloat16", "variant": "t2v-1.3b"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": "attn",
+}
+VARIANT_DEPTH = 4  # blocks of the full-width i2v-14B and ti2v-5B cells
+
+
+def _variant_config(variant):
+    return {**WAN_LORA_CONFIG, "model": {**WAN_LORA_CONFIG["model"], "variant": variant,
+                                         "num_layers": VARIANT_DEPTH}}
 
 
 def build_wan_slice(cfg=WAN_SLICE_CONFIG, device="cuda", latent_fhw=(21, 64, 64),
                     txt_len=512, batch_size=1):
     """The Wan path's trainer, its state, step and batch, through the
     entry points a user calls: get_model_class("wan") -> init_train_state
-    with predicate_from_config (full fine-tuning: no [adapter]) ->
-    make_train_step with the optimizer's stochastic_rounding."""
+    with predicate_from_config (full fine-tuning without [adapter], else
+    LoRA) -> make_train_step with the optimizer's stochastic_rounding. The
+    batch: latents of the variant's channels, UMT5-shaped text; i2v also y
+    and, with the CLIP branch, a [257, 1280] clip_context."""
     from diffusion_pipe_tpu_torch.models import get_model_class
     from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
     from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
@@ -1357,17 +1410,39 @@ def build_wan_slice(cfg=WAN_SLICE_CONFIG, device="cuda", latent_fhw=(21, 64, 64)
     step = make_train_step(
         pipeline, gradient_clipping=cfg["gradient_clipping"],
         stochastic_rounding=bool(cfg["optimizer"].get("stochastic_rounding", False)))
+    channels = wc.out_dim
     batch = {
-        "latents": torch.randn((batch_size, wc.in_dim, *latent_fhw), generator=gen,
+        "latents": torch.randn((batch_size, channels, *latent_fhw), generator=gen,
                                device=device),
         "text_embeddings": torch.randn((batch_size, txt_len, wc.text_dim), generator=gen,
                                        device=device).to(wc.dtype),
         "seq_lens": torch.full((batch_size,), txt_len, dtype=torch.int32, device=device),
     }
+    if pipeline.is_i2v:
+        batch["y"] = torch.randn((batch_size, 16, *latent_fhw), generator=gen, device=device)
+    if pipeline.uses_clip:
+        batch["clip_context"] = torch.randn((batch_size, wc.clip_tokens, 1280), generator=gen,
+                                            device=device).to(wc.dtype)
     return pipeline, state, step, batch, gen
 
 
-def phase_slice_wan(**slice_kw):
+def _expected_wan_launches(pipeline, n_bf16_sr):
+    """Launches a Wan step: two attentions a block (three with the CLIP
+    branch), each K1 once under "attn" and twice under "full" (the
+    recompute), K2 and K3 once; K4 once a bf16 trainable tensor under
+    stochastic rounding."""
+    wc = pipeline.wan_config
+    n_attn = (3 if wc.uses_clip else 2) * wc.num_layers
+    return {"flash_fwd": n_attn * (2 if wc.remat == "full" else 1), "flash_bwd_dq": n_attn,
+            "flash_bwd_dkv": n_attn, "sr_add": n_bf16_sr, **NO_INT8}
+
+
+def phase_slice_wan(phase="slice-wan", cell="wan-1.3b-t2v-fullft-sr", timed_steps=WAN_TIMED_STEPS,
+                    **slice_kw):
+    """A Wan cell: one warm-up step, then `timed_steps` timed with the
+    counters set to 0 just before: finite losses, every trainable tensor
+    changed, frozen weights (LoRA) unchanged, the launches a step. Returns
+    (launches, samples/s, tokens/s, peak)."""
     device = slice_kw.get("device", "cuda")
     on_cuda = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
@@ -1377,10 +1452,13 @@ def phase_slice_wan(**slice_kw):
 
     wc = pipeline.wan_config
     trainable = list(state.trainable.values())
+    frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
     n_params = sum(p.numel() for p in pipeline.model.parameters())
     n_trainable = sum(p.numel() for p in trainable)
-    n_bf16 = sum(int(p.dtype == torch.bfloat16) for p in trainable)
+    sr = bool(slice_kw.get("cfg", WAN_SLICE_CONFIG)["optimizer"].get("stochastic_rounding"))
+    n_bf16 = sum(int(p.dtype == torch.bfloat16) for p in trainable) if sr else 0
     start = [p.detach().clone() for p in trainable]
+    frozen0 = _fingerprint(frozen) if frozen else None
     b, _, f, h, w = batch["latents"].shape
     tokens = b * (f // wc.patch_size[0]) * (h // wc.patch_size[1]) * (w // wc.patch_size[2])
 
@@ -1393,32 +1471,430 @@ def phase_slice_wan(**slice_kw):
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    metrics = [step(state, batch, gen) for _ in range(WAN_TIMED_STEPS)]
+    metrics = [step(state, batch, gen) for _ in range(timed_steps)]
     _sync(device)
-    step_s = (time.perf_counter() - t0) / WAN_TIMED_STEPS
+    step_s = (time.perf_counter() - t0) / timed_steps
     counts = launch_counts()
     losses = [m["loss"].item() for m in metrics]
     norms = [m["grad_norm"].item() for m in metrics]
     peak = torch.cuda.max_memory_allocated() if on_cuda else None
 
-    per_step = {k: v / WAN_TIMED_STEPS for k, v in counts.items()}
-    expected = {"flash_fwd": 4 * wc.num_layers, "flash_bwd_dq": 2 * wc.num_layers,
-                "flash_bwd_dkv": 2 * wc.num_layers, "sr_add": n_bf16, **NO_INT8}
+    per_step = {k: v / timed_steps for k, v in counts.items()}
+    expected = _expected_wan_launches(pipeline, n_bf16)
     changed = [int(not torch.equal(p, p0)) for p, p0 in zip(trainable, start)]
     moved_elements = sum(int((p != p0).sum()) for p, p0 in zip(trainable, start))
     del start
-    emit(phase="slice-wan", cell="wan-1.3b-t2v-fullft-sr", params=n_params,
-         trainable_params=n_trainable, trainable_tensors=len(trainable),
-         bf16_trainable_tensors=n_bf16, tokens_per_sample=tokens // b, init_s=init_s,
-         warmup_s=warm_s, warmup_loss=warm_loss, step_s=step_s,
+    frozen_same = frozen0 is None or torch.equal(_fingerprint(frozen), frozen0)
+    emit(phase=phase, cell=cell, model_type=wc.model_type, blocks=wc.num_layers, dim=wc.dim,
+         heads=wc.num_heads, params=n_params, trainable_params=n_trainable,
+         trainable_tensors=len(trainable), bf16_sr_tensors=n_bf16,
+         latent_shape=list(batch["latents"].shape), tokens_per_sample=tokens // b,
+         init_s=init_s, warmup_s=warm_s, warmup_loss=warm_loss, step_s=step_s,
          samples_per_s=b / step_s, tokens_per_s=tokens / step_s, losses=losses,
          grad_norms=norms, peak_memory_bytes=peak, launches=counts,
          launches_per_step=per_step, tensors_changed=sum(changed),
-         moved_element_share=moved_elements / n_trainable)
+         moved_element_share=moved_elements / n_trainable, frozen_unchanged=frozen_same)
     check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
     check(all(changed), f"{len(changed) - sum(changed)} trainable tensors did not change")
-    check(per_step == expected, f"launches per step {per_step}, expected {expected}")
-    return counts
+    check(frozen_same, "frozen weights changed")
+    check(not on_cuda or per_step == expected,
+          f"launches per step {per_step}, expected {expected}")
+    return counts, b / step_s, tokens / step_s, peak
+
+
+# --- phase 7: the i2v image cross-attention shapes -----------------------------
+
+# Wan2.1-14B i2v at 480 x 832, 81 frames: 21 x 30 x 52 latent tokens, 40 heads,
+# against the 257 CLIP tokens (flf2v: 514) -- a ragged last key tile
+I2V_CROSS = dict(sq=21 * 30 * 52, h=40)
+I2V_CASES = (("wan_i2v_cross", 257), ("wan_flf2v_cross", 514))
+
+
+def phase_kernels_i2v():
+    """K1-K3 against their plain versions at the i2v / flf2v image
+    cross-attention shapes, K2 and K3 deterministic there, and each timed
+    beside its bound, its plain version and SDPA. Returns {shape: timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    d, sq, h = 128, I2V_CROSS["sq"], I2V_CROSS["h"]
+    timings = {}
+    for case, skv in I2V_CASES:
+        errors = _check_attention(fa, case, 1, sq, skv, h, d, False, gen)
+        _check_bwd_deterministic(fa, case, 1, sq, skv, h, d, gen)
+        _free()
+        timing, sdpa_bwd_ms = _time_attention(fa, 1, sq, skv, h, d, gen, True)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels", case=f"timing_{case}", q_shape=[1, sq, h, d], kv_len=skv,
+             timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[case] = timing
+        _free()
+    return timings
+
+
+# --- phase 8: UMT5-XXL ------------------------------------------------------------
+
+UMT5_BATCH, UMT5_LEN, UMT5_VALID = 2, 512, (512, 300)
+UMT5_REL_L2 = 3e-2  # bf16 on the card against f32 on the CPU, relative L2
+
+
+def _rel_l2(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def phase_umt5():
+    """UMT5-XXL at full width and depth (24 layers, dim 4096, 64 heads, FFN
+    10240, vocabulary 256,384), seeded weights in bf16 on the card: the
+    encode of 2 x 512 seeded ids (the second padded after 300) and its
+    device time; then the first two layers at full width (with the
+    embedding and the final norm) on the card against the same weights in
+    f32 on the CPU, relative L2 within UMT5_REL_L2."""
+    from diffusion_pipe_tpu_torch.models.umt5 import UMT5Config, UMT5Encoder
+
+    cfg = UMT5Config.xxl()
+    with torch.device("meta"):
+        enc = UMT5Encoder(cfg)
+    enc = enc.to_empty(device="cuda")
+    t0 = time.perf_counter()
+    enc.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc.eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab, (UMT5_BATCH, UMT5_LEN), generator=gen)
+    mask = torch.zeros((UMT5_BATCH, UMT5_LEN), dtype=torch.int32)
+    for i, n in enumerate(UMT5_VALID):
+        mask[i, :n] = 1
+    ids = ids * mask
+    ids_c, mask_c = ids.cuda(), mask.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = enc(ids_c, mask_c)
+        ms = cuda_ms(lambda: enc(ids_c, mask_c), iters=5)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out).all())
+    n_params = sum(p.numel() for p in enc.parameters())
+
+    small_cfg = UMT5Config.xxl(num_layers=2)
+    keep = {k: v for k, v in enc.state_dict().items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
+    del enc, out
+    _free()
+    small = UMT5Encoder(small_cfg).cuda()
+    small.load_state_dict(keep)
+    ref = UMT5Encoder(UMT5Config.xxl(num_layers=2, dtype=torch.float32,
+                                     param_dtype=torch.float32))
+    ref.load_state_dict({k: v.float().cpu() for k, v in keep.items()})
+    del keep
+    with torch.no_grad():
+        got = small(ids_c, mask_c)
+        t0 = time.perf_counter()
+        want = ref(ids, mask)
+        cpu_s = time.perf_counter() - t0
+    rel = _rel_l2(got, want)
+    emit(phase="umt5", config="UMT5Config.xxl", params=n_params, init_s=init_s,
+         batch=[UMT5_BATCH, UMT5_LEN], valid_tokens=list(UMT5_VALID), encode_ms=ms,
+         peak_memory_bytes=peak, finite=finite, two_layer_rel_l2=rel, tolerance=UMT5_REL_L2,
+         cpu_f32_two_layer_s=cpu_s)
+    del small, ref, got, want
+    _free()
+    check(finite, "UMT5-XXL gave non-finite hidden states")
+    check(rel <= UMT5_REL_L2, f"UMT5 two layers off the f32 CPU result: rel L2 {rel}")
+    return ms
+
+
+# --- phase 9: the Wan 2.1 and 2.2 VAEs ----------------------------------------------
+
+WAN_VAE_CLIP = (1, 3, 81, 512, 512)        # -> 1 x 16 x 21 x 64 x 64
+WAN22_VAE_CLIP = (1, 3, 121, 704, 1280)    # ti2v's clip -> 1 x 48 x 31 x 44 x 80
+WAN_VAE_SMALL = {"wan21": (1, 3, 9, 128, 128), "wan22": (1, 3, 9, 64, 64)}
+WAN_VAE_REL_L2 = 5e-2  # bf16 on the card against f32 on the CPU, relative L2
+
+
+def _seeded_vae(cls, cfg, device):
+    with torch.device("meta"):
+        vae = cls(cfg)
+    vae = vae.to_empty(device=device)
+    vae.init_weights(torch.Generator(device=device).manual_seed(SEED))
+    return vae.eval().requires_grad_(False)
+
+
+def _vae_case(name, cls, cfg, clip_shape, latent_shape):
+    """One VAE: the full clip's encode on the card (time, peak), then the
+    small clip's encode and decode on the card against f32 on the CPU.
+    Returns the card model (bf16) and its record."""
+    import dataclasses
+
+    vae = _seeded_vae(cls, dataclasses.replace(cfg, dtype=torch.bfloat16), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    clip = torch.rand(clip_shape, generator=gen, device="cuda").mul_(2).sub_(1)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        z = vae.encode(clip)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ms = cuda_ms(lambda: vae.encode(clip), iters=1)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(z).all())
+    got_shape = list(z.shape)
+    del clip, z
+    _free()
+
+    with torch.device("meta"):
+        ref = cls(cfg)
+    ref = ref.to_empty(device="cpu")
+    ref.load_state_dict({k: v.float().cpu() for k, v in vae.state_dict().items()})
+    small = torch.rand(WAN_VAE_SMALL[name], generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    with torch.no_grad():
+        z = vae.encode(small.cuda())
+        x = vae.decode(z)
+        t0 = time.perf_counter()
+        z_ref = ref.encode(small)
+        x_ref = ref.decode(z_ref)
+        cpu_s = time.perf_counter() - t0
+    rec = dict(params=sum(p.numel() for p in vae.parameters()), clip_shape=list(clip_shape),
+               latent_shape=got_shape, encode_ms=ms, first_encode_s=first_s,
+               peak_memory_bytes=peak, finite=finite, small_clip=list(small.shape),
+               small_latent_shape=list(z.shape), encode_rel_l2=_rel_l2(z, z_ref),
+               decode_rel_l2=_rel_l2(x, x_ref), cpu_f32_small_s=cpu_s)
+    check(got_shape == list(latent_shape), f"{name}: latents {got_shape}, expected {latent_shape}")
+    check(finite, f"{name}: non-finite latents")
+    check(rec["encode_rel_l2"] <= WAN_VAE_REL_L2 and rec["decode_rel_l2"] <= WAN_VAE_REL_L2,
+          f"{name}: off the f32 CPU result: {rec['encode_rel_l2']}, {rec['decode_rel_l2']}")
+    return vae, rec
+
+
+def phase_wan_vae():
+    """The Wan 2.1 VAE at its published widths (dim 96, mults 1/2/4/4, z
+    16) and the Wan 2.2 VAE (dim 160, decoder 256, z 48), seeded, bf16 on
+    the card: the encode of an 81-frame 512 px clip (2.1) and of ti2v's
+    121-frame 1280 x 704 clip (2.2), each timed with its peak; the 2.1 VAE
+    on a 9-frame 128 px clip and the 2.2 VAE on a 9-frame 64 px clip,
+    encode and decode, against f32 on the CPU. The 2.1 weights are written
+    in the reference layout for the driver-wan phase. Returns their path."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.wan_vae import WanVAEConfig, WanVideoVAE
+    from diffusion_pipe_tpu_torch.models.wan_vae22 import Wan22VAEConfig, WanVideoVAE22
+    from diffusion_pipe_tpu_torch.models.wan_vae_convert import wan_vae_state_dict
+
+    records = {}
+    vae, records["wan21"] = _vae_case("wan21", WanVideoVAE, WanVAEConfig.wan21(), WAN_VAE_CLIP,
+                                      (1, 16, 21, 64, 64))
+    path = _fresh_dir(SMOKE_DIR / "wan_vae") / "wan2.1_vae.safetensors"
+    safetensors_io.save_file({k: v.cpu() for k, v in wan_vae_state_dict(vae).items()}, path)
+    del vae
+    _free()
+    vae22, records["wan22"] = _vae_case("wan22", WanVideoVAE22, Wan22VAEConfig.ti2v_5b(),
+                                        WAN22_VAE_CLIP, (1, 48, 31, 44, 80))
+    del vae22
+    _free()
+    emit(phase="wan-vae", dtype="bfloat16", tolerance=WAN_VAE_REL_L2, **records)
+    return path
+
+
+# --- phase 10: the CLIP vision tower ------------------------------------------------
+
+CLIP_FRAME = (1, 3, 480, 832)
+CLIP_REL_L2 = 3e-2
+
+
+def phase_clip_vision():
+    """The ViT-H/14 tower at full width (31 of 32 blocks, dim 1280), seeded
+    weights in bf16 on the card, on a 480 x 832 first frame: 257 x 1280
+    tokens and their device time; a copy of its first two blocks on the
+    card against f32 on the CPU, relative L2 within CLIP_REL_L2."""
+    from diffusion_pipe_tpu_torch.models.wan_clip import WanClipVision, WanClipVisionConfig
+
+    with torch.device("meta"):
+        clip = WanClipVision(WanClipVisionConfig(dtype=torch.bfloat16))
+    clip = clip.to_empty(device="cuda")
+    clip.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    clip.eval().requires_grad_(False)
+    frame = torch.rand(CLIP_FRAME, generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    with torch.no_grad():
+        tokens = clip(frame.cuda())
+        ms = cuda_ms(lambda: clip(frame.cuda()), iters=5)
+    keep = {k: v for k, v in clip.state_dict().items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
+    small = WanClipVision(WanClipVisionConfig(num_layers=3, dtype=torch.bfloat16)).cuda()
+    small.load_state_dict(keep)
+    ref = WanClipVision(WanClipVisionConfig(num_layers=3))
+    ref.load_state_dict({k: v.float().cpu() for k, v in keep.items()})
+    with torch.no_grad():
+        rel = _rel_l2(small(frame.cuda()), ref(frame))
+    emit(phase="clip-vision", params=sum(p.numel() for p in clip.parameters()),
+         frame=list(CLIP_FRAME), tokens_shape=list(tokens.shape), encode_ms=ms,
+         two_block_rel_l2=rel, tolerance=CLIP_REL_L2)
+    check(list(tokens.shape) == [1, 257, 1280], f"CLIP tokens {list(tokens.shape)}")
+    check(bool(torch.isfinite(tokens).all()), "non-finite CLIP tokens")
+    check(rel <= CLIP_REL_L2, f"CLIP two blocks off the f32 CPU result: rel L2 {rel}")
+    del clip, small, ref, tokens
+    _free()
+
+
+# --- phase 11: bench.py's Wan row through the driver --------------------------------
+
+WAN_DRIVER_TOML = """# wan-1.3b-t2v-lora-attn (bench.py's Wan row) through the driver
+output_dir = "{root}/out"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 100
+micro_batch_size_per_gpu = 1
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 1
+save_every_n_steps = 4
+eval_before_first_step = true
+activation_checkpointing = "attn"
+
+[model]
+type = "wan"
+variant = "t2v-1.3b"
+dtype = "bfloat16"
+vae_path = "{vae}"
+
+[adapter]
+type = "lora"
+rank = 32
+
+[optimizer]
+type = "adamw8bit"
+lr = 1e-4
+"""
+
+
+def phase_driver_wan(vae_path):
+    """bench.py's Wan row (wan-1.3b-t2v-lora-attn) through the driver,
+    train.main: 8 seeded 512 px PNGs with captions and 2 for eval (one-frame
+    videos), --cache_only with the wan-vae phase's weights loaded from the
+    reference layout by load_wan_vae and seeded UMT5-shaped text stand-ins
+    ([512, 4096] with seq_lens; no UMT5 weights or tokenizer here), then 3
+    steps with the 9-quantile eval before the first, then a resume to step
+    5 (the adapter exported at step 4). The transformer starts from random
+    init. Checks: finite losses, the
+    step counter, the loader position of an uninterrupted run, the nine
+    eval quantiles, every LoRA factor moved in each call and the base
+    weights unchanged, the ComfyUI adapter's key count against
+    export_wan_lora_comfyui for the same config, and the launches (60 / 60
+    / 60 a step, 60 K1 an eval forward). Returns the driver's launches."""
+    import tomllib
+
+    from diffusion_pipe_tpu_torch import safetensors_io, train
+    from diffusion_pipe_tpu_torch.config import set_config_defaults
+    from diffusion_pipe_tpu_torch.models import wan
+    from diffusion_pipe_tpu_torch.training import trainer
+
+    root = _fresh_dir(SMOKE_DIR / "driver_wan")
+    _write_images(root / "train", DRIVER_IMAGES, SEED)
+    _write_images(root / "eval", DRIVER_EVAL_IMAGES, SEED + 1)
+    (root / "dataset.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/train"\n')
+    (root / "eval.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/eval"\n')
+    text = WAN_DRIVER_TOML.format(root=root, vae=vae_path)
+    cfg_path = root / "wan_lora.toml"
+    cfg_path.write_text(text)
+    argv = ["--config", str(cfg_path)]
+
+    captured = []
+    real_init = trainer.init_train_state
+    real_te = wan.WanPipeline.get_call_text_encoder_fns
+
+    def init_and_keep(pipeline, *a, **kw):
+        state = real_init(pipeline, *a, **kw)
+        frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+        captured.append((pipeline, state, _fingerprint(frozen),
+                         {n: p.detach().cpu().clone() for n, p in state.trainable.items()}))
+        return state
+
+    def run(extra, steps, lora_before=None):
+        """One train.main call: its launches and peak, and what its state
+        shows after it (lora_before: {name: tensor}, default the init)."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        check(train.main(argv + extra) == 0, f"train.main {extra} failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        pipeline, state, frozen_print, lora0 = captured.pop()
+        lora0 = lora_before or lora0
+        frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+        adapter_keys = len(wan.export_wan_lora_comfyui(state.trainable, pipeline.wan_config))
+        out = dict(steps=steps, wall_s=wall_s, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   frozen_unchanged=bool(torch.equal(_fingerprint(frozen), frozen_print)),
+                   lora_tensors=len(state.trainable),
+                   lora_tensors_moved=sum(int(not torch.equal(p.cpu(), lora0[n]))
+                                          for n, p in state.trainable.items()),
+                   expected_adapter_keys=adapter_keys)
+        shape = dict(step=_expected_wan_launches(pipeline, 0),
+                     attn=2 * pipeline.wan_config.num_layers)
+        del pipeline, state, frozen
+        _free()
+        return out, shape
+
+    trainer.init_train_state = init_and_keep
+    wan.WanPipeline.get_call_text_encoder_fns = lambda self: [wan.seeded_umt5_fn(512, 4096)]
+    try:
+        t0 = time.perf_counter()
+        check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
+        cache_s = time.perf_counter() - t0
+        _free()
+        first, shape = run(["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS)
+        run_dir = next((root / "out").iterdir())
+        at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
+                              map_location="cpu", weights_only=True)["trainable"]
+        second, _ = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS)],
+                        DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
+        del at_first
+    finally:
+        trainer.init_train_state = real_init
+        wan.WanPipeline.get_call_text_encoder_fns = real_te
+    calls = [first, second]
+
+    eval_forwards = 9 * DRIVER_EVAL_IMAGES  # 9 quantiles x the eval batches of 1
+    per_forward = {k: (shape["attn"] if k == "flash_fwd" else 0) for k in shape["step"]}
+    expected = [{k: v * first["steps"] + per_forward[k] * eval_forwards
+                 for k, v in shape["step"].items()},
+                {k: v * second["steps"] for k, v in shape["step"].items()}]
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+    evals = [r for r in recs if any(k.startswith("eval/") for k in r)]
+    quantiles = sorted(k for r in evals for k in r if "loss_quantile_" in k)
+    final = run_dir / f"global_step{DRIVER_RESUMED_STEPS}"
+    meta = json.loads((final / "client_state.json").read_text())
+    saved_step = torch.load(final / "state.pt", map_location="cpu", weights_only=True)["step"]
+    # batch 1 over 8 images: an epoch is 8 steps, so the export is step 4's
+    adapter = safetensors_io.load_file(run_dir / "step4" / "adapter_model.safetensors")
+    config = set_config_defaults(tomllib.loads(text))
+    uninterrupted, loader_cost = _uninterrupted_loader_state(root, DRIVER_RESUMED_STEPS, config,
+                                                             batch_size=1)
+    step_times = _driver_step_times(run_dir / "metrics.jsonl")
+    step_s = sum(step_times) / len(step_times)
+    cache = sorted(p.name for p in (root / "train" / "cache" / "wan").iterdir())
+    emit(phase="driver-wan", cell="wan-1.3b-t2v-lora-attn", cache_only_s=cache_s, calls=calls,
+         expected_launches=expected, losses=losses, eval=evals, step_s=step_s,
+         step_times_s=step_times, samples_per_s=1 / step_s, final_step=saved_step,
+         loader_state=meta.get("custom_loader"), uninterrupted_loader_state=uninterrupted,
+         loader_cost=loader_cost, adapter_keys=len(adapter), cache_dirs=cache)
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
+    check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
+    check(len(quantiles) == 9, f"eval quantiles {quantiles}")
+    check(saved_step == DRIVER_RESUMED_STEPS and meta["step"] == DRIVER_RESUMED_STEPS,
+          f"step counter {saved_step}")
+    check(meta.get("custom_loader") == uninterrupted,
+          f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
+    check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
+    check(all(c["lora_tensors_moved"] == c["lora_tensors"] == 600 for c in calls),
+          "LoRA factors did not all move")
+    check(len(adapter) == first["expected_adapter_keys"] == 600,
+          f"adapter keys {len(adapter)}, export_wan_lora_comfyui gives "
+          f"{first['expected_adapter_keys']}")
+    for c, want in zip(calls, expected):
+        check(c["launches"] == want, f"driver-wan launches {c['launches']}, expected {want}")
+    return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
 
 
 def nvidia_smi_line():
@@ -1429,7 +1905,7 @@ def nvidia_smi_line():
 
 
 def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                 driver_counts, ptxas):
+                 driver_counts, ptxas, more_counts):
     """One entry per kernel. K1-K4 at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
@@ -1442,7 +1918,9 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     ms); K1 its factor against SDPA's forward (library_factor), K3 the
     factor of K2 + K3 against SDPA's backward; K1, K2 and K3 the ptxas
     registers, spills and wgmma serialization of their bf16, D = 128
-    build."""
+    build. more_counts: {key: launches of another Wan path} (the LoRA,
+    driver-wan, i2v and ti2v cells), added to each entry under its key;
+    K1-K3 also carry their numbers at the i2v / flf2v image cross shapes."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd")
     kernels = []
@@ -1463,11 +1941,12 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             main = timings["wan_cross"][name]
             beside = {shape: {k: timings[shape][name][k] for k in keys + extra
                               if k in timings[shape][name]}
-                      for shape in ("wan_self", "flux")}
+                      for shape in ("wan_self", "flux") + tuple(c for c, _ in I2V_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=launches, launches_driver=driver_counts[name],
+                     **{key: counts[name] for key, counts in more_counts.items()},
                      **{k: main[k] for k in keys},
                      **{k: main[k] for k in extra if k in main})
         if name in FLASH:
@@ -1493,6 +1972,7 @@ def main():
 
     ptxas = phase_build()
     timings = phase_kernels()
+    timings.update(phase_kernels_i2v())
     sr_timing = phase_sr_kernel()
     int8_timing = phase_int8_kernels()
     phase_reference()
@@ -1507,10 +1987,27 @@ def main():
     driver_counts = phase_driver(vae_dir, fp8_step_s)
     _free()
     phase_reference_wan()
-    wan_counts = phase_slice_wan()
+    wan_counts, *_ = phase_slice_wan()
+    _free()
+    wan_lora_counts, *_ = phase_slice_wan(phase="slice-wan-lora", cell="wan-1.3b-t2v-lora-attn",
+                                         cfg=WAN_LORA_CONFIG, timed_steps=TIMED_STEPS)
+    _free()
+    phase_umt5()
+    phase_clip_vision()
+    wan_vae_path = phase_wan_vae()
+    driver_wan_counts = phase_driver_wan(wan_vae_path)
+    _free()
+    i2v_counts, *_ = phase_slice_wan(phase="slice-wan-i2v", cell="wan-i2v-14b-lora-attn",
+                                     cfg=_variant_config("i2v-14b"), latent_fhw=(21, 60, 104))
+    _free()
+    ti2v_counts, *_ = phase_slice_wan(phase="slice-wan-ti2v", cell="wan-ti2v-5b-lora-attn",
+                                      cfg=_variant_config("ti2v-5b"), latent_fhw=(31, 44, 80))
+    _free()
 
+    more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
+            "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                       driver_counts, ptxas))
+                       driver_counts, ptxas, more))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,16 +19,19 @@ function:
   ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux)
   or `blocks.{i}.*` (Wan).
 
-vae_to_state_dict does the same for the JAX AutoencoderKL's parameters
-(models/autoencoder_kl.py): a Conv `kernel` [kh, kw, in, out] becomes
-`weight` [out, in, kh, kw], a Dense `kernel` is transposed, and a GroupNorm
-`scale` becomes `weight`.
+tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
+2.2 VAEs and the CLIP vision tower (models/autoencoder_kl.py, umt5.py,
+wan_vae.py, wan_vae22.py, wan_clip.py): a Conv `kernel` [..., in, out] of
+any rank becomes torch's `weight` [out, in, ...], a Dense `kernel` is
+transposed, an Embed `embedding` and a norm `scale` become `weight`, and
+the unrolled `block_{i}` modules become the ModuleList entries `blocks.{i}`.
 
 Only numpy and torch are used here.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -115,19 +118,23 @@ def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tenso
         raise KeyError(f"entries the model does not have: {unexpected[:5]}")
 
 
-def vae_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port AutoencoderKL's state_dict from the JAX VAE's parameters."""
+_CONV_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+_BLOCK = re.compile(r"^block_(\d+)$")
+
+
+def tree_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port module's state_dict from a JAX VAE, UMT5 or CLIP-vision
+    parameter tree (see module docstring)."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         arr = np.asarray(arr)
         name = path[-1]
-        if name == "kernel" and arr.ndim == 4:
-            name, arr = "weight", np.transpose(arr, (3, 2, 0, 1))
-        elif name == "kernel":
-            name, arr = "weight", arr.T
-        elif name == "scale":
+        if name == "kernel":
+            name, arr = "weight", np.transpose(arr, _CONV_TO_TORCH[arr.ndim])
+        elif name in ("embedding", "scale"):
             name = "weight"
-        out[".".join(path[:-1] + (name,))] = _to_tensor(np.ascontiguousarray(arr))
+        parts = [_BLOCK.sub(r"blocks.\1", p) for p in path[:-1]]
+        out[".".join(parts + [name])] = _to_tensor(np.ascontiguousarray(arr))
     return out

@@ -1,5 +1,5 @@
 """Text-encoder wrappers for the caching phase: transformers' torch T5 and
-CLIP text models.
+CLIP text models, and the fp8 storage of a text encoder's weights.
 
 Counterpart of diffusion_pipe_tpu/models/text_encoders.py, which runs the
 Flax classes; here T5EncoderModel and CLIPTextModel run on the pipeline's
@@ -10,9 +10,26 @@ diffusers-layout folders as in the JAX package.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
+
+_FP8_SKIP = ("shared", "embed_tokens", "relative_attention_bias", "token_embedding",
+             "pos_embedding", "position_embedding", "embedding", "lm_head")
+
+
+def cast_te_params_fp8(sd: Mapping[str, torch.Tensor],
+                       skip=_FP8_SKIP) -> Dict[str, torch.Tensor]:
+    """`text_encoder_fp8`: every 2-D floating weight of a text encoder's
+    state dict whose name holds none of `skip` (the embeddings and
+    relative-position tables) stored as float8_e4m3fn, the rest unchanged.
+    The encoder casts such a weight back to its compute dtype at use. The
+    same tensors as the JAX function casts, by the same rule on the
+    parameter path."""
+    return {k: (v.to(torch.float8_e4m3fn)
+                if v.dim() == 2 and v.is_floating_point() and not any(s in k for s in skip)
+                else v)
+            for k, v in sd.items()}
 
 
 class HFTextEncoder:

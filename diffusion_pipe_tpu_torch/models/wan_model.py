@@ -1,11 +1,17 @@
-"""Wan 2.1 DiT (text-to-video) as a PyTorch module.
+"""Wan 2.1 / 2.2 DiT as a PyTorch module.
 
-Counterpart of diffusion_pipe_tpu/models/wan_model.py, t2v only: a Conv3d
-patch embedding (kernel = stride = (1, 2, 2)), the f32 time embedding and
-its 6-way projection, the text-embedding MLP, blocks of 3-axis-RoPE
+Counterpart of diffusion_pipe_tpu/models/wan_model.py: a Conv3d patch
+embedding (kernel = stride = (1, 2, 2)), the f32 time embedding and its
+6-way projection, the text-embedding MLP, blocks of 3-axis-RoPE
 self-attention, text cross-attention and a tanh-GELU FFN, each modulated by
 its learnable [1, 6, dim] table plus the time projection, and the modulated
-head with unpatchify. The blocks live in an nn.ModuleList (the JAX package
+head with unpatchify. model_type selects the variant: t2v; i2v and flf2v
+(Wan2.1 image-to-video: in_dim 36, the CLIP-vision context through the
+img_emb MLP prepended to the text, and in every block a second
+cross-attention over the 257 (flf2v: 514) image tokens with its own
+cross_attn_k_img / v_img / norm_k_img, summed before cross_attn_o); i2v_v2
+(Wan2.2 A14B: in_dim 36, no CLIP branch); ti2v (Wan2.2 5B: 48 latent
+channels in and out). The blocks live in an nn.ModuleList (the JAX package
 scans a stacked [L] axis; interop.py splits it), and every per-block
 parameter keeps the shape of the JAX per-block slice. With `remat` set, each
 block runs under torch.utils.checkpoint, so its forward is recomputed in
@@ -14,8 +20,7 @@ saved O and LSE under "attn". The block linears take base_kernel_dtype (fp8
 storage) and int8_matmul; the embeddings and the head keep their dtypes, as
 in the JAX package.
 
-Not ported: i2v/flf2v (CLIP image context), ti2v, block swap and prefetch,
-and sequence sharding.
+Not ported: block swap and prefetch, and sequence sharding.
 """
 
 from __future__ import annotations
@@ -43,9 +48,10 @@ from .layers import (
 
 @dataclasses.dataclass(frozen=True)
 class WanConfig:
-    """The JAX WanConfig's t2v fields (qk_norm and cross_attn_norm on, as in
-    every Wan variant)."""
+    """The JAX WanConfig's fields but for block swap and sequence sharding
+    (qk_norm and cross_attn_norm on, as in every Wan variant)."""
 
+    model_type: str = "t2v"  # t2v | i2v | flf2v | i2v_v2 | ti2v
     patch_size: Tuple[int, int, int] = (1, 2, 2)
     text_len: int = 512
     in_dim: int = 16
@@ -74,19 +80,21 @@ class WanConfig:
         return self.dim // self.num_heads
 
     @property
+    def uses_clip(self) -> bool:
+        """The Wan2.1 i2v / flf2v image branch (img_emb, k_img / v_img)."""
+        return self.model_type in ("i2v", "flf2v")
+
+    @property
+    def clip_tokens(self) -> int:
+        """Image-context tokens: 257 CLIP tokens a frame, two frames for flf2v."""
+        return 257 * (2 if self.model_type == "flf2v" else 1)
+
+    @property
     def rope_axes_dim(self) -> Tuple[int, int, int]:
         """Per-axis rotary dims (t, h, w): with c = head_dim // 2 complex
         pairs, (c - 2*(c//3), c//3, c//3) pairs; (44, 42, 42) at 128."""
         c = self.head_dim // 2
         return (2 * (c - 2 * (c // 3)), 2 * (c // 3), 2 * (c // 3))
-
-    @staticmethod
-    def t2v_1_3b(**kw) -> "WanConfig":
-        return WanConfig(**{**dict(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30), **kw})
-
-    @staticmethod
-    def t2v_14b(**kw) -> "WanConfig":
-        return WanConfig(**{**dict(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40), **kw})
 
     @staticmethod
     def tiny(**kw) -> "WanConfig":
@@ -121,12 +129,16 @@ class WanAttentionBlock(nn.Module):
         self.cfg = cfg
         dim = cfg.dim
         self.modulation = nn.Parameter(torch.empty(1, 6, dim, dtype=cfg.param_dtype))
-        for name in ("self_attn_q", "self_attn_k", "self_attn_v", "self_attn_o",
-                     "cross_attn_q", "cross_attn_k", "cross_attn_v", "cross_attn_o"):
+        linears = ["self_attn_q", "self_attn_k", "self_attn_v", "self_attn_o",
+                   "cross_attn_q", "cross_attn_k", "cross_attn_v", "cross_attn_o"]
+        norms = ["self_attn_norm_q", "self_attn_norm_k", "cross_attn_norm_q", "cross_attn_norm_k"]
+        if cfg.uses_clip:
+            linears += ["cross_attn_k_img", "cross_attn_v_img"]
+            norms += ["cross_attn_norm_k_img"]
+        for name in linears:
             setattr(self, name, cfg.dense(dim, dim))
         # q/k RMSNorm over the full model dim, before the head split
-        for name in ("self_attn_norm_q", "self_attn_norm_k",
-                     "cross_attn_norm_q", "cross_attn_norm_k"):
+        for name in norms:
             setattr(self, name, RMSNorm(dim, eps=cfg.eps, param_dtype=cfg.param_dtype))
         self.norm3_scale = nn.Parameter(torch.empty(dim, dtype=cfg.param_dtype))
         self.norm3_bias = nn.Parameter(torch.empty(dim, dtype=cfg.param_dtype))
@@ -157,13 +169,22 @@ class WanAttentionBlock(nn.Module):
         y = self.self_attn_o(dot_product_attention(q, k, v).reshape(b, s, dim))
         x = x + (y.float() * e3).to(x.dtype)
 
-        # text cross attention
+        # text cross attention (+ the image branch of i2v / flf2v)
         x_c = layer_norm(x, cfg.eps, self.norm3_scale, self.norm3_bias)
-        lc = context.shape[1]
         qc = self.cross_attn_norm_q(self.cross_attn_q(x_c)).reshape(b, s, heads, hd)
+        if cfg.uses_clip:
+            ctx_img, context = context[:, :cfg.clip_tokens], context[:, cfg.clip_tokens:]
+        lc = context.shape[1]
         kc = self.cross_attn_norm_k(self.cross_attn_k(context)).reshape(b, lc, heads, hd)
         vc = self.cross_attn_v(context).reshape(b, lc, heads, hd)
-        x = x + self.cross_attn_o(dot_product_attention(qc, kc, vc).reshape(b, s, dim))
+        y = dot_product_attention(qc, kc, vc).reshape(b, s, dim)
+        if cfg.uses_clip:
+            li = ctx_img.shape[1]
+            ki = self.cross_attn_norm_k_img(self.cross_attn_k_img(ctx_img))
+            ki = ki.reshape(b, li, heads, hd)
+            vi = self.cross_attn_v_img(ctx_img).reshape(b, li, heads, hd)
+            y = y + dot_product_attention(qc, ki, vi).reshape(b, s, dim)
+        x = x + self.cross_attn_o(y)
 
         # ffn
         x_mod = (layer_norm(x, cfg.eps).float() * (1 + e5) + e4).to(cfg.dtype)
@@ -172,7 +193,7 @@ class WanAttentionBlock(nn.Module):
 
 
 class WanTransformer(nn.Module):
-    """The full Wan t2v DiT over one dense [B, C, F, H, W] bucket."""
+    """The full Wan DiT over one dense [B, C, F, H, W] bucket."""
 
     def __init__(self, cfg: WanConfig):
         super().__init__()
@@ -186,6 +207,14 @@ class WanTransformer(nn.Module):
         self.time_projection = LoraDense(dim, 6 * dim, **f32)
         self.text_embedding_1 = LoraDense(cfg.text_dim, dim, **dd)
         self.text_embedding_2 = LoraDense(dim, dim, **dd)
+        if cfg.uses_clip:  # img_emb: LayerNorm, Linear, GELU, Linear, LayerNorm
+            pd = cfg.param_dtype
+            self.img_emb_norm1_scale = nn.Parameter(torch.empty(1280, dtype=pd))
+            self.img_emb_norm1_bias = nn.Parameter(torch.empty(1280, dtype=pd))
+            self.img_emb_1 = LoraDense(1280, 1280, **dd)
+            self.img_emb_2 = LoraDense(1280, dim, **dd)
+            self.img_emb_norm2_scale = nn.Parameter(torch.empty(dim, dtype=pd))
+            self.img_emb_norm2_bias = nn.Parameter(torch.empty(dim, dtype=pd))
         self.blocks = nn.ModuleList([WanAttentionBlock(cfg) for _ in range(cfg.num_layers)])
         self.head_modulation = nn.Parameter(torch.empty(1, 2, dim, dtype=cfg.param_dtype))
         self.head = LoraDense(dim, math.prod(cfg.patch_size) * cfg.out_dim, **f32)
@@ -193,15 +222,20 @@ class WanTransformer(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         _modulation_init_(self.head_modulation, self.cfg.dim, generator)
+        if self.cfg.uses_clip:
+            for name in ("img_emb_norm1", "img_emb_norm2"):
+                getattr(self, f"{name}_scale").fill_(1.0)
+                getattr(self, f"{name}_bias").zero_()
 
     def _run(self, block, *args):
         if self.cfg.remat and torch.is_grad_enabled():
             return remat_call(self.cfg.remat, block, *args)
         return block(*args)
 
-    def forward(self, x, t, context):
-        """x [B, C, F, H, W] latents; t [B] in [0, 1000]; context
-        [B, text_len, text_dim] zero-padded text embeddings."""
+    def forward(self, x, t, context, clip_fea=None):
+        """x [B, C, F, H, W] latents (i2v: with the mask and y channels); t
+        [B] in [0, 1000]; context [B, text_len, text_dim] zero-padded text
+        embeddings; clip_fea [B, 257 (flf2v 514), 1280] for i2v / flf2v."""
         cfg = self.cfg
         b, _, f, h, w = x.shape
         pt, ph, pw = cfg.patch_size
@@ -215,6 +249,12 @@ class WanTransformer(nn.Module):
 
         ctx = self.text_embedding_1(context.to(cfg.dtype))
         ctx = self.text_embedding_2(F.gelu(ctx, approximate="tanh"))
+        if cfg.uses_clip:
+            ci = layer_norm(clip_fea.to(cfg.dtype), 1e-5, self.img_emb_norm1_scale,
+                            self.img_emb_norm1_bias)
+            ci = self.img_emb_2(F.gelu(self.img_emb_1(ci), approximate="tanh"))
+            ci = layer_norm(ci, 1e-5, self.img_emb_norm2_scale, self.img_emb_norm2_bias)
+            ctx = torch.cat([ci, ctx], dim=1)
 
         # 3-axis rope ids over the (gf, gh, gw) grid
         dev = xe.device

@@ -106,3 +106,11 @@ def save_file(tensors: Mapping[str, object], path, metadata: Optional[Mapping[st
 def load_file(path) -> Dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         return load(f.read())
+
+
+def read_keys(path) -> list:
+    """The tensor names of a safetensors file, from its header alone."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    return [k for k in header if k != "__metadata__"]

@@ -20,9 +20,9 @@ steps [1, N + 1) to run_dir/profile.
 
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
-optimizer (A10), --test_sample and --dump_dataset (A5), full fine-tuning's
-diffusers-layout export (A4), and families other than Flux (Wan's VAE and
-UMT5 come with A7).
+optimizer (A10), --test_sample and --dump_dataset (A5), Flux full
+fine-tuning's diffusers-layout export (A4), and families other than Flux
+and Wan (A9).
 """
 
 from __future__ import annotations
@@ -75,11 +75,12 @@ def _check_ported(config, args):
                                   "(ROADMAP A5)")
     from .models import get_model_class
     from .models.flux import FluxPipeline
+    from .models.wan import WanPipeline
 
-    if get_model_class(config["model"]["type"]) is not FluxPipeline:
+    if get_model_class(config["model"]["type"]) not in (FluxPipeline, WanPipeline):
         raise NotImplementedError(
-            f"the driver trains the Flux family so far; {config['model']['type']!r} needs "
-            "its VAE and text encoders ported (Wan: ROADMAP A7)")
+            f"the driver trains the Flux and Wan families so far; {config['model']['type']!r} "
+            "needs its VAE and text encoders ported (ROADMAP A9)")
 
 
 def _stop_profiler(profiler, run_dir: Path) -> None:

@@ -11,11 +11,13 @@ Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128 and
 tile, a key mask, a ragged Sq=200 that is no multiple of K1's and K2's
 128-row query tile, heads 2-3 of six as a strided view, Sq=4096 against
 Skv=128, where K3 splits its query loop over blocks, Sq=328 against Skv=50,
-and a masked Skv=1000 of 16 key steps against Sq=130): each kernel's error
+a masked Skv=1000 of 16 key steps against Sq=130, and Wan i2v's image
+cross-attention, Skv=257 and 514 (flf2v), against Sq=1024): each kernel's error
 against the f32 plain result must be at most twice the plain version's in
 the same dtype, plus 1e-3 of the reference's largest magnitude. K3 gives the
 same bits on two launches, with and without the query split, and K2 at the
-Flux-dev and Wan2.1 cross-attention shapes. A batch element whose keys are
+Flux-dev and Wan2.1 cross-attention shapes; K2 and K3 at the i2v image
+cross-attention (H 40, Skv 257 and 514). A batch element whose keys are
 all masked gets O = 0, the mask value as its LSE and zero gradients, with
 and without the query split.
 
@@ -27,6 +29,10 @@ equal to their plain versions (bf16 and f32 inputs, with and without H1's
 column pre-scale, 2 / 17 / 2048 rows, row-strided views); torch._int_mm
 through the zero-row padding below 17 rows; int8_pq_dot_bwd8 on the card
 against the plain path on the CPU.
+
+The Wan caching encoders on the card: the Wan 2.1 VAE (encode and decode of
+a 1 + 4 + 4-frame clip) and UMT5 (with padding), at tiny width in f32,
+against the same weights on the CPU.
 """
 
 import numpy as np
@@ -46,7 +52,10 @@ CASES = {"nomask": (256, 256, False, None), "kv_mask": (256, 256, True, None),
          # Sq no multiple of 128 against Skv shorter than one key step, and
          # Skv no multiple of it, masked, over enough steps to refill the ring
          "short_kv_ragged_q": (328, 50, False, None),
-         "ragged_steps_masked": (130, 1000, True, None)}
+         "ragged_steps_masked": (130, 1000, True, None),
+         # Wan i2v's image cross-attention over 257 CLIP tokens (flf2v: 514):
+         # one key past the last full tile
+         "clip_cross": (1024, 257, False, None), "flf2v_cross": (1024, 514, False, None)}
 
 
 @pytest.fixture
@@ -141,6 +150,29 @@ def test_dq_is_deterministic(shape, cuda_device):
     dq2 = port_fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dq1).all()) and torch.equal(dq1, dq2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", [257, 514])
+def test_image_cross_backward_is_deterministic(skv, cuda_device):
+    """Two K2 and two K3 launches give the same bits at the i2v / flf2v
+    image cross-attention (bf16, D 128, H 40, Sq 4096 against Skv 257 or
+    514: a ragged last key tile, K3's query split)."""
+    rng = np.random.default_rng(23)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 4096, 40, 128), dtype=np.float32))
+             .to(cuda_device, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, skv, 40, 128), dtype=np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    scale = 128 ** -0.5
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, None, scale)
+    di = port_fa.row_dot(do, o)
+    dq1 = port_fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)
+    dq2 = port_fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)
+    dk1, dv1 = port_fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    dk2, dv2 = port_fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in (dq1, dk1, dv1))
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 @pytest.mark.cuda
@@ -319,3 +351,46 @@ def test_int8_pq_dot_bwd8_matches_cpu(rows, cuda_device):
     assert torch.equal(y_gpu, y_cpu) and torch.equal(dx_gpu, dx_cpu)
     assert n_cpu == {"quant_rows_cuda": 0, "rescale_i32_cuda": 0}
     assert n_gpu == {"quant_rows_cuda": 2, "rescale_i32_cuda": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["wan_vae", "umt5"])
+def test_wan_encoders_on_card_match_cpu(model, cuda_device):
+    """The tiny Wan 2.1 VAE (the pipeline's `_tiny` widths) on a 9-frame 32 px
+    clip, encode then decode, and tiny UMT5 on 2 x 16 ids (the second padded
+    after 9), f32 with TF32 off, on the card against the same weights on the
+    CPU: within 1e-4 of the largest magnitude (cuDNN and cuBLAS sum in
+    another order)."""
+    from diffusion_pipe_tpu_torch.models.umt5 import UMT5Config, UMT5Encoder
+    from diffusion_pipe_tpu_torch.models.wan_vae import WanVAEConfig, WanVideoVAE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    if model == "wan_vae":
+        cpu = WanVideoVAE(WanVAEConfig(dim=8, z_dim=16, dim_mult=(1, 2, 4), num_res_blocks=1,
+                                       temperal_downsample=(True, True)))
+        cpu.init_weights(g)
+        x = torch.rand((1, 3, 9, 32, 32), generator=g) * 2 - 1
+
+        def run(m, x):
+            return m.decode(m.encode(x))
+    else:
+        cpu = UMT5Encoder(UMT5Config.tiny())
+        cpu.init_weights(g)
+        ids = torch.randint(0, 128, (2, 16), generator=g)
+        mask = torch.ones((2, 16), dtype=torch.int32)
+        mask[1, 9:] = 0
+        x = (ids, mask)
+
+        def run(m, x):
+            return m(*x)
+    card = type(cpu)(cpu.config if model == "wan_vae" else cpu.cfg).to(cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x_card = (x.to(cuda_device) if model == "wan_vae"
+              else tuple(t.to(cuda_device) for t in x))
+    with torch.no_grad():
+        want, got = run(cpu, x), run(card, x_card).cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+

@@ -17,6 +17,7 @@ import torch
 from diffusion_pipe_tpu.models.text_encoders import HFTextEncoder as JaxEncoder
 from diffusion_pipe_tpu_torch.models.text_encoders import HFTextEncoder
 from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import JAX_FAST_COMPILE
 
 CAPTIONS = ["a photo of cat", "dog b c"]
 WORDS = ["<pad>", "</s>", "<unk>", "a", "b", "c", "cat", "dog", "photo", "of"]
@@ -44,7 +45,13 @@ def models(tmp_path_factory):
     return root
 
 
-def test_t5_matches_jax(models):
+def test_t5_matches_jax(models, monkeypatch):
+    """The JAX encoder's jit compiles with JAX_FAST_COMPILE."""
+    import functools
+
+    import jax
+
+    monkeypatch.setattr(jax, "jit", functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE))
     ref = np.asarray(JaxEncoder("t5", str(models / "t5"), 8,
                                 tokenizer_path=str(models / "tok")).encode(CAPTIONS))
     ours = HFTextEncoder("t5", str(models / "t5"), 8, tokenizer_path=str(models / "tok"),

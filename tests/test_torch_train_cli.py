@@ -3,10 +3,13 @@ to end on the CPU at tiny width.
 
 A dataset of PNGs with captions (two aspect-ratio buckets) and an eval set,
 a TOML shaped like examples/flux.toml (tiny Flux, LoRA, adamw8bit, "attn"
-checkpointing, eval every 2 steps, an export every epoch):
+checkpointing, eval every 2 steps, an export every epoch), and the same
+TOML for tiny Wan t2v (its seeded VAE and UMT5-shaped text draws; the
+images as one-frame videos):
 - --cache_only fills the latent and text-embedding caches and stops;
 - a run of 4 steps trains, evaluates at the 9 quantiles, exports the
-  adapter (the JAX export's key count) and checkpoints; resumed, it takes 2
+  adapter (the JAX export's key count: diffusers-lora for Flux, ComfyUI
+  for Wan) and checkpoints; resumed, it takes 2
   more steps. Its losses, eval losses, loader position and final LoRA
   factors equal those of an uninterrupted 6-step run, bit for bit;
 - `-m` runs the same main; without --device it needs CUDA;
@@ -94,15 +97,35 @@ def _records(run):
     return [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
 
 
+def _wan_config(root, out):
+    path = _config(root, out)
+    with open(path) as f:
+        text = f.read().replace('type = "flux"', 'type = "wan"')
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
 def test_cache_train_eval_checkpoint_resume(root):
-    cfg = _config(root, "resumed")
+    _cache_train_resume(root, _config, "flux", 2 * (14 * 2 + 6 * 2))
+
+
+def test_wan_cache_train_eval_checkpoint_resume(root):
+    # 10 LoRA linears in each of the 2 blocks, lora_A and lora_B each
+    _cache_train_resume(root, _wan_config, "wan", 2 * 10 * 2)
+
+
+def _cache_train_resume(root, make_config, family, adapter_keys):
+    """--cache_only, 4 steps with eval and a checkpoint, a resume to 6,
+    against an uninterrupted 6-step run."""
+    cfg = make_config(root, f"{family}_resumed")
     assert train.main(["--config", cfg, "--device", "cpu", "--cache_only"]) == 0
-    caches = sorted(p.name for p in (root / "train" / "cache" / "flux").iterdir())
+    caches = sorted(p.name for p in (root / "train" / "cache" / family).iterdir())
     assert caches == ["cache_64x64x1", "cache_96x32x1", "metadata.json"]
-    assert not (root / "resumed").exists()
+    assert not (root / f"{family}_resumed").exists()
 
     assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "4"]) == 0
-    run = _run_dir(root, "resumed")
+    run = _run_dir(root, f"{family}_resumed")
     assert (run / "latest").read_text() == "global_step4"
     recs = _records(run)
     assert [r["step"] for r in recs if "train/loss" in r] == [1, 2, 3, 4]
@@ -113,13 +136,13 @@ def test_cache_train_eval_checkpoint_resume(root):
     from safetensors.numpy import load_file
 
     adapter = load_file(str(run / "epoch1" / "adapter_model.safetensors"))
-    assert len(adapter) == 2 * (14 * 2 + 6 * 2)  # the JAX export's keys for tiny Flux
+    assert len(adapter) == adapter_keys  # the JAX export's keys
 
     assert train.main(["--config", cfg, "--device", "cpu", "--resume_from_checkpoint",
                        "--max_steps", "6"]) == 0
-    assert train.main(["--config", _config(root, "straight"), "--device", "cpu",
+    assert train.main(["--config", make_config(root, f"{family}_straight"), "--device", "cpu",
                        "--max_steps", "6"]) == 0
-    straight = _run_dir(root, "straight")
+    straight = _run_dir(root, f"{family}_straight")
     strip = [{k: v for k, v in r.items() if k not in ("time", "eval/eval/eval_time_sec")}
              for r in _records(run)]
     strip_straight = [{k: v for k, v in r.items() if k not in ("time", "eval/eval/eval_time_sec")}
@@ -159,7 +182,8 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "test_sample": ("", None, ["--test_sample", "a cat"]),
     "dump_dataset": ("", None, ["--dump_dataset", "dump"]),
-    "wan": ("", ('type = "flux"', 'type = "wan"'), []),
+    "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
+    "sdxl": ("", ('type = "flux"', 'type = "sdxl"'), []),
 }
 
 

@@ -22,6 +22,7 @@ Tolerances:
   ~2e-5.
 """
 
+import functools
 import math
 
 import jax
@@ -41,7 +42,7 @@ from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import (JAX_FAST_COMPILE, jax_draws, random_params, tiny_batch,
+from torch_port_helpers import (JAX_FAST_COMPILE, draw_noise_and_t, random_params, tiny_batch,
                                 tiny_flux_config)
 
 
@@ -60,8 +61,14 @@ def test_three_adamw8bit_steps_match_jax():
     jstate = TrainState(step=jnp.zeros([], jnp.int32), trainable=trainable, frozen=frozen,
                         opt_state=jax.jit(jopt.init)(trainable),
                         examples=jnp.zeros([], jnp.int32))
-    jstep = jax.jit(jax_make_step(jpipe, jopt, gradient_clipping=CONFIG["gradient_clipping"]),
-                    compiler_options=JAX_FAST_COMPILE)
+    train_step = jax_make_step(jpipe, jopt, gradient_clipping=CONFIG["gradient_clipping"])
+
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+    def jstep(state, batch, key):
+        """The step, and the noise and t that its prepare_inputs drew from
+        key (one compile for both)."""
+        return (*train_step(state, batch, key),
+                *draw_noise_and_t(jpipe.tdist, key, batch["latents"].shape))
 
     pipe = get_model_class("flux")(CONFIG, device="cpu")
     state = init_train_state(pipe, get_optimizer(CONFIG), torch.Generator().manual_seed(0),
@@ -71,10 +78,9 @@ def test_three_adamw8bit_steps_match_jax():
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     for i in range(STEPS):
-        key = jax.random.PRNGKey(20 + i)
-        jstate, jm = jstep(jstate, jbatch, key)
-        noise, t = jax_draws(jpipe, key, batch)
-        m = step(state, tbatch, noise=noise, t=t)
+        jstate, jm, noise, t = jstep(jstate, jbatch, jax.random.PRNGKey(20 + i))
+        m = step(state, tbatch, noise=torch.tensor(np.asarray(noise)),
+                 t=torch.tensor(np.asarray(t)))
         np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]), rtol=1e-4)
         assert float(jm["grad_norm"]) > CONFIG["gradient_clipping"]

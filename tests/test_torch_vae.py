@@ -2,7 +2,7 @@
 
 The tiny config and a tiny Flux-shaped config (16 latent channels, four
 levels: the Flux pipeline's `_tiny` VAE), random weights drawn with numpy on
-the JAX parameter structure and mapped by interop.vae_to_state_dict; encode
+the JAX parameter structure and mapped by interop.tree_to_state_dict; encode
 (the posterior mode, scaled and shifted) and decode of the same f32 input
 in both, on the CPU. Tolerance: 2e-5 of the largest output magnitude (f32
 convolutions and group norms summed in another order; measured 0.9e-6 to
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from diffusion_pipe_tpu.models import autoencoder_kl as jvae
-from diffusion_pipe_tpu_torch.interop import vae_to_state_dict
+from diffusion_pipe_tpu_torch.interop import tree_to_state_dict
 from diffusion_pipe_tpu_torch.models import autoencoder_kl as pvae
 from torch_port_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import JAX_FAST_COMPILE
@@ -51,7 +51,7 @@ def test_encode_and_decode_match_jax(name):
     jmodel = jvae.AutoencoderKL(jvae.VAEConfig(**kw))
     params = _random_params(jmodel, seed=3)
     port = pvae.AutoencoderKL(pvae.VAEConfig(**kw))
-    port.load_state_dict(vae_to_state_dict(params))
+    port.load_state_dict(tree_to_state_dict(params))
 
     x = np.random.default_rng(4).uniform(-1, 1, (2, 3, 32, 40)).astype(np.float32)
     encode = jax.jit(lambda p, px: jmodel.apply(p, px, method=type(jmodel).encode),

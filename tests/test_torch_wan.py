@@ -22,6 +22,7 @@ step for elements near zero, whose ulp is smaller than those gradient
 differences make of the update (measured: at most 0.08 * lr).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -309,3 +310,285 @@ def test_lora_fp8_int8_attn_loss_and_grads_match():
     for name, p in state.trainable.items():
         np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
                                    atol=5e-4, rtol=5e-3, err_msg=name)
+
+
+# --- the i2v / flf2v / i2v_v2 / ti2v variants, LoRA, from the JAX state ------
+
+VARIANTS = ("i2v", "flf2v", "i2v_v2", "ti2v")
+
+
+def variant_config(vt):
+    cfg = tiny_wan_config(adapter={"type": "lora", "rank": 4, "alpha": 4, "dropout": 0.0})
+    cfg["model"] = dict(cfg["model"], variant_type=vt)
+    return cfg
+
+
+def jax_variant_pipeline(cfg):
+    """The JAX pipeline of a tiny variant. Its `_tiny` hook sets in_dim 36
+    for i2v only; flf2v and i2v_v2 take the same 36 channels (latents, the
+    4 mask channels and y), so their config is rebuilt with it."""
+    from diffusion_pipe_tpu.models.wan_model import WanTransformer as JaxWanTransformer
+
+    jpipe = jax_model_class("wan")(cfg)
+    if jpipe.wan_config.model_type in ("flf2v", "i2v_v2"):
+        jpipe.wan_config = dataclasses.replace(jpipe.wan_config, in_dim=36)
+        jpipe.model = JaxWanTransformer(jpipe.wan_config)
+    return jpipe
+
+
+def variant_batch(vt, seed, b=2):
+    rng = np.random.default_rng(seed)
+    c = 8 if vt == "ti2v" else 16
+    batch = {
+        "latents": (rng.standard_normal((b, c, 3, 6, 6)) * 0.5).astype(np.float32),
+        "text_embeddings": rng.standard_normal((b, 12, 32)).astype(np.float32),
+        "seq_lens": np.array([7, 12][:b], np.int32),
+    }
+    if vt != "ti2v":
+        batch["y"] = (rng.standard_normal((b, 16, 3, 6, 6)) * 0.5).astype(np.float32)
+    if vt in ("i2v", "flf2v"):
+        n = 257 * (2 if vt == "flf2v" else 1)
+        batch["clip_context"] = rng.standard_normal((b, n, 1280)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("vt", VARIANTS)
+def test_variant_lora_loss_and_grads_match(vt):
+    """Loss and LoRA gradients of each variant (rank 4, f32) against the JAX
+    pipeline from its init_train_state, with the JAX draws of noise and t:
+    i2v / flf2v (in_dim 36, the CLIP context through img_emb and the
+    k_img / v_img cross-attention over 257 / 514 image tokens), i2v_v2
+    (in_dim 36, no CLIP branch) and ti2v (8 latent channels at tiny width).
+    Tolerances: 1e-4 relative on the loss, 1e-4 abs / 1e-3 rel on each
+    gradient (f32 through two blocks, summed in another order)."""
+    cfg = variant_config(vt)
+    jpipe = jax_variant_pipeline(cfg)
+    params = random_params(jpipe, seed=5, lora_b_std=0.05)
+    jstate = jax_init_train_state(jpipe, jax_get_optimizer(cfg), jax.random.PRNGKey(0),
+                                  jax_lora, params=params)
+    batch = variant_batch(vt, 21)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    ref_loss, grads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jpipe)),
+                              compiler_options=JAX_FAST_COMPILE)(
+        jstate.trainable, jstate.frozen, jbatch, KEY)
+    ref_grads = jax_to_state_dict(jax.tree.map(np.asarray, grads))
+    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(jstate.trainable,
+                                                                 jstate.frozen)))
+
+    pipe = get_model_class("wan")(cfg, device="cpu")
+    assert pipe.wan_config.in_dim == jpipe.wan_config.in_dim
+    state = init_train_state(pipe, get_optimizer(cfg), torch.Generator().manual_seed(0),
+                             predicate_from_config(cfg), state_dict=sd)
+    noise, t = jax_draws(jpipe, KEY, batch)
+    inputs, target, mask = pipe.prepare_inputs(_torch_batch(batch), noise=noise, t=t)
+    loss = pipe.loss_fn(pipe.forward(inputs), target, mask)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-4)
+    per_block = 12 if vt in ("i2v", "flf2v") else 10
+    assert set(state.trainable) == set(ref_grads) and len(ref_grads) == 2 * per_block * 2
+    for name, p in state.trainable.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(),
+                                   atol=1e-4, rtol=1e-3, err_msg=name)
+
+
+# --- weights, export, caching ----------------------------------------------------
+
+
+@pytest.mark.parametrize("vt", ["t2v", "i2v"])
+def test_convert_and_export_match_jax(vt):
+    """convert_wan_weights of an official-layout checkpoint, export_wan_model
+    and export_wan_lora_comfyui of the same weights: the JAX functions' keys
+    and values, bit for bit (t2v, and i2v with the img_emb and k_img /
+    v_img weights)."""
+    from diffusion_pipe_tpu.models import wan as jwan
+    from diffusion_pipe_tpu_torch.models import wan as pwan
+
+    cfg = variant_config(vt)
+    jpipe = jax_variant_pipeline(cfg)
+    params = random_params(jpipe, seed=8, lora_b_std=0.05)
+    pipe = _port(cfg, params)
+    pcfg, jcfg = pipe.wan_config, jpipe.wan_config
+
+    official = pwan.export_wan_model(pipe.model.state_dict(), pcfg)
+    ref_official = jwan.export_wan_model(params, jcfg)
+    assert set(official) == set(ref_official)
+    for k, v in ref_official.items():
+        assert torch.equal(official[k], torch.from_numpy(np.ascontiguousarray(v))), k
+
+    ref_conv = jax_to_state_dict(jwan.convert_wan_weights(
+        {f"diffusion_model.{k}": v.numpy() for k, v in official.items()}, jcfg))
+    conv = pwan.convert_wan_weights(
+        {f"diffusion_model.{k}": v for k, v in official.items()}, pcfg)
+    frozen = {k: v for k, v in pipe.model.state_dict().items() if ".lora_" not in k}
+    assert set(conv) == set(ref_conv) == set(frozen)
+    for k, v in frozen.items():
+        assert torch.equal(conv[k], v) and torch.equal(ref_conv[k], v), k
+
+    trainable, _ = partition_params(params, jax_lora)
+    ref_lora = jwan.export_wan_lora_comfyui(trainable, jcfg)
+    lora = pwan.export_wan_lora_comfyui(
+        {k: v for k, v in pipe.model.state_dict().items() if ".lora_" in k}, pcfg)
+    assert set(lora) == set(ref_lora) and len(lora) == 2 * 2 * (12 if vt == "i2v" else 10)
+    for k, v in ref_lora.items():
+        assert torch.equal(lora[k], torch.from_numpy(v)), k
+
+
+def test_save_model_writes_the_official_layout(tmp_path):
+    """save_model: model.safetensors in the official layout, metadata
+    format = pt, cast to save_dtype, which load_weights reads back into the
+    same weights."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.wan import export_wan_model
+
+    cfg = dict(tiny_wan_config(), save_dtype="bfloat16")
+    pipe = get_model_class("wan")(cfg, device="cpu")
+    pipe.init_params(torch.Generator().manual_seed(3))
+    pipe.save_model(tmp_path / "out", pipe.model)
+    data = (tmp_path / "out" / "model.safetensors").read_bytes()
+    assert safetensors_io.metadata(data) == {"format": "pt"}
+    saved = safetensors_io.load(data)
+    want = export_wan_model(pipe.model.state_dict(), pipe.wan_config)
+    assert set(saved) == set(want)
+    assert all(saved[k].dtype == torch.bfloat16 and torch.equal(saved[k], v.to(torch.bfloat16))
+               for k, v in want.items())
+    cfg["model"] = dict(cfg["model"], ckpt_path=str(tmp_path / "out"))
+    loaded = get_model_class("wan")(cfg, device="cpu").load_weights()
+    assert all(torch.equal(loaded[k], v.to(torch.bfloat16))
+               for k, v in pipe.model.state_dict().items())
+
+
+def _cache_dataset(root):
+    return {"resolutions": [32], "directory": [{"path": str(root)}]}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cache_written_by_one_package_reads_in_the_other(tmp_path, writer, monkeypatch):
+    """Tiny Wan i2v: one package's caching phase writes the latents, y, the
+    CLIP context and the text embeddings; the other's reads that cache as
+    it is (its VAE never runs) and its loader gives the same batches. The
+    JAX pipeline's tiny VAE gets seeded weights in place of its eager init,
+    and jax.jit compiles with JAX_FAST_COMPILE while the test runs."""
+    from PIL import Image
+
+    from diffusion_pipe_tpu.models.wan_vae import WanVAEConfig, WanVideoVAE
+
+    monkeypatch.setattr(jax, "jit", functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE))
+
+    from diffusion_pipe_tpu.data.dataset import Dataset as JaxDataset
+    from diffusion_pipe_tpu.data.loader import DatasetManager as JaxManager
+    from diffusion_pipe_tpu.data.loader import PipelineDataLoader as JaxLoader
+    from diffusion_pipe_tpu_torch.data.dataset import Dataset as PortDataset
+    from diffusion_pipe_tpu_torch.data.loader import DatasetManager as PortManager
+    from diffusion_pipe_tpu_torch.data.loader import PipelineDataLoader as PortLoader
+
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        Image.fromarray((rng.random((32, 32, 3)) * 255).astype(np.uint8)).save(
+            tmp_path / f"im{i}.png")
+        (tmp_path / f"im{i}.txt").write_text(f"frame {i}")
+    cfg = variant_config("i2v")
+    jpipe, ppipe = jax_model_class("wan")(cfg), get_model_class("wan")(cfg, device="cpu")
+    jpipe._vae = WanVideoVAE(WanVAEConfig(dim=8, z_dim=16, dim_mult=(1, 2, 4), num_res_blocks=1,
+                                          temperal_downsample=(True, True)))
+    shapes = jax.eval_shape(jpipe._vae.init, jax.random.PRNGKey(0), jnp.zeros((1, 3, 5, 32, 32)))
+    jpipe._vae_params = jax.tree.map(
+        lambda x: np.random.default_rng(x.size).standard_normal(x.shape).astype(np.float32) * 0.1,
+        nn.unbox(shapes))
+    sides = {"jax": (JaxDataset, JaxManager, JaxLoader, jpipe),
+             "port": (PortDataset, PortManager, PortLoader, ppipe)}
+
+    def batches(side):
+        ds_cls, manager_cls, loader_cls, pipe = sides[side]
+        ds = ds_cls(_cache_dataset(tmp_path), pipe, support_video=True)
+        manager = manager_cls(pipe)
+        manager.register(ds)
+        manager.cache()
+        ds.post_init(0, 1, 2, 1)
+        loader = loader_cls(ds, 1)
+        return [{k: np.asarray(v) for k, v in next(loader)[1].items()} for _ in range(2)]
+
+    written = batches(writer)
+    read = batches("port" if writer == "jax" else "jax")
+    assert (tmp_path / "cache" / "wan").is_dir()
+    assert set(written[0]) == {"latents", "y", "clip_context", "text_embeddings", "seq_lens"}
+    for w, r in zip(written, read):
+        assert w.keys() == r.keys()
+        for k in w:
+            np.testing.assert_array_equal(r[k], w[k], err_msg=k)
+    if writer == "jax":
+        assert getattr(ppipe, "_vae", None) is None  # the port read, did not encode
+
+
+def test_uncached_text_runs_umt5_in_the_step():
+    """model.cache_text_embeddings = false: host_prepare tokenizes the
+    captions (the `_tiny` hook's character codes, the same ids in both
+    packages) and prepare_inputs runs UMT5 without gradients. With the same
+    tiny UMT5 weights in both packages, the context, x_t and t agree within
+    1e-5 (f32). The port then caches no text embeddings and passes the
+    captions through the loader."""
+    from diffusion_pipe_tpu.models.umt5 import UMT5Config as JaxUMT5Config
+    from diffusion_pipe_tpu.models.umt5 import UMT5Encoder as JaxUMT5Encoder
+    from diffusion_pipe_tpu_torch.interop import tree_to_state_dict
+    from diffusion_pipe_tpu_torch.models.umt5 import UMT5Config, UMT5Encoder
+
+    cfg = tiny_wan_config()
+    cfg["model"] = dict(cfg["model"], cache_text_embeddings=False)
+    jpipe, ppipe = jax_model_class("wan")(cfg), get_model_class("wan")(cfg, device="cpu")
+    assert ppipe.pass_captions_to_batch and ppipe.get_call_text_encoder_fns() == []
+    jenc = JaxUMT5Encoder(JaxUMT5Config.tiny())
+    shapes = jax.eval_shape(jenc.init, jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
+    rng = np.random.default_rng(17)
+    tparams = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * 0.3).astype(np.float32),
+                           nn.unbox(shapes))
+    jpipe._t5 = (jenc, jax.tree.map(jnp.asarray, tparams))
+    penc = UMT5Encoder(UMT5Config.tiny())
+    penc.load_state_dict(tree_to_state_dict(tparams))
+    ppipe._t5 = penc
+
+    captions = ["a cat", "two dogs on the grass at noon"]
+    latents = (np.random.default_rng(3).standard_normal((2, 16, 3, 6, 6)) * 0.5).astype(np.float32)
+    jb = jpipe.host_prepare({"latents": latents, "caption": np.array(captions)})
+    pb = ppipe.host_prepare({"latents": torch.from_numpy(latents), "caption": captions})
+    np.testing.assert_array_equal(pb["t5_input_ids"].numpy(), jb["t5_input_ids"])
+    np.testing.assert_array_equal(pb["t5_mask"].numpy(), jb["t5_mask"])
+    run = jax.jit(lambda b: jpipe.prepare_inputs(KEY, b)[0], compiler_options=JAX_FAST_COMPILE)
+    ref = jax.tree.map(np.asarray, run({k: jnp.asarray(v) for k, v in jb.items()}))
+    noise, t = jax_draws(jpipe, KEY, {"latents": latents})
+    inputs, _, _ = ppipe.prepare_inputs(pb, noise=noise, t=t)
+    for name in ("context", "x", "t"):
+        np.testing.assert_allclose(inputs[name].numpy(), ref[name], atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+
+
+AUTODETECT = {  # folder name: (config.json, the shard's keys, under low_noise_model/)
+    "Wan2.1-T2V-1.3B": ({"model_type": "t2v", "dim": 1536}, ["blocks.0.self_attn.q.weight"], False),
+    "Wan2.1-T2V-14B": ({"model_type": "t2v", "dim": 5120}, ["blocks.0.self_attn.q.weight"], False),
+    "Wan2.1-I2V-14B": ({"model_type": "i2v", "dim": 5120}, ["blocks.0.cross_attn.k_img.weight"],
+                       False),
+    "Wan2.2-I2V-A14B": ({"model_type": "i2v", "dim": 5120}, ["blocks.0.cross_attn.k.weight"], True),
+    "Wan2.1-FLF2V-14B": ({"model_type": "flf2v", "dim": 5120}, [], False),
+    "Wan2.2-TI2V-5B": ({"model_type": "ti2v", "dim": 3072}, [], False),
+    "SkyReels-V2-I2V-14B": ({"model_type": "i2v", "dim": 5120},
+                            ["blocks.0.cross_attn.k_img.weight"], False),
+}
+
+
+@pytest.mark.parametrize("name", list(AUTODETECT))
+def test_autodetect_wan_variant_matches_jax(tmp_path, name):
+    """autodetect_wan_variant on a checkpoint folder (config.json, a
+    safetensors shard's keys, the folder's name): the JAX function's
+    (variant, skyreels)."""
+    import json
+
+    from diffusion_pipe_tpu.models.wan import autodetect_wan_variant as jdetect
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.wan import autodetect_wan_variant
+
+    config, keys, nested = AUTODETECT[name]
+    d = tmp_path / name
+    inner = d / "low_noise_model" if nested else d
+    inner.mkdir(parents=True)
+    (inner / "config.json").write_text(json.dumps(config))
+    if keys:
+        safetensors_io.save_file({k: torch.zeros(2) for k in keys}, inner / "model.safetensors")
+    assert autodetect_wan_variant(d) == jdetect(str(d))

@@ -5,6 +5,7 @@
     python3 tools/profile_torch_step.py --slice flux-fp8-int8
                                                      # flux-dev-lora-512-fp8-int8
     python3 tools/profile_torch_step.py --slice wan  # wan-1.3b-t2v-fullft-sr
+    python3 tools/profile_torch_step.py --slice wan-lora  # wan-1.3b-t2v-lora-attn
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -13,7 +14,8 @@ full-width Flux-dev, LoRA r32, adamw8bit, per-block checkpointing, batch 2 at
 pre-quantized to int8, int8_matmul "fwd_bwd" and "attn" checkpointing as
 bench.py runs it; or chip_smoke.build_wan_slice: full-width Wan2.1-1.3B t2v, full
 fine-tuning in bf16, adamw with stochastic rounding, per-block
-checkpointing, one 81-frame 512 px clip), builds the kernels if needed, runs
+checkpointing, one 81-frame 512 px clip; with chip_smoke.WAN_LORA_CONFIG
+bench.py's Wan row: LoRA r32, adamw8bit, "attn"), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -111,7 +113,8 @@ def forward_matmul_flops(pipeline, batch, gen):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan"), default="flux")
+    ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora"),
+                    default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
     args = ap.parse_args(argv)
@@ -123,6 +126,8 @@ def main(argv=None):
     cell, cfg, build = {
         "wan": ("wan-1.3b-t2v-fullft-sr", chip_smoke.WAN_SLICE_CONFIG,
                 chip_smoke.build_wan_slice),
+        "wan-lora": ("wan-1.3b-t2v-lora-attn", chip_smoke.WAN_LORA_CONFIG,
+                     chip_smoke.build_wan_slice),
         "flux-fp8-int8": ("flux-dev-lora-512-fp8-int8", chip_smoke.FP8_INT8_CONFIG,
                           chip_smoke.build_slice),
         "flux": ("flux-dev-lora-512", chip_smoke.SLICE_CONFIG, chip_smoke.build_slice),
