@@ -147,6 +147,37 @@ Phases, each printing one JSON line (or more):
                      latents, 27,280 tokens), LoRA r32, adamw8bit, "attn":
                      finite losses, moved factors, the launches.
 
+12. slice-flux-lokr -- (run after slice-fp8-int8) bench.py's Flux row with
+                     a LoKr adapter (rank 16, decompose_factor -1,
+                     rank_dropout 0.1) in place of LoRA: one warm-up, five
+                     timed steps, every LoKr tensor moved (the zero-
+                     initialised w1 too), the int8 base unchanged, 57 / 57
+                     / 57 flash and 1406 H1 and H2 launches a step.
+    sample        -- (run next) the Euler flow sampler through the training
+                     forward: Flux-dev at full depth, 512 px, 20 steps
+                     (20 x 57 K1, no K2 or K3); a full-width two-block Flux
+                     sample, bf16 on the card against f32 on the CPU; and
+                     Wan2.1-1.3B at 81 frames and 512 px, 4 steps.
+    driver / driver-wan also sample with --test_sample in the resumed call
+                     (example.png at 512 px; its forwards counted in the
+                     launches) and decode the cache with --dump_dataset
+                     (one 512 px PNG a training image).
+13. slice-wan-policies -- (run last) bench.py's Wan row with LoRA dropout
+                     0.1 under true, "attn", "dots", "offload_attn" and
+                     "unsloth": the same batch, noise, t and masks give
+                     true's loss and LoRA gradients (relative L2 1e-3; bit
+                     equality reported); per policy two timed steps, peak
+                     device memory, pinned host bytes, K1 launches a step
+                     (120 / 60) and the products run a step ("dots" and
+                     "unsloth": the forward's alone).
+    optimizers    -- Wan2.1-1.3B t2v at full width, 4 of 30 blocks, full
+                     fine-tuning in bf16 with stochastic rounding: three
+                     steps each of stableadamw, sgd, automagic, muon,
+                     adafactor and genericoptim (subset norm, rank 128,
+                     SVD projector refreshed inside the timed steps), then
+                     adamw8bit LoRA with gradient_release at GAS 2: losses,
+                     step and optimizer times, K4 launches a step.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -231,13 +262,19 @@ def kernel_device_ms(fn, kernel, iters=20):
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(us) == iters, f"the profiler saw {len(us)} {kernel} kernels in {iters} calls")
+    # the trace can miss a kernel (19 of 20 seen once on the H100): it is
+    # taken again, up to three times, until it holds every call
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) == iters:
+            break
+    check(len(us) == iters,
+          f"the profiler saw {len(us)} {kernel} kernels in {iters} calls ({attempt} traces)")
     return sum(us) / 1e3 / iters
 
 
@@ -270,9 +307,10 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _free():
+def _free(device="cuda"):
     gc.collect()
-    torch.cuda.empty_cache()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # --- phase 1 ------------------------------------------------------------------
@@ -855,7 +893,7 @@ def _int8_weights(model):
     linears)."""
     from diffusion_pipe_tpu_torch.models.layers import LoraDense
 
-    linears = [m for m in model.modules() if isinstance(m, LoraDense) and m.lora_a is not None]
+    linears = [m for m in model.modules() if isinstance(m, LoraDense) and m.lora_rank > 0]
     real = [m for m in linears if m.weight.dtype == torch.int8 and m.kernel_scale is not None
             and bool(torch.isfinite(m.kernel_scale).all() and (m.kernel_scale > 0).all())
             and not bool((m.kernel_scale == 1).all())]
@@ -864,11 +902,13 @@ def _int8_weights(model):
 
 
 def phase_slice(phase="slice", cell="flux-dev-lora-512", cfg=SLICE_CONFIG, bf16_peak=None,
-                attn_vs_true=False, **slice_kw):
+                attn_vs_true=False, every_moved=False, **slice_kw):
     """The Flux path at cfg; with bf16_peak (the bf16 phase's peak) also
     the fp8-int8 checks: every block linear int8 with real scales, and a
     lower peak. attn_vs_true: then the same model in alternating "attn" and
-    `true` steps (_attn_vs_true). Returns (launches, peak, step seconds)."""
+    `true` steps (_attn_vs_true). every_moved: every adapter tensor must
+    move (LoKr: its zero-initialised w1 too), else one at least. Returns
+    (launches, peak, step seconds)."""
     t0 = time.perf_counter()
     pipeline, state, step, batch, gen = build_slice(cfg=cfg, **slice_kw)
     torch.cuda.synchronize()
@@ -913,12 +953,14 @@ def phase_slice(phase="slice", cell="flux-dev-lora-512", cfg=SLICE_CONFIG, bf16_
          launches_per_step=per_step, lora_tensors_moved=moved, lora_tensors=len(lora),
          frozen_unchanged=frozen_same)
     check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
-    check(moved > 0, "no LoRA factor changed")
+    check(moved == len(lora) if every_moved else moved > 0,
+          f"{moved} of {len(lora)} adapter tensors changed")
     check(frozen_same, "frozen weights changed")
     check(per_step == expected, f"launches per step {per_step}, expected {expected}")
-    if bf16_peak is not None:
+    if cfg["model"].get("int8_matmul"):
         check(int8_real == linears, f"{linears - int8_real} of {linears} block linears "
               "lack an int8 weight with real scales")
+    if bf16_peak is not None:
         check(peak < bf16_peak, f"peak {peak} not below the bf16 phase's {bf16_peak}")
     if attn_vs_true:
         _attn_vs_true(phase, pipeline, state, step, batch, gen)
@@ -1006,6 +1048,26 @@ VAE_REL_L2 = 3e-2  # bf16 on the card against f32 on the CPU, relative L2
 VAE_TIMED = 5
 
 
+class _GcPauses:
+    """The seconds the cyclic garbage collector stops the process, by
+    generation, while the block runs: what a host-bound step pays for the
+    objects that earlier phases left alive."""
+
+    def __enter__(self):
+        self.seconds, self._t0 = [0.0, 0.0, 0.0], None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds[info["generation"]] += time.perf_counter() - self._t0
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+
 def _fresh_dir(path):
     import shutil
 
@@ -1066,6 +1128,26 @@ def phase_vae():
 
 DRIVER_IMAGES, DRIVER_EVAL_IMAGES = 8, 2
 DRIVER_STEPS, DRIVER_RESUMED_STEPS = 3, 5
+DRIVER_SAMPLE_STEPS = 4  # the --test_sample of the resumed call
+SAMPLE_PROMPT = "a seeded picture, number 0"
+
+
+def _driver_extras(train, argv, root, out_dir, size):
+    """The resumed call's --test_sample output and a --dump_dataset call:
+    {example_png: its size, dump_pngs: count, dump_sizes}; checks the
+    sample's size and one PNG per cached training image, at its size."""
+    from PIL import Image
+
+    example = Image.open(out_dir / "example.png")
+    dump = root / "dump"
+    check(train.main(argv + ["--dump_dataset", str(dump)]) == 0, "--dump_dataset failed")
+    pngs = sorted(dump.glob("img_*.png"))
+    sizes = sorted({Image.open(p).size for p in pngs})
+    out = dict(example_png=list(example.size), dump_pngs=len(pngs), dump_sizes=sizes)
+    check(example.size == (size, size), f"example.png is {example.size}")
+    check(len(pngs) == DRIVER_IMAGES and sizes == [(size, size)],
+          f"--dump_dataset wrote {len(pngs)} PNGs of {sizes}")
+    return out
 DRIVER_TOML = """# flux-dev-lora-512-fp8-int8 (bench.py's Flux row) through the driver
 output_dir = "{root}/out"
 dataset = "{root}/dataset.toml"
@@ -1077,6 +1159,7 @@ gradient_clipping = 1.0
 save_every_n_epochs = 1
 eval_before_first_step = true
 activation_checkpointing = "attn"
+sample_steps = {sample_steps}
 
 [model]
 type = "flux"
@@ -1102,7 +1185,8 @@ def _driver_config(vae_dir):
 
     from diffusion_pipe_tpu_torch.config import set_config_defaults
 
-    return set_config_defaults(tomllib.loads(DRIVER_TOML.format(root=SMOKE_DIR, vae=vae_dir)))
+    return set_config_defaults(tomllib.loads(DRIVER_TOML.format(
+        root=SMOKE_DIR, vae=vae_dir, sample_steps=DRIVER_SAMPLE_STEPS)))
 
 
 def _write_images(folder, n, seed):
@@ -1154,7 +1238,8 @@ def phase_driver(vae_dir, fp8_step_s):
     (root / "dataset.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/train"\n')
     (root / "eval.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/eval"\n')
     cfg_path = root / "flux_fp8_int8.toml"
-    cfg_path.write_text(DRIVER_TOML.format(root=root, vae=vae_dir))
+    cfg_path.write_text(DRIVER_TOML.format(root=root, vae=vae_dir,
+                                           sample_steps=DRIVER_SAMPLE_STEPS))
     argv = ["--config", str(cfg_path)]
 
     captured = []
@@ -1216,9 +1301,11 @@ def phase_driver(vae_dir, fp8_step_s):
         run_dir = next((root / "out").iterdir())
         at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
                               map_location="cpu", weights_only=True)["trainable"]
-        second, _ = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS)],
+        second, _ = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS),
+                         "--test_sample", SAMPLE_PROMPT],
                         DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
         del init, at_first
+        extras = _driver_extras(train, argv, root, root / "out", 512)
     finally:
         trainer.init_train_state = real_init
         flux.FluxPipeline.get_call_text_encoder_fns = real_te
@@ -1232,9 +1319,11 @@ def phase_driver(vae_dir, fp8_step_s):
     per_forward = {"flash_fwd": shape["blocks"], "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                    "sr_add": 0, "quant_rows": shape["linears"], "rescale_i32": shape["linears"]}
     init = {k: shape["linears"] if k == "quant_rows" else 0 for k in per_forward}
+    # the second call also samples (--test_sample): a forward a step
     expected = [{k: init[k] + v * first["steps"] + per_forward[k] * eval_forwards
                  for k, v in shape["step"].items()},
-                {k: init[k] + v * second["steps"] for k, v in shape["step"].items()}]
+                {k: init[k] + v * second["steps"] + per_forward[k] * DRIVER_SAMPLE_STEPS
+                 for k, v in shape["step"].items()}]
 
     recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
@@ -1253,7 +1342,7 @@ def phase_driver(vae_dir, fp8_step_s):
          slice_fp8_int8_step_s=fp8_step_s, host_cost_s=step_s - fp8_step_s,
          final_step=saved_step, loader_state=meta.get("custom_loader"),
          uninterrupted_loader_state=uninterrupted, loader_cost=loader_cost,
-         adapter_keys=len(adapter))
+         adapter_keys=len(adapter), **extras)
     check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
     check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
     check(len(quantiles) == 9, f"eval quantiles {quantiles}")
@@ -1749,6 +1838,7 @@ save_every_n_epochs = 1
 save_every_n_steps = 4
 eval_before_first_step = true
 activation_checkpointing = "attn"
+sample_steps = {sample_steps}
 
 [model]
 type = "wan"
@@ -1766,7 +1856,7 @@ lr = 1e-4
 """
 
 
-def phase_driver_wan(vae_path):
+def phase_driver_wan(vae_path, extras=True):
     """bench.py's Wan row (wan-1.3b-t2v-lora-attn) through the driver,
     train.main: 8 seeded 512 px PNGs with captions and 2 for eval (one-frame
     videos), --cache_only with the wan-vae phase's weights loaded from the
@@ -1779,7 +1869,12 @@ def phase_driver_wan(vae_path):
     eval quantiles, every LoRA factor moved in each call and the base
     weights unchanged, the ComfyUI adapter's key count against
     export_wan_lora_comfyui for the same config, and the launches (60 / 60
-    / 60 a step, 60 K1 an eval forward). Returns the driver's launches."""
+    / 60 a step, 60 K1 an eval forward). extras: the resumed call also
+    samples (--test_sample, before it trains) and a --dump_dataset call
+    follows; tools/compare_smoke_phases.py turns them off to time the same
+    calls as an older tree's phase. Also reports the objects the garbage
+    collector tracks at the start and its pauses in the first call, by
+    generation. Returns the driver's launches."""
     import tomllib
 
     from diffusion_pipe_tpu_torch import safetensors_io, train
@@ -1792,7 +1887,7 @@ def phase_driver_wan(vae_path):
     _write_images(root / "eval", DRIVER_EVAL_IMAGES, SEED + 1)
     (root / "dataset.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/train"\n')
     (root / "eval.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/eval"\n')
-    text = WAN_DRIVER_TOML.format(root=root, vae=vae_path)
+    text = WAN_DRIVER_TOML.format(root=root, vae=vae_path, sample_steps=DRIVER_SAMPLE_STEPS)
     cfg_path = root / "wan_lora.toml"
     cfg_path.write_text(text)
     argv = ["--config", str(cfg_path)]
@@ -1837,18 +1932,22 @@ def phase_driver_wan(vae_path):
 
     trainer.init_train_state = init_and_keep
     wan.WanPipeline.get_call_text_encoder_fns = lambda self: [wan.seeded_umt5_fn(512, 4096)]
+    gc_objects = len(gc.get_objects())
     try:
         t0 = time.perf_counter()
         check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
         cache_s = time.perf_counter() - t0
         _free()
-        first, shape = run(["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS)
+        with _GcPauses() as gc_first:
+            first, shape = run(["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS)
         run_dir = next((root / "out").iterdir())
         at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
                               map_location="cpu", weights_only=True)["trainable"]
-        second, _ = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS)],
-                        DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
+        sample = ["--test_sample", SAMPLE_PROMPT] if extras else []
+        second, _ = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS),
+                         *sample], DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
         del at_first
+        extra_out = _driver_extras(train, argv, root, root / "out", 512) if extras else {}
     finally:
         trainer.init_train_state = real_init
         wan.WanPipeline.get_call_text_encoder_fns = real_te
@@ -1856,9 +1955,12 @@ def phase_driver_wan(vae_path):
 
     eval_forwards = 9 * DRIVER_EVAL_IMAGES  # 9 quantiles x the eval batches of 1
     per_forward = {k: (shape["attn"] if k == "flash_fwd" else 0) for k in shape["step"]}
+    # the second call also samples (--test_sample): a forward a step
+    sample_forwards = DRIVER_SAMPLE_STEPS if extras else 0
     expected = [{k: v * first["steps"] + per_forward[k] * eval_forwards
                  for k, v in shape["step"].items()},
-                {k: v * second["steps"] for k, v in shape["step"].items()}]
+                {k: v * second["steps"] + per_forward[k] * sample_forwards
+                 for k, v in shape["step"].items()}]
     recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
     evals = [r for r in recs if any(k.startswith("eval/") for k in r)]
@@ -1878,7 +1980,8 @@ def phase_driver_wan(vae_path):
          expected_launches=expected, losses=losses, eval=evals, step_s=step_s,
          step_times_s=step_times, samples_per_s=1 / step_s, final_step=saved_step,
          loader_state=meta.get("custom_loader"), uninterrupted_loader_state=uninterrupted,
-         loader_cost=loader_cost, adapter_keys=len(adapter), cache_dirs=cache)
+         loader_cost=loader_cost, adapter_keys=len(adapter), cache_dirs=cache,
+         gc_objects_at_start=gc_objects, gc_pause_s_first_call=gc_first.seconds, **extra_out)
     check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
     check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
     check(len(quantiles) == 9, f"eval quantiles {quantiles}")
@@ -1895,6 +1998,350 @@ def phase_driver_wan(vae_path):
     for c, want in zip(calls, expected):
         check(c["launches"] == want, f"driver-wan launches {c['launches']}, expected {want}")
     return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
+
+
+# --- slice 8: LoKr, the checkpointing policies, the optimizers, the sampler ------
+
+LOKR_CONFIG = {  # flux-dev-lokr-512-fp8-int8: bench.py's Flux row with a LoKr adapter
+    **FP8_INT8_CONFIG,
+    "adapter": {"type": "lokr", "rank": 16, "alpha": 16, "decompose_factor": -1,
+                "rank_dropout": 0.1},
+}
+WAN_POLICY_CONFIG = {  # bench.py's Wan row with LoRA dropout 0.1
+    **WAN_LORA_CONFIG, "adapter": {**WAN_LORA_CONFIG["adapter"], "dropout": 0.1}}
+POLICIES = ("full", "attn", "dots", "offload_attn", "unsloth")
+POLICY_TIMED_STEPS = 2
+
+
+def _meminfo_bytes(key):
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith(key + ":"):
+            return int(line.split()[1]) * 1024
+    return None
+
+
+def phase_slice_wan_policies(cfg=WAN_POLICY_CONFIG, device="cuda", **slice_kw):
+    """bench.py's Wan row (Wan2.1-1.3B t2v, 21,504 tokens, LoRA r32,
+    adamw8bit) with LoRA dropout 0.1, on one model under each checkpointing
+    policy in turn (the spec is read at each forward). Per policy, on the
+    same batch, noise, t and dropout masks (KeepMasks of one seed): the
+    loss and the 600 LoRA gradients of one forward and backward against
+    true's (bit equality reported, relative L2 within 1e-3 required), then
+    POLICY_TIMED_STEPS timed steps: step time, peak device memory, the
+    most bytes held in pinned host memory at once (and, for the phase, the
+    pinned slabs' bytes), K1 launches a step
+    (120 under true, "dots" and "unsloth"; 60 under "attn" and
+    "offload_attn") and the products run a step: under "dots" and
+    "unsloth" those of the forward alone (no GEMM again in the recompute),
+    counted against a forward without gradients."""
+    import dataclasses
+
+    from diffusion_pipe_tpu_torch.models import layers
+    from diffusion_pipe_tpu_torch.ops import offload
+    from diffusion_pipe_tpu_torch.training.trainer import make_loss_fn
+
+    on_cuda = torch.device(device).type == "cuda"
+    pipeline, state, step, batch, gen = build_wan_slice(cfg=cfg, device=device, **slice_kw)
+    model = pipeline.model
+    base = model.cfg
+    lora = state.trainable
+    with torch.no_grad():  # B away from 0, so the A factors get gradients too
+        for n, p in lora.items():
+            if n.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.01)
+    b = batch["latents"].shape[0]
+    noise = torch.randn(batch["latents"].shape, generator=gen, device=device)
+    t = torch.rand((b,), generator=gen, device=device)
+    peak = torch.cuda.max_memory_allocated if on_cuda else (lambda: None)
+    reset_peak = torch.cuda.reset_peak_memory_stats if on_cuda else (lambda: None)
+    loss_fn = make_loss_fn(pipeline)
+
+    inputs, _, _ = pipeline.prepare_inputs(batch, noise=noise, t=t)
+    layers.reset_product_count()
+    with torch.no_grad():
+        pipeline.forward(inputs)
+    forward_products = layers.product_count
+    del inputs
+
+    def rel(a, b):
+        d, n = (a.float() - b.float()).norm().item(), b.float().norm().item()
+        return d / n if n > 0 else d
+
+    n_attn = 2 * base.num_layers
+    expected_k1 = {"full": 2 * n_attn, "attn": n_attn, "dots": 2 * n_attn,
+                   "offload_attn": n_attn, "unsloth": 2 * n_attn}
+    ref_grads, rows = None, {}
+    try:
+        # the gradients first, on the same weights for every policy
+        for spec in POLICIES:
+            model.cfg = dataclasses.replace(base, remat=spec)
+            _free(device)
+            reset_peak()
+            for p in lora.values():
+                p.grad = None
+            with layers.adapter_dropout(layers.KeepMasks(SEED)):
+                loss = loss_fn(batch, noise=noise, t=t)
+            loss.backward()
+            grads = {n: p.grad.detach().clone() for n, p in lora.items()}
+            for p in lora.values():
+                p.grad = None
+            loss = loss.item()
+            if ref_grads is None:
+                ref_grads, ref_loss = grads, loss
+            errs = {n: rel(g, ref_grads[n]) for n, g in grads.items()}
+            worst = max(errs, key=errs.get)
+            rows[spec] = dict(loss=loss, loss_true=ref_loss, grads_rel_l2_worst=errs[worst],
+                              worst_tensor=worst,
+                              bit_equal_to_true=loss == ref_loss and all(
+                                  torch.equal(g, ref_grads[n]) for n, g in grads.items()),
+                              grad_peak_memory_bytes=peak())
+            del grads
+            check(math.isfinite(loss) and errs[worst] < 1e-3
+                  and abs(loss - ref_loss) <= 1e-3 * abs(ref_loss),
+                  f"{spec}: loss {loss} against true's {ref_loss}, {worst} off by "
+                  f"{errs[worst]}")
+        del ref_grads
+        # then the timed steps, each policy on the model the last one left
+        for spec in POLICIES:
+            model.cfg = dataclasses.replace(base, remat=spec)
+            _free(device)
+            reset_peak()
+            offload.reset_stats()
+            reset_launch_counts()
+            layers.reset_product_count()
+            _sync(device)
+            t0 = time.perf_counter()
+            losses = [step(state, batch, gen)["loss"].item() for _ in range(POLICY_TIMED_STEPS)]
+            _sync(device)
+            step_s = (time.perf_counter() - t0) / POLICY_TIMED_STEPS
+            k1 = launch_counts()["flash_fwd"] / POLICY_TIMED_STEPS
+            products = layers.product_count / POLICY_TIMED_STEPS
+            rows[spec].update(step_s=step_s, losses=losses,
+                              peak_memory_bytes=peak(),
+                              pinned_held_peak_bytes=offload.stats["peak"],
+                              k1_per_step=k1, products_per_step=products)
+            check(all(math.isfinite(x) for x in losses), f"{spec}: non-finite loss {losses}")
+            check(not on_cuda or k1 == expected_k1[spec], f"{spec}: {k1} K1 launches a step")
+            if spec in ("dots", "unsloth"):
+                check(products == forward_products,
+                      f"{spec}: {products} products a step, the forward has {forward_products}")
+            else:
+                check(products > forward_products, f"{spec}: {products} products a step")
+            check((offload.stats["peak"] > 0) == (spec in ("offload_attn", "unsloth")),
+                  f"{spec}: {offload.stats['peak']} bytes held on the host")
+    finally:
+        model.cfg = base
+    f, h, w = batch["latents"].shape[2:]
+    emit(phase="slice-wan-policies", cell="wan-1.3b-t2v-lora-dropout", blocks=base.num_layers,
+         tokens_per_sample=f * h * w // 4, timed_steps=POLICY_TIMED_STEPS,
+         forward_products=forward_products, mem_total_bytes=_meminfo_bytes("MemTotal"),
+         mem_available_bytes=_meminfo_bytes("MemAvailable"),
+         pinned_slab_bytes=offload.stats["pinned"], policies=rows)
+    del pipeline, state, step, batch
+    _free(device)
+
+
+OPT_DEPTH = 4     # blocks of the full-width Wan2.1-1.3B optimizer cell
+OPT_STEPS = 3
+OPTIMIZER_CASES = (
+    ("stableadamw", {"lr": 1e-4}),
+    ("sgd", {"lr": 1e-1, "momentum": 0.9}),
+    ("automagic", {"lr": 1e-4}),
+    ("muon", {"lr": 1e-3}),
+    ("adafactor", {"lr": 1e-4}),
+    ("genericoptim", {"lr": 1e-4, "second_moment_type": "sn", "rank": 128,
+                      "proj_type": "svd", "update_proj_gap": 2}),
+)
+
+
+def _timed_optimizer(state, device="cuda"):
+    """Wraps state.optimizer.step so each call's device time (synchronized
+    on both sides) is appended to the returned list."""
+    times = []
+    inner = state.optimizer.step
+
+    def step(*a, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    state.optimizer.step = step
+    return times
+
+
+def _optimizer_case(name, cfg, gas=1, gradient_release=False, batch_size=1, device="cuda",
+                    **slice_kw):
+    from diffusion_pipe_tpu_torch.training.trainer import make_train_step
+
+    pipeline, state, _, batch, gen = build_wan_slice(cfg=cfg, batch_size=batch_size,
+                                                     device=device, **slice_kw)
+    step = make_train_step(pipeline, gradient_clipping=cfg["gradient_clipping"],
+                           gradient_accumulation_steps=gas, gradient_release=gradient_release,
+                           stochastic_rounding=True)
+    trainable = list(state.trainable.values())
+    start = [p.detach().clone() for p in trainable]
+    n_bf16 = sum(int(p.dtype == torch.bfloat16) for p in trainable)
+    opt_times = _timed_optimizer(state, device)
+    reset_launch_counts()
+    step_times, losses = [], []
+    for _ in range(OPT_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        losses.append(step(state, batch, gen)["loss"].item())
+        _sync(device)
+        step_times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    changed = [not torch.equal(p, p0) for p, p0 in zip(trainable, start)]
+    matrices = [c for c, p in zip(changed, trainable) if p.dim() >= 2]
+    k4 = counts["sr_add"] / OPT_STEPS
+    row = dict(optimizer=name, lr=cfg["optimizer"]["lr"], losses=losses, step_s=step_times,
+               optimizer_s=opt_times, tensors=len(trainable), tensors_moved=sum(changed),
+               matrices=len(matrices), matrices_moved=sum(matrices), k4_per_step=k4,
+               bf16_tensors=n_bf16)
+    check(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss {losses}")
+    # every matrix; a vector may not (adafactor and genericoptim's factored
+    # or subset-norm moments step a vector by lr * g, as the JAX package)
+    check(all(matrices), f"{name}: {len(matrices) - sum(matrices)} matrices did not move")
+    on_cuda = torch.device(device).type == "cuda"
+    check(not on_cuda or k4 == n_bf16 * (gas if gradient_release else 1),
+          f"{name}: {k4} K4 launches a step")
+    del pipeline, state, step, batch, start
+    _free(device)
+    return row, counts
+
+
+def phase_optimizers(model=None, lora_model=None, **slice_kw):
+    """Wan2.1-1.3B t2v at full width, cut to OPT_DEPTH of its 30 blocks,
+    full fine-tuning in bf16 with stochastic rounding (clip 1.0, "full"
+    checkpointing, 21,504 tokens): OPT_STEPS steps of each optimizer in
+    OPTIMIZER_CASES (genericoptim: subset-norm, rank 128, SVD projector
+    refreshed at steps 1 and 2, inside the timed steps), then adamw8bit
+    LoRA r32 with gradient_release at GAS 2 (bf16 factors, stochastic
+    rounding: K4 once a factor a micro-batch). Each: finite losses, every
+    matrix moved (and the count of all tensors that did), step and
+    optimizer times, K4 launches a step."""
+    rows, total = [], {}
+    model = model or {**WAN_SLICE_CONFIG["model"], "num_layers": OPT_DEPTH}
+    lora_model = lora_model or {**WAN_LORA_CONFIG["model"], "num_layers": OPT_DEPTH}
+    for name, extra in OPTIMIZER_CASES:
+        cfg = {**WAN_SLICE_CONFIG, "model": model,
+               "optimizer": {"type": name, "weight_decay": 0.01, "stochastic_rounding": True,
+                             **extra}}
+        row, counts = _optimizer_case(name, cfg, **slice_kw)
+        rows.append(row)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    cfg = {**WAN_LORA_CONFIG, "model": lora_model, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "adamw8bit", "lr": 1e-4, "gradient_release": True,
+                         "stochastic_rounding": True}}
+    row, counts = _optimizer_case("adamw8bit-gradient-release", cfg, gas=2,
+                                  gradient_release=True, batch_size=2, **slice_kw)
+    rows.append(row)
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    emit(phase="optimizers", cell="wan-1.3b-t2v-fullft-sr-4-blocks", blocks=OPT_DEPTH,
+         cut="4 of 30 blocks, to keep the smoke's time", tokens_per_sample=21504, rows=rows)
+    return total
+
+
+SAMPLE_STEPS = 20
+
+
+def _two_block_flux_pipeline(dtype, device, txt_len=64):
+    """The Flux pipeline with a full-width FluxTransformer of one double and
+    one single block in `dtype` on `device` (random weights: load them)."""
+    import dataclasses
+
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.flux_model import FluxTransformer
+
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = {**SLICE_CONFIG, "model": {**SLICE_CONFIG["model"], "dtype": name},
+           "activation_checkpointing": False}
+    pipeline = get_model_class("flux")(cfg, device=device)
+    pipeline.flux_config = dataclasses.replace(pipeline.flux_config, num_layers=1,
+                                               num_single_layers=1)
+    with torch.device(device):
+        pipeline.model = FluxTransformer(pipeline.flux_config)
+    return pipeline
+
+
+def phase_sample():
+    """The Euler flow sampler through the training forward (no graph, no
+    checkpoint): Flux-dev LoRA at full width and depth, bf16, 512 px, 20
+    steps, batch 1 (seconds; 20 x 57 K1 launches, no K2 or K3); a
+    full-width two-block Flux, 128 px, 4 steps, on the card in bf16
+    against the same weights and noise in f32 on the CPU (relative L2
+    within 3e-2, as the reference phase holds a forward); Wan2.1-1.3B at
+    81 frames and 512 px (21 x 64 x 64 latents), 4 steps (seconds, 4 x 60
+    K1)."""
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.layers import init_module_weights
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pipe = get_model_class("flux")(SLICE_CONFIG, device="cuda")
+    pipe.init_params(gen)
+    fc = pipe.flux_config
+    t5 = torch.randn((1, 512, fc.joint_attention_dim), generator=gen, device="cuda").to(fc.dtype)
+    clip = torch.randn((1, fc.pooled_projection_dim), generator=gen, device="cuda").to(fc.dtype)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = pipe.sample(t5, clip, 512, 512, generator=gen, num_steps=SAMPLE_STEPS)
+    torch.cuda.synchronize()
+    out["flux_512_s"] = time.perf_counter() - t0
+    flux_counts = launch_counts()
+    out["flux_launches"] = flux_counts
+    blocks = fc.num_layers + fc.num_single_layers
+    check(tuple(lat.shape) == (1, 16, 64, 64) and bool(torch.isfinite(lat).all()),
+          f"Flux sample {tuple(lat.shape)}, finite {bool(torch.isfinite(lat).all())}")
+    check(flux_counts["flash_fwd"] == SAMPLE_STEPS * blocks and flux_counts["flash_bwd_dq"] == 0
+          and flux_counts["flash_bwd_dkv"] == 0, f"Flux sample launches {flux_counts}")
+    del pipe, t5, clip, lat
+    _free()
+
+    # the weights drawn on the card (a CPU draw of 550M takes 40 s), in f32
+    f32 = _two_block_flux_pipeline(torch.float32, "cuda")
+    init_module_weights(f32.model, torch.Generator(device="cuda").manual_seed(SEED))
+    cpu = _two_block_flux_pipeline(torch.float32, "cpu")
+    cpu.model.load_state_dict(f32.model.state_dict())
+    card = _two_block_flux_pipeline(torch.bfloat16, "cuda")
+    card.model.load_state_dict(f32.model.state_dict())
+    del f32
+    g = torch.Generator().manual_seed(SEED + 1)
+    t5 = torch.randn((1, 64, 4096), generator=g)
+    clip = torch.randn((1, 768), generator=g)
+    noise = torch.randn((1, 16, 16, 16), generator=g)
+    ref = cpu.sample(t5, clip, 128, 128, num_steps=4, noise=noise)
+    got = card.sample(t5.cuda(), clip.cuda(), 128, 128, num_steps=4, noise=noise.cuda())
+    out["two_block_rel_l2"] = _rel(got.float().cpu(), ref)
+    check(out["two_block_rel_l2"] < 3e-2, f"two-block sample rel L2 {out['two_block_rel_l2']}")
+    del cpu, card
+    _free()
+
+    pipe = get_model_class("wan")(WAN_LORA_CONFIG, device="cuda")
+    pipe.init_params(gen)
+    wc = pipe.wan_config
+    text = torch.randn((1, 512, wc.text_dim), generator=gen, device="cuda")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = pipe.sample(width=512, height=512, generator=gen, num_steps=4, num_frames=81,
+                      text_embeddings=text)
+    torch.cuda.synchronize()
+    out["wan_81x512_4_steps_s"] = time.perf_counter() - t0
+    wan_counts = launch_counts()
+    out["wan_launches"] = wan_counts
+    check(tuple(lat.shape) == (1, 16, 21, 64, 64) and bool(torch.isfinite(lat).all()),
+          f"Wan sample {tuple(lat.shape)}")
+    check(wan_counts["flash_fwd"] == 4 * 2 * wc.num_layers and wan_counts["flash_bwd_dq"] == 0,
+          f"Wan sample launches {wan_counts}")
+    del pipe, text, lat
+    _free()
+    emit(phase="sample", flux_steps=SAMPLE_STEPS, **out)
+    return {k: flux_counts[k] + wan_counts[k] for k in flux_counts}
 
 
 def nvidia_smi_line():
@@ -1982,6 +2429,10 @@ def main():
         phase="slice-fp8-int8", cell="flux-dev-lora-512-fp8-int8", cfg=FP8_INT8_CONFIG,
         bf16_peak=bf16_peak, attn_vs_true=True)
     _free()
+    lokr_counts, *_ = phase_slice(phase="slice-flux-lokr", cell="flux-dev-lokr-512-fp8-int8",
+                                  cfg=LOKR_CONFIG, every_moved=True)
+    _free()
+    sample_counts = phase_sample()
     vae_dir = phase_vae()
     _free()
     driver_counts = phase_driver(vae_dir, fp8_step_s)
@@ -2003,9 +2454,13 @@ def main():
     ti2v_counts, *_ = phase_slice_wan(phase="slice-wan-ti2v", cell="wan-ti2v-5b-lora-attn",
                                       cfg=_variant_config("ti2v-5b"), latent_fhw=(31, 44, 80))
     _free()
+    phase_slice_wan_policies()
+    optimizer_counts = phase_optimizers()
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
-            "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts}
+            "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
+            "launches_flux_lokr": lokr_counts, "launches_sample": sample_counts,
+            "launches_optimizers": optimizer_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more))
     print(card)

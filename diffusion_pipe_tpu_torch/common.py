@@ -7,6 +7,7 @@ PyTorch counterpart of diffusion_pipe_tpu/common.py.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time
 from typing import Optional, Union
@@ -102,3 +103,16 @@ def first_not_none(*vals):
         if v is not None:
             return v
     return None
+
+
+@functools.lru_cache(maxsize=1024)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return torch.tensor(x, dtype=torch.float64).to(dtype).item()
+
+
+def weak_scalar(x: float, like: torch.Tensor) -> float:
+    """x rounded to like's dtype, as a Python float: how jnp meets a weakly
+    typed Python scalar. torch computes a bf16 op with a scalar in f32,
+    where the rounded value is exact, so the result is jnp's. (A 0-dim
+    tensor made on the card from a host value would wait for the stream.)"""
+    return _rounded(float(x), like.dtype)

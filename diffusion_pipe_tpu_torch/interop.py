@@ -9,9 +9,11 @@ function:
 - a Dense `kernel` [in, out] becomes `weight` [out, in]; the Conv3d
   `kernel` [kt, kh, kw, in, out] (Wan's patch embedding) becomes `weight`
   [out, in, kt, kh, kw];
-- `bias`, `lora_a` [in, rank], `lora_b` [rank, out], RMSNorm `scale`,
-  `kernel_scale` [out] and the other parameters keep their names and layout
-  (lora_a stays stored unshifted);
+- `bias`, `lora_a` [in, rank], `lora_b` [rank, out], the LoKr factors
+  `lokr_w1` [in_m, out_m], `lokr_w2` [in_n, out_n], `lokr_w2_a` [in_n,
+  rank] and `lokr_w2_b` [rank, out_n], RMSNorm `scale`, `kernel_scale`
+  [out] and the other parameters keep their names and layout (lora_a and
+  the LoKr w2 factors stay stored unshifted);
 - float8 and int8 leaves cross by their bits: an int8 `kernel` [in, out]
   (pre-quantized) becomes an int8 `weight` [out, in], an ml_dtypes
   float8_e4m3fn array a torch.float8_e4m3fn tensor;
@@ -49,13 +51,30 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield path, val
 
 
+# a Dense kernel [in, out] -> weight [out, in]; the Conv3d kernel [kt, kh,
+# kw, in, out] -> weight [out, in, kt, kh, kw]
+_KERNEL_TO_WEIGHT = {2: (1, 0), 5: (4, 3, 0, 1, 2)}
+
+
 def _leaf(path, arr) -> tuple:
     name = path[-1]
     if name == "kernel" and arr.ndim == 5:  # Conv3d
-        return "weight", np.transpose(arr, (4, 3, 0, 1, 2))
+        return "weight", np.transpose(arr, _KERNEL_TO_WEIGHT[5])
     if name == "kernel":
         return "weight", np.swapaxes(arr, -1, -2)
     return name, arr
+
+
+def jax_layout(name: str, ndim: int) -> Optional[tuple]:
+    """The permutation that lays the port's parameter `name` (a Flux or Wan
+    state_dict key, of rank ndim) out as the JAX package's leaf: the inverse
+    of the one jax_to_state_dict gives a `kernel`, which is what every
+    `weight` of these models comes from. None for the leaves that keep
+    their layout."""
+    if name.rsplit(".", 1)[-1] != "weight" or ndim not in _KERNEL_TO_WEIGHT:
+        return None
+    perm = _KERNEL_TO_WEIGHT[ndim]
+    return tuple(perm.index(i) for i in range(ndim))
 
 
 # ml_dtypes' float8 arrays: torch.from_numpy takes none, so they cross as bytes

@@ -8,7 +8,8 @@ diffusers/BFL weight loading, the VAE and text-encoder functions of the
 caching phase (each builds its model at its first call), and the
 diffusers-lora adapter export and import. The noise and t come from a
 torch.Generator, or are passed in as tensors (the tests feed the JAX
-package's draws). Sampling (`--test_sample`) is not ported yet.
+package's draws). `sample` is the Euler flow sampler of `--test_sample`
+through the training forward.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..common import dtype_from_string
 from . import register_model
 from .base import BasePipeline
 from .flux_model import FluxConfig, FluxTransformer
-from .layers import block_kernel_kwargs, init_module_weights, remat_spec
+from .layers import adapter_kwargs, block_kernel_kwargs, init_module_weights, remat_spec
 from ..training.flow import TimestepDistribution, sample_timesteps
 
 
@@ -32,6 +33,13 @@ def pack_latents(x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3, 5)
     return x.reshape(b, (h // 2) * (w // 2), c * 4)
+
+
+def unpack_latents(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, (h/2)(w/2), C*4] -> [B, C, h, w], the inverse of pack_latents."""
+    b, _, c4 = x.shape
+    x = x.reshape(b, h // 2, w // 2, c4 // 4, 2, 2).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(b, c4 // 4, h, w)
 
 
 def latent_image_ids(h_half: int, w_half: int, modality: int = 0,
@@ -77,8 +85,8 @@ class FluxPipeline(BasePipeline):
     def __init__(self, config: Dict[str, Any], device=None):
         super().__init__(config, device)
         mc = self.model_config
-        if mc.get("bypass_guidance_embedding"):
-            raise NotImplementedError("model.bypass_guidance_embedding is not ported yet")
+        # FLEX trains with the guidance embedder silenced, its weights kept
+        self._bypass_guidance = bool(mc.get("bypass_guidance_embedding", False))
         if int(config.get("blocks_to_swap", 0) or 0) > 0:
             raise NotImplementedError("blocks_to_swap is not ported yet")
         self.tdist = TimestepDistribution.from_model_config(mc)
@@ -89,7 +97,6 @@ class FluxPipeline(BasePipeline):
 
     def _build_flux_config(self) -> FluxConfig:
         mc = self.model_config
-        adapter = self.config.get("adapter", {})
         dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
         kwargs: Dict[str, Any] = dict(
             dtype=dtype,
@@ -98,15 +105,7 @@ class FluxPipeline(BasePipeline):
             remat=remat_spec(self.config),
             **block_kernel_kwargs(mc),
         )
-        if adapter.get("type") == "lora":
-            kwargs.update(
-                lora_rank=int(adapter["rank"]),
-                lora_alpha=float(adapter["alpha"]),
-                lora_dropout=float(adapter.get("dropout", 0.0)),
-                lora_dtype=dtype_from_string(adapter.get("dtype", mc.get("dtype", "bfloat16"))),
-            )
-        elif adapter:
-            raise NotImplementedError(f"adapter type {adapter.get('type')!r} is not ported yet")
+        kwargs.update(adapter_kwargs(self.config, mc.get("dtype", "bfloat16")))
         if mc.get("_tiny", False):  # test hook
             return FluxConfig.tiny(**kwargs)
         return FluxConfig(**kwargs)
@@ -166,14 +165,61 @@ class FluxPipeline(BasePipeline):
             timestep=t,
             img_ids=img_ids,
             txt_ids=txt_ids,
-            guidance=guidance if self.flux_config.guidance_embeds else None,
+            guidance=self._guidance(guidance),
             txt_mask=None if txt_mask is None else txt_mask.to(self.device),
             img_seq_len=image_seq_len,
         )
         return model_inputs, target, mask
 
+    def _guidance(self, guidance):
+        """The guidance vector, or None without a guidance embedder or
+        under model.bypass_guidance_embedding."""
+        if self.flux_config.guidance_embeds and not self._bypass_guidance:
+            return guidance
+        return None
+
     def forward(self, model_inputs):
         return self.model(**model_inputs)
+
+    @torch.no_grad()
+    def sample(self, t5_embed, clip_embed, width: int, height: int, generator=None,
+               num_steps: int = 20, guidance_scale: float = 1.0, uncond_embeds=None,
+               noise: Optional[torch.Tensor] = None, **_unused):
+        """Euler flow sampling through the training forward: latents [B, 16,
+        height/8, width/8] f32 from `noise` or the generator's N(0, 1),
+        model.shift as the sigmas' shift (none by default), the config's
+        guidance vector; uncond_embeds ({t5_embed, clip_embed}) with
+        guidance_scale for classifier-free guidance."""
+        from ..training.sampling import euler_flow_sample
+
+        dtype = self.flux_config.dtype
+        b = t5_embed.shape[0]
+        h, w = height // 8, width // 8
+        img_ids = latent_image_ids(h // 2, w // 2, device=self.device)
+        txt_ids = torch.zeros((t5_embed.shape[1], 3), dtype=torch.float32, device=self.device)
+        guidance = self._guidance(torch.full((b,), float(self.model_config.get("guidance", 1.0)),
+                                             dtype=torch.float32, device=self.device))
+
+        def vel(embeds, pooled):
+            embeds = embeds.to(self.device, dtype)
+            pooled = pooled.to(self.device, dtype)
+
+            def fn(x, t):
+                out = self.forward(dict(
+                    hidden_states=pack_latents(x).to(dtype), encoder_hidden_states=embeds,
+                    pooled_projections=pooled, timestep=t, img_ids=img_ids, txt_ids=txt_ids,
+                    guidance=guidance, txt_mask=None, img_seq_len=(h // 2) * (w // 2)))
+                return unpack_latents(out.float(), h, w)
+
+            return fn
+
+        uncond = None
+        if uncond_embeds is not None:
+            uncond = vel(uncond_embeds["t5_embed"], uncond_embeds["clip_embed"])
+        return euler_flow_sample(vel(t5_embed, clip_embed), (b, 16, h, w), generator,
+                                 num_steps=num_steps, guidance_scale=guidance_scale,
+                                 uncond_velocity_fn=uncond, shift=self.model_config.get("shift"),
+                                 noise=noise, device=self.device)
 
     # --- pretrained weights -------------------------------------------------
 

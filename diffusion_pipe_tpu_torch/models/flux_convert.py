@@ -11,7 +11,8 @@ torch's [out, in] layout, so a diffusers checkpoint maps by name alone:
 with the block maps below, and the top-level embedders, norm_out.linear ->
 norm_out_linear and proj_out. An exported adapter holds, for every LoRA
 linear, transformer.<diffusers path>.lora_A.weight [r, in] and
-.lora_B.weight [r, out]^T = [out, r] in f32: the same keys and bits as the
+.lora_B.weight [r, out]^T = [out, r] in f32 (LoKr: .lokr_w1 and .lokr_w2 or
+.lokr_w2_a / .lokr_w2_b, each transposed): the same keys and bits as the
 JAX package's export of the same factors.
 """
 
@@ -103,15 +104,19 @@ def convert_diffusers_flux(sd: Mapping[str, torch.Tensor],
     return out
 
 
-# LoRA factors: ours ([in, r] / [r, out]) -> diffusers-lora (transposed)
-_LORA_LEAVES = {"lora_a": "lora_A.weight", "lora_b": "lora_B.weight"}
+# adapter factors: ours (the Flax layouts, e.g. [in, r] / [r, out]) ->
+# diffusers-lora names, transposed; the LoKr factors keep their names
+# (PEFT LoKrLayer's, torch [out, in] orientation)
+_LORA_LEAVES = {"lora_a": "lora_A.weight", "lora_b": "lora_B.weight",
+                **{k: k for k in ("lokr_w1", "lokr_w2", "lokr_w2_a", "lokr_w2_b")}}
 
 
 def export_lora_diffusers(trainable: Mapping[str, torch.Tensor],
                           config: FluxConfig) -> Dict[str, torch.Tensor]:
     """The trainable adapter factors (port names) -> a diffusers-lora state
     dict: transformer.<diffusers path>.lora_A.weight (our lora_a [in, r]
-    transposed) and .lora_B.weight (lora_b [r, out] transposed), f32."""
+    transposed) and .lora_B.weight (lora_b [r, out] transposed), or the LoKr
+    factors .lokr_w1 / .lokr_w2 / .lokr_w2_a / .lokr_w2_b transposed, f32."""
     out: Dict[str, torch.Tensor] = {}
     for ours_p, theirs_p, lin_map, _ in _block_groups(config):
         for ours, theirs in lin_map.items():

@@ -1,4 +1,6 @@
-"""Shared building blocks: LoRA-aware linear, norms, embeddings, RoPE.
+"""Shared building blocks: the adapter-aware linear (LoRA, LoKr, adapter
+dropout), norms, embeddings, RoPE and the activation-checkpointing
+policies.
 
 Counterpart of diffusion_pipe_tpu/models/layers.py (the parts the Flux
 and Wan slices use), plus Wan's patch embedding. Parameter names follow the JAX package so interop.py maps one
@@ -11,6 +13,9 @@ onto the other:
 - lora_a is STORED uniform in [0, 2*bound) and shifted by -bound in the
   forward, as in the JAX package: weight decay acts on the stored value, so
   the stored convention decides the training trajectory.
+- LoKr: lokr_w1 [in_m, out_m], lokr_w2 [in_n, out_n] or lokr_w2_a [in_n,
+  rank] and lokr_w2_b [rank, out_n], the Flax layouts, the w2 factors
+  stored unshifted like lora_a.
 - RMSNorm.scale [dim].
 - PatchEmbed3d.weight is torch's Conv3d layout [out, in, kt, kh, kw] (the
   Flax Conv `kernel` [kt, kh, kw, in, out] transposed).
@@ -28,7 +33,10 @@ one a per-column reduction.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import types
 from collections import deque
 from typing import Optional, Sequence, Tuple
 
@@ -37,9 +45,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common import dtype_from_string
+from ..common import dtype_from_string, weak_scalar
 from ..ops import flash_attention as fa
 from ..ops.int8_quant import int_mm, quant_rows, rescale_i32
+from ..ops.offload import HostQueue
 
 # Flax's lecun_normal draws a normal truncated to [-2, 2] and rescales it by
 # this constant so the result has the requested variance.
@@ -98,6 +107,10 @@ class _Int8Dot(torch.autograd.Function):
     cotangent, trainable weight or not, as in the JAX package."""
 
     @staticmethod
+    def residuals(x, w):
+        return (w,)
+
+    @staticmethod
     def forward(ctx, x, w):
         w8, w_scale = quantize_kernel_int8(w)
         ctx.save_for_backward(w)
@@ -130,6 +143,10 @@ class _Int8PqDot(torch.autograd.Function):
     """int8_pq_dot: W8A8 product against a pre-quantized weight (w8 [out,
     in] int8, w_scale [out] f32). The dgrad is (g * w_scale) in bf16 times
     w8 in bf16, summed in f32."""
+
+    @staticmethod
+    def residuals(x, w8, w_scale):
+        return (w8, w_scale)
 
     @staticmethod
     def forward(ctx, x, w8, w_scale):
@@ -180,46 +197,308 @@ int8_pq_dot = _Int8PqDot.apply
 int8_pq_dot_bwd8 = _Int8PqDotBwd8.apply
 
 
-class LoraDense(nn.Module):
-    """y = x W^T + b + (alpha/rank) * (x (A - bound)) B, computed in `dtype`.
+# --- the products of a linear, and what the "dots" policies keep of them -----
 
-    A is stored uniform in [0, 2*bound), bound = sqrt(6/in) (kaiming-uniform
-    like PEFT once shifted), B zeros, so training starts at the base model.
-    rank=0 disables LoRA.
+
+def _rows(g: torch.Tensor, x: torch.Tensor):
+    return g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+
+
+class _Dense(torch.autograd.Function):
+    """x W^T + b for x [..., in], W [out, in] (F.linear), with its
+    gradients written out as autograd computes F.linear's (dx = g W, dW =
+    g^T x, db = the sum of g's rows), for the "dots" policies' kept
+    products."""
+
+    @staticmethod
+    def residuals(x, w, b):
+        return (x, w)
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return F.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        g2, x2 = _rows(g, x)
+        dx = (g2 @ w).reshape(x.shape) if need_x else None
+        dw = g2.t() @ x2 if need_w else None
+        db = g2.sum(0) if need_b else None
+        return dx, dw, db
+
+
+class _Matmul(torch.autograd.Function):
+    """x @ W for x [..., in], W [in, out] (the adapter factors' layout)."""
+
+    @staticmethod
+    def residuals(x, w):
+        return (x, w)
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad
+        g2, x2 = _rows(g, x)
+        dx = (g2 @ w.t()).reshape(x.shape) if need_x else None
+        dw = x2.t() @ g2 if need_w else None
+        return dx, dw
+
+
+_Dense.plain = staticmethod(F.linear)
+_Matmul.plain = staticmethod(torch.matmul)
+for _fn in (_Int8Dot, _Int8DotBwd8, _Int8PqDot, _Int8PqDotBwd8):
+    _fn.plain = _fn.apply
+
+
+class _Replayed(torch.autograd.Function):
+    """A product's output kept from the forward, in the recompute of a
+    "dots" block: no product runs, and it saves the residuals fn.forward
+    saved (the checkpoint hands them to the forward's fn nodes; its own
+    backward is fn's, for a graph built outside a checkpoint)."""
+
+    @staticmethod
+    def forward(ctx, fn, y, *inputs):
+        ctx.fn = fn
+        # the residuals the product's forward saves, in its order (the
+        # checkpoint compares the recompute's saved tensors with those)
+        ctx.save_for_backward(*fn.residuals(*inputs))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        view = types.SimpleNamespace(saved_tensors=ctx.saved_tensors,
+                                     needs_input_grad=ctx.needs_input_grad[2:])
+        return (None, None, *ctx.fn.backward(view, g))
+
+
+# products run since reset_product_count(): twice a product a step under
+# true or "attn" (forward and recompute), once under "dots" and "unsloth"
+product_count = 0
+
+
+def reset_product_count() -> None:
+    global product_count
+    product_count = 0
+
+
+def product(fn, *inputs):
+    """fn(*inputs) for a product Function (_Dense, _Matmul, the int8
+    linears). In a checkpointed block under "dots", "unsloth" or
+    "offload_dots", the forward runs fn.apply and keeps the output in the
+    checkpoint call's store (on the card, or in pinned host memory), and
+    the recompute takes it back instead of running the product again: the
+    forward's graph then holds fn's nodes, whose backward reads the
+    residuals _Replayed saves in the recompute. Elsewhere fn.plain runs,
+    the same forward with autograd's own backward (the same products: a
+    Function's Python cost, ~20 us a call, would add ~0.1 s a Wan step)."""
+    global product_count
+    mode, store = _remat_mode if _remat_mode is not None else (None, None)
+    keep = store is not None and store.products is not None
+    if keep and mode == "replay":
+        return _Replayed.apply(fn, store.products.popleft(), *inputs)
+    product_count += 1
+    if not keep:
+        return fn.plain(*inputs)
+    y = fn.apply(*inputs)
+    store.products.append(y.detach())
+    return y
+
+
+# --- adapter dropout ---------------------------------------------------------
+
+
+class KeepMasks:
+    """The keep masks of a training step's adapter dropout. Each draw is
+    named by a token, an int64 drawn from a CPU generator seeded with
+    `seed`; its mask is a uniform draw of a generator on the tensor's
+    device seeded with the token, kept where it is below the keep rate. A
+    recompute that has the token draws the same mask again."""
+
+    def __init__(self, seed: int):
+        self._gen = torch.Generator().manual_seed(int(seed))
+
+    def token(self) -> int:
+        return int(torch.randint(0, 2**62, (), generator=self._gen))
+
+    def mask(self, token, shape, keep: float, device) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed(token)
+        return torch.rand(shape, generator=gen, device=device) < keep
+
+
+class GivenMasks:
+    """Keep masks handed in (bool tensors), in the order the forward asks
+    for them: a LoKr linear's rank mask before its input mask, the linears
+    in the order they run. The tests feed the JAX package's masks so."""
+
+    def __init__(self, masks):
+        self.masks = list(masks)
+        self._next = 0
+
+    def token(self) -> int:
+        self._next += 1
+        return self._next - 1
+
+    def mask(self, token, shape, keep: float, device) -> torch.Tensor:
+        m = self.masks[token]
+        if tuple(m.shape) != tuple(shape):
+            raise ValueError(f"keep mask {token} has shape {tuple(m.shape)}, "
+                             f"the dropout needs {tuple(shape)}")
+        return m.to(device=device, dtype=torch.bool)
+
+
+_dropout_source = None
+
+
+@contextlib.contextmanager
+def adapter_dropout(source):
+    """Within: the adapters' dropout (LoRA `dropout`, LoKr `rank_dropout`)
+    draws its keep masks from `source` (KeepMasks or GivenMasks). Outside
+    (evaluation, sampling) the adapters run without dropout, as the JAX
+    LoraDense with deterministic = True."""
+    global _dropout_source
+    outer, _dropout_source = _dropout_source, source
+    try:
+        yield
+    finally:
+        _dropout_source = outer
+
+
+def _keep_mask(shape, rate: float, device) -> Optional[torch.Tensor]:
+    """The keep mask of one dropout, or None when no source is active. In a
+    checkpointed block the forward records (source, token) in the
+    checkpoint call's store and the recompute draws the same mask from it:
+    torch.utils.checkpoint replays the default generators' state only."""
+    mode, store = _remat_mode if _remat_mode is not None else (None, None)
+    if mode == "replay":
+        entry = store.masks.popleft()
+    else:
+        src = _dropout_source
+        entry = None if src is None else (src, src.token())
+        if store is not None:
+            store.masks.append(entry)
+    if entry is None:
+        return None
+    src, token = entry
+    return src.mask(token, shape, 1.0 - rate, device)
+
+
+def _dropout(h: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax nn.Dropout: where(keep, h / (1 - rate), 0)."""
+    keep = _keep_mask(h.shape, rate, h.device)
+    if keep is None:
+        return h
+    return torch.where(keep, h / weak_scalar(1.0 - rate, h), torch.zeros((), dtype=h.dtype,
+                                                                      device=h.device))
+
+
+def lokr_factorization(dim: int, factor: int = -1) -> Tuple[int, int]:
+    """Balanced two-factor split (m, n) of dim, m <= n, m * n == dim
+    (LyCORIS semantics, as the JAX package's): with factor > 0 dividing dim,
+    (factor, dim // factor) ordered; otherwise the most square divisor pair
+    with m <= factor (unbounded for factor < 0)."""
+    if factor > 0 and dim % factor == 0:
+        m, n = factor, dim // factor
+        return (m, n) if m <= n else (n, m)
+    cap = dim if factor < 0 else factor
+    m, n = 1, dim
+    cand = 1
+    while cand * cand <= dim:
+        if dim % cand == 0 and cand <= cap:
+            m, n = cand, dim // cand
+        cand += 1
+    return m, n
+
+
+class LoraDense(nn.Module):
+    """y = x W^T + b + delta(x), computed in `dtype`.
+
+    LoRA (lora_type "lora"): delta = (alpha/rank) * (drop(x) (A - bound)) B.
+    A is stored uniform in [0, 2*bound), bound = sqrt(6/in)
+    (kaiming-uniform like PEFT once shifted), B zeros, so training starts at
+    the base model. rank=0 disables the adapter.
+
+    LoKr (lora_type "lokr", LyCORIS / PEFT LoKrConfig): the weight delta is
+    kron(w1, w2) with in = in_m * in_n and out = out_m * out_n
+    (lokr_factorization with lokr_factor); w1 [in_m, out_m] starts at zero;
+    w2 [in_n, out_n] is w2_a [in_n, rank] @ w2_b [rank, out_n] when rank <
+    max(in_n, out_n), each stored uniform and shifted like A, scaled by
+    alpha/rank, with rank dropout on w2_a's columns; else a full w2, scale
+    1. The Kronecker product is never built: x as [..., in_m, in_n] times
+    w2, then times w1, two products in that order.
+
+    Dropout (LoRA `dropout` on the adapter's input, LoKr `rank_dropout`)
+    draws its masks only inside adapter_dropout(); every product goes
+    through product(), which the "dots" policies keep.
     """
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
                  lora_rank: int = 0, lora_alpha: float = 0.0,
                  lora_dropout: float = 0.0, lora_dtype=torch.float32,
-                 kernel_dtype=None, int8_matmul=False):
+                 kernel_dtype=None, int8_matmul=False, lora_type: str = "lora",
+                 lokr_factor: int = -1, lokr_rank_dropout: float = 0.0):
         super().__init__()
-        if lora_dropout > 0.0:
-            raise NotImplementedError("LoRA dropout is not ported yet")
         if int8_matmul not in (False, True, "fwd", "fwd_bwd"):
             raise ValueError(f"int8_matmul must be false, true, 'fwd' or 'fwd_bwd', "
                              f"not {int8_matmul!r}")
+        if lora_type not in ("lora", "lokr"):
+            raise ValueError(f"adapter type {lora_type!r}: expected 'lora' or 'lokr'")
         self.in_features = in_features
         self.features = features
         self.dtype = dtype
         self.lora_rank = lora_rank
+        self.lora_type = lora_type
+        self.lora_dropout = lora_dropout
         self.int8_matmul = int8_matmul
         # kernel_dtype: the storage dtype of the base weight alone (e.g. fp8)
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                dtype=kernel_dtype or param_dtype))
         self.bias = (nn.Parameter(torch.empty(features, dtype=param_dtype))
                      if use_bias else None)
-        if lora_rank > 0:
+        self.lora_a = self.lora_b = None
+        if lora_rank > 0 and lora_type == "lora":
             self.lora_bound = math.sqrt(6.0 / in_features)
             self.lora_scaling = lora_alpha / lora_rank
             self.lora_a = nn.Parameter(torch.empty(in_features, lora_rank, dtype=lora_dtype))
             self.lora_b = nn.Parameter(torch.empty(lora_rank, features, dtype=lora_dtype))
-        else:
-            self.lora_a = self.lora_b = None
+        elif lora_rank > 0:
+            self._init_lokr(lora_alpha, lora_dtype, lokr_factor, lokr_rank_dropout)
         # the int8 weight's per-output-channel scales, ones until
         # prequantize_int8_ writes the real ones
         self.kernel_scale = (nn.Parameter(torch.empty(features, dtype=torch.float32))
                              if int8_matmul else None)
+
+    def _init_lokr(self, alpha, lora_dtype, factor, rank_dropout):
+        r = self.lora_rank
+        self.lokr_in = lokr_factorization(self.in_features, factor)
+        self.lokr_out = lokr_factorization(self.features, factor)
+        (in_m, in_n), (out_m, out_n) = self.lokr_in, self.lokr_out
+        self.lokr_rank_dropout = rank_dropout
+        self.lokr_factored = r < max(in_n, out_n)
+        self.lokr_w1 = nn.Parameter(torch.empty(in_m, out_m, dtype=lora_dtype))
+        if self.lokr_factored:
+            self.lokr_bounds = (math.sqrt(6.0 / in_n), math.sqrt(6.0 / r))
+            self.lokr_scaling = alpha / r
+            self.lokr_w2_a = nn.Parameter(torch.empty(in_n, r, dtype=lora_dtype))
+            self.lokr_w2_b = nn.Parameter(torch.empty(r, out_n, dtype=lora_dtype))
+        else:
+            self.lokr_bounds = (math.sqrt(6.0 / in_n),)
+            self.lokr_scaling = 1.0
+            self.lokr_w2 = nn.Parameter(torch.empty(in_n, out_n, dtype=lora_dtype))
+
+    @staticmethod
+    def _uniform_(p, high, generator):
+        tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        tmp.uniform_(0.0, high, generator=generator)
+        p.copy_(tmp)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -227,11 +506,15 @@ class LoraDense(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
         if self.lora_a is not None:
-            tmp = torch.empty(self.lora_a.shape, dtype=torch.float32,
-                              device=self.lora_a.device)
-            tmp.uniform_(0.0, 2 * self.lora_bound, generator=generator)
-            self.lora_a.copy_(tmp)
+            self._uniform_(self.lora_a, 2 * self.lora_bound, generator)
             self.lora_b.zero_()
+        if self.lora_rank > 0 and self.lora_type == "lokr":
+            self.lokr_w1.zero_()
+            if self.lokr_factored:
+                self._uniform_(self.lokr_w2_a, 2 * self.lokr_bounds[0], generator)
+                self._uniform_(self.lokr_w2_b, 2 * self.lokr_bounds[1], generator)
+            else:
+                self._uniform_(self.lokr_w2, 2 * self.lokr_bounds[0], generator)
         if self.kernel_scale is not None:
             self.kernel_scale.fill_(1.0)
 
@@ -240,19 +523,48 @@ class LoraDense(nn.Module):
         if self.int8_matmul:
             fwd_bwd = self.int8_matmul == "fwd_bwd"
             if self.weight.is_floating_point():
-                y = (int8_dot_bwd8 if fwd_bwd else int8_dot)(h, self.weight)
+                y = product(_Int8DotBwd8 if fwd_bwd else _Int8Dot, h, self.weight)
             else:
-                y = (int8_pq_dot_bwd8 if fwd_bwd else int8_pq_dot)(
-                    h, self.weight, self.kernel_scale)
+                y = product(_Int8PqDotBwd8 if fwd_bwd else _Int8PqDot,
+                            h, self.weight, self.kernel_scale)
             if self.bias is not None:
                 y = y + self.bias.to(self.dtype)
         else:
             bias = None if self.bias is None else self.bias.to(self.dtype)
-            y = F.linear(h, self.weight.to(self.dtype), bias)
+            y = product(_Dense, h, self.weight.to(self.dtype), bias)
         if self.lora_a is not None:
+            if self.lora_dropout > 0.0:
+                h = _dropout(h, self.lora_dropout)
             a = (self.lora_a - self.lora_bound).to(self.dtype)
-            y = y + self.lora_scaling * ((h @ a) @ self.lora_b.to(self.dtype))
+            u = product(_Matmul, h, a)
+            y = y + self.lora_scaling * product(_Matmul, u, self.lora_b.to(self.dtype))
+        elif self.lora_rank > 0:
+            y = y + self._lokr_delta(h)
         return y
+
+    def _lokr_delta(self, h: torch.Tensor) -> torch.Tensor:
+        (in_m, in_n), (out_m, out_n) = self.lokr_in, self.lokr_out
+        if self.lokr_factored:
+            bound_a, bound_b = self.lokr_bounds
+            w2_a = self.lokr_w2_a - bound_a
+            w2_b = self.lokr_w2_b - bound_b
+            if self.lokr_rank_dropout > 0.0:
+                keep = _keep_mask((self.lora_rank,), self.lokr_rank_dropout, w2_a.device)
+                if keep is not None:
+                    w2_a = w2_a * (keep.to(w2_a.dtype)
+                                   / weak_scalar(1.0 - self.lokr_rank_dropout, w2_a))
+            w2 = product(_Matmul, w2_a.to(self.dtype), w2_b.to(self.dtype))
+        else:
+            w2 = (self.lokr_w2 - self.lokr_bounds[0]).to(self.dtype)
+        if self.lora_dropout > 0.0:
+            h = _dropout(h, self.lora_dropout)
+        lead = h.shape[:-1]
+        n = h[..., 0].numel()
+        t = product(_Matmul, h.reshape(n * in_m, in_n), w2)           # [n in_m, out_n]
+        t = t.reshape(n, in_m, out_n).transpose(1, 2).reshape(n * out_n, in_m)
+        d = product(_Matmul, t, self.lokr_w1.to(self.dtype))          # [n out_n, out_m]
+        d = d.reshape(n, out_n, out_m).transpose(1, 2).reshape(*lead, self.features)
+        return self.lokr_scaling * d
 
 
 class RMSNorm(nn.Module):
@@ -420,42 +732,110 @@ def block_kernel_kwargs(model_config) -> dict:
                 int8_matmul=model_config.get("int8_matmul", False))
 
 
-REMAT_SPECS = ("full", "attn")
+def adapter_kwargs(config, model_dtype: str) -> dict:
+    """The block linears' adapter kwargs from `[adapter]` (LoRA or LoKr:
+    rank, alpha, dropout, decompose_factor, rank_dropout, dtype), as the
+    JAX pipelines read them; {} without an adapter."""
+    adapter = config.get("adapter", {})
+    if not adapter:
+        return {}
+    if adapter.get("type") not in ("lora", "lokr"):
+        raise NotImplementedError(f"adapter type {adapter.get('type')!r} is not implemented")
+    return dict(
+        lora_rank=int(adapter["rank"]),
+        lora_type=adapter["type"],
+        lokr_factor=int(adapter.get("decompose_factor", -1)),
+        lokr_rank_dropout=float(adapter.get("rank_dropout", 0.0)),
+        lora_alpha=float(adapter["alpha"]),
+        lora_dropout=float(adapter.get("dropout", 0.0)),
+        lora_dtype=dtype_from_string(adapter.get("dtype", model_dtype)),
+    )
+
+
+REMAT_SPECS = ("full", "attn", "dots", "offload_attn", "unsloth", "offload_dots")
+# what each policy keeps from a checkpointed block's forward for its
+# recompute: the flash forwards' (O, LSE), every product's output, and
+# whether those wait in pinned host memory
+_KEEPS = {
+    "full": (False, False, False),
+    "attn": (True, False, False),
+    "dots": (False, True, False),
+    "offload_attn": (True, False, True),
+    "unsloth": (False, True, True),
+    "offload_dots": (False, True, True),
+}
 
 
 def remat_spec(config) -> str:
-    """`activation_checkpointing` as a remat spec: "" (off), "full" (each
-    block's forward is recomputed in the backward) or "attn" (the same, but
-    the flash-attention forward's O and LSE are saved, so the backward never
-    re-runs K1). The JAX package's "dots", "offload_attn", "unsloth" and
-    "offload_dots" are not ported yet."""
+    """`activation_checkpointing` as a remat spec: "" (off), or the policy
+    under which each block's forward is recomputed in the backward:
+    - "full" (true): nothing kept, everything recomputed;
+    - "attn": the flash forwards' O and LSE kept, so K1 never runs again;
+    - "dots": every product's output kept (the JAX package's
+      dots_with_no_batch_dims_saveable), so the recompute runs no GEMM;
+    - "offload_attn": "attn" with O and LSE in pinned host memory;
+    - "unsloth" / "offload_dots": "dots" with the outputs in pinned host
+      memory.
+    `activation_checkpointing = true` reads `remat_policy` (default full)."""
     ac = config.get("activation_checkpointing", False)
     if not ac:
         return ""
     spec = str(config.get("remat_policy", "full")) if ac is True else str(ac)
     if spec not in REMAT_SPECS:
-        raise NotImplementedError(
-            f"activation_checkpointing {spec!r} is not ported yet; use true or 'attn'"
-        )
+        raise ValueError(f"unknown activation_checkpointing / remat_policy {spec!r}; "
+                         f"expected true or one of {REMAT_SPECS[1:]}")
     return spec
 
 
-def _attn_context():
-    """The "attn" policy, jax.checkpoint_policies.save_only_these_names(
-    "flash_out"): the forward records each flash forward's O and LSE in a
-    store of its own checkpoint call (so GAS's several forwards before one
-    backward keep theirs apart), the recompute takes them back instead of
-    launching K1, and the store goes with the call's backward."""
-    store = deque()
-    return fa.record_forwards(store), fa.replay_forwards(store)
+class RematStore:
+    """What one checkpoint call keeps between its forward and its
+    recompute, each a FIFO in the order the forward made it: the dropout
+    masks' (source, token) always; the flash forwards' (O, LSE) under the
+    "attn" policies; the products' outputs under the "dots" ones. Each
+    checkpoint call has its own, so the several forwards of gradient
+    accumulation keep theirs apart; it goes with the call's backward."""
+
+    def __init__(self, spec: str):
+        flash, products, offload = _KEEPS[spec]
+        queue = HostQueue if offload else deque
+        self.masks = deque()
+        self.flash = queue() if flash else None
+        self.products = queue() if products else None
+
+
+# (mode, store) while a checkpointed block runs: "record" in its forward,
+# "replay" in its recompute. A plain global, as flash_attention's: the
+# recompute runs on autograd's device thread.
+_remat_mode = None
+
+
+@contextlib.contextmanager
+def _store_mode(mode: str, store: RematStore):
+    global _remat_mode
+    outer, _remat_mode = _remat_mode, (mode, store)
+    try:
+        if store.flash is None:
+            yield
+        else:
+            keep = fa.record_forwards if mode == "record" else fa.replay_forwards
+            with keep(store.flash):
+                yield
+    finally:
+        _remat_mode = outer
+
+
+def _remat_context(spec: str):
+    store = RematStore(spec)
+    return _store_mode("record", store), _store_mode("replay", store)
 
 
 def remat_call(spec: str, block, *args):
     """block(*args) under torch.utils.checkpoint with the remat spec's
-    policy ("full" or "attn")."""
-    if spec == "attn":
-        return checkpoint(block, *args, use_reentrant=False, context_fn=_attn_context)
-    return checkpoint(block, *args, use_reentrant=False)
+    policy, through a per-call RematStore behind context_fn (not torch's
+    dispatch-mode selective checkpointing, whose per-op hooks cost the host
+    0.4-0.8 s a Flux step)."""
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=functools.partial(_remat_context, spec))
 
 
 def init_module_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -46,7 +46,7 @@ from ..training.flow import TimestepDistribution, sample_timesteps
 from . import register_model
 from .base import BasePipeline
 from .flux import resize_mask_to_latents
-from .layers import block_kernel_kwargs, init_module_weights, remat_spec
+from .layers import adapter_kwargs, block_kernel_kwargs, init_module_weights, remat_spec
 from .wan_model import WanConfig, WanTransformer
 
 WAN_VARIANTS = {
@@ -135,20 +135,11 @@ class WanPipeline(BasePipeline):
 
     def _build_wan_config(self) -> WanConfig:
         mc = self.model_config
-        adapter = self.config.get("adapter", {})
         dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
         kwargs: Dict[str, Any] = dict(dtype=dtype, param_dtype=dtype,
                                       remat=remat_spec(self.config),
                                       **block_kernel_kwargs(mc))
-        if adapter.get("type") == "lora":
-            kwargs.update(
-                lora_rank=int(adapter["rank"]),
-                lora_alpha=float(adapter["alpha"]),
-                lora_dropout=float(adapter.get("dropout", 0.0)),
-                lora_dtype=dtype_from_string(adapter.get("dtype", mc.get("dtype", "bfloat16"))),
-            )
-        elif adapter:
-            raise NotImplementedError(f"adapter type {adapter.get('type')!r} is not ported yet")
+        kwargs.update(adapter_kwargs(self.config, mc.get("dtype", "bfloat16")))
         if mc.get("_tiny", False):  # test hook
             vt = mc.get("variant_type", "t2v")
             return WanConfig.tiny(model_type=vt, in_dim=_TINY_IN_DIM.get(vt, 16),
@@ -292,6 +283,34 @@ class WanPipeline(BasePipeline):
 
     def forward(self, model_inputs):
         return self.model(**model_inputs)
+
+    @torch.no_grad()
+    def sample(self, width: int, height: int, generator=None, num_steps: int = 20,
+               guidance_scale: float = 1.0, num_frames: int = 1,
+               noise: Optional[torch.Tensor] = None, **embeds):
+        """Euler flow sampling through the training forward (t2v, as the JAX
+        package's: 16 latent channels, no image conditioning): latents [B,
+        16, 1 + (num_frames-1)//4, height/8, width/8] f32 from `noise` or the
+        generator's N(0, 1), text_embeddings zero-padded to text_len, sigmas
+        shifted by model.shift (3.0 by default)."""
+        from ..training.sampling import euler_flow_sample
+
+        cfg = self.wan_config
+        ctx = embeds["text_embeddings"].to(self.device, torch.float32)
+        pad = cfg.text_len - ctx.shape[1]
+        if pad > 0:
+            ctx = torch.nn.functional.pad(ctx, (0, 0, 0, pad))
+        b = ctx.shape[0]
+        f = max(1, (int(num_frames) - 1) // 4 + 1)
+
+        def vel(x, t):
+            return self.forward(dict(x=x.to(cfg.dtype), t=t * 1000.0, context=ctx,
+                                     clip_fea=None))
+
+        return euler_flow_sample(vel, (b, 16, f, height // 8, width // 8), generator,
+                                 num_steps=num_steps, guidance_scale=guidance_scale,
+                                 shift=self.model_config.get("shift", 3.0), noise=noise,
+                                 device=self.device)
 
     # --- caching encoders -----------------------------------------------------
 
@@ -479,6 +498,7 @@ _BLOCK_LINEARS = {
     "ffn_in": "ffn.0",
     "ffn_out": "ffn.2",
 }
+_LOKR_LEAVES = ("lokr_w1", "lokr_w2", "lokr_w2_a", "lokr_w2_b")
 _BLOCK_I2V_LINEARS = {"cross_attn_k_img": "cross_attn.k_img",
                       "cross_attn_v_img": "cross_attn.v_img"}
 _BLOCK_RMS = {
@@ -556,19 +576,26 @@ def export_wan_model(state_dict: Mapping[str, torch.Tensor],
 
 def export_wan_lora_comfyui(trainable: Mapping[str, torch.Tensor],
                             cfg: WanConfig) -> Dict[str, torch.Tensor]:
-    """LoRA factors (port names) -> ComfyUI keys
+    """Adapter factors (port names) -> ComfyUI keys
     diffusion_model.blocks.N.<official module>.lora_A.weight (lora_a [in, r]
-    transposed) and .lora_B.weight (lora_b [r, out] transposed), f32, in
-    the JAX export's order."""
+    transposed) and .lora_B.weight (lora_b [r, out] transposed), or the LoKr
+    factors .lokr_w1 / .lokr_w2 / .lokr_w2_a / .lokr_w2_b (PEFT's names,
+    transposed), f32, in the JAX export's order."""
     lin, _ = _block_maps(cfg)
     out: Dict[str, torch.Tensor] = {}
+
+    def put(dst, src):
+        out[dst] = trainable[src].detach().float().t().contiguous().cpu()
+
     for ours, theirs in lin.items():
         for i in range(cfg.num_layers):
             key = f"blocks.{i}.{ours}"
-            if f"{key}.lora_a" not in trainable:
-                continue
-            dst = f"diffusion_model.blocks.{i}.{theirs}"
-            for leaf, their_leaf in (("lora_a", "lora_A"), ("lora_b", "lora_B")):
-                out[f"{dst}.{their_leaf}.weight"] = (
-                    trainable[f"{key}.{leaf}"].detach().float().t().contiguous().cpu())
+            if f"{key}.lora_a" in trainable:
+                dst = f"diffusion_model.blocks.{i}.{theirs}"
+                put(f"{dst}.lora_A.weight", f"{key}.lora_a")
+                put(f"{dst}.lora_B.weight", f"{key}.lora_b")
+        for leaf in _LOKR_LEAVES:
+            for i in range(cfg.num_layers):
+                if f"blocks.{i}.{ours}.{leaf}" in trainable:
+                    put(f"diffusion_model.blocks.{i}.{theirs}.{leaf}", f"blocks.{i}.{ours}.{leaf}")
     return out

@@ -69,6 +69,10 @@ class WanConfig:
     lora_alpha: float = 0.0
     lora_dropout: float = 0.0
     lora_dtype: torch.dtype = torch.float32
+    # "lora" or "lokr" (with the LoKr decompose_factor and rank_dropout)
+    lora_type: str = "lora"
+    lokr_factor: int = -1
+    lokr_rank_dropout: float = 0.0
     remat: str = ""
     # the block linears' base weights: storage dtype (None: param_dtype; the
     # JAX package's transformer_dtype, e.g. float8) and W8A8 int8 compute
@@ -106,13 +110,15 @@ class WanConfig:
         return WanConfig(**d)
 
     def dense(self, in_features: int, features: int) -> LoraDense:
-        """A block linear: LoRA on, in the model's dtypes, its base weight
+        """A block linear: the adapter (LoRA or LoKr) on, in the model's dtypes, its base weight
         stored in base_kernel_dtype and multiplied in int8 under int8_matmul."""
         return LoraDense(in_features, features, dtype=self.dtype,
                          param_dtype=self.param_dtype, lora_rank=self.lora_rank,
                          lora_alpha=self.lora_alpha, lora_dropout=self.lora_dropout,
                          lora_dtype=self.lora_dtype, kernel_dtype=self.base_kernel_dtype,
-                         int8_matmul=self.int8_matmul)
+                         int8_matmul=self.int8_matmul, lora_type=self.lora_type,
+                         lokr_factor=self.lokr_factor,
+                         lokr_rank_dropout=self.lokr_rank_dropout)
 
 
 def _modulation_init_(w: torch.Tensor, dim: int, generator: torch.Generator) -> None:

@@ -4,7 +4,7 @@
         [--resume_from_checkpoint [RUN]] [--regenerate_cache] [--cache_only]
         [--trust_cache] [--reset_dataloader] [--reset_optimizer]
         [--reset_optimizer_params] [--max_steps N] [--profile_steps N]
-        [--i_know_what_i_am_doing]
+        [--test_sample PROMPT] [--dump_dataset DIR] [--i_know_what_i_am_doing]
 
 Counterpart of the top-level train.py of the JAX package, on the same TOML
 surface: the caching phase (dataset scan, aspect/size bucketing, latents
@@ -18,11 +18,17 @@ eval's from one seeded per (quantile, batch): a resumed run takes the steps
 of an uninterrupted one. --profile_steps N writes a torch.profiler trace of
 steps [1, N + 1) to run_dir/profile.
 
+--dump_dataset DIR decodes up to 16 cached latents of each size bucket
+back to PNGs (the first frame of a video) and exits after the caching
+phase. --test_sample PROMPT samples one 512 x 512 latent with the Euler
+flow sampler (model.sample_steps steps, default 20) through the
+initialised model, decodes it (a video's first frame) and writes
+output_dir/example.png before training.
+
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
-optimizer (A10), --test_sample and --dump_dataset (A5), Flux full
-fine-tuning's diffusers-layout export (A4), and families other than Flux
-and Wan (A9).
+optimizer (A10), Flux full fine-tuning's diffusers-layout export (A4), and
+families other than Flux and Wan (A9).
 """
 
 from __future__ import annotations
@@ -70,9 +76,6 @@ def _check_ported(config, args):
             config.get("optimizer", {}).get("type", "")).lower() == "offload":
         raise NotImplementedError(
             "blocks_to_swap and optimizer.type = 'offload' are not ported yet (ROADMAP A10)")
-    if args.test_sample is not None or args.dump_dataset is not None:
-        raise NotImplementedError("--test_sample and --dump_dataset are not ported yet "
-                                  "(ROADMAP A5)")
     from .models import get_model_class
     from .models.flux import FluxPipeline
     from .models.wan import WanPipeline
@@ -81,6 +84,53 @@ def _check_ported(config, args):
         raise NotImplementedError(
             f"the driver trains the Flux and Wan families so far; {config['model']['type']!r} "
             "needs its VAE and text encoders ported (ROADMAP A9)")
+
+
+def _to_png(image: torch.Tensor, path: Path) -> None:
+    """image [3, H, W] (or [3, F, H, W]: its first frame) in [-1, 1] as an
+    8-bit PNG, with Pillow."""
+    from PIL import Image
+
+    if image.dim() == 4:
+        image = image[:, 0]
+    arr = ((image.float().cpu() + 1) * 127.5).clamp(0, 255).permute(1, 2, 0)
+    Image.fromarray(arr.numpy().astype("uint8")).save(path)
+
+
+def dump_dataset(pipeline, train_data, out_dir: Path) -> int:
+    """Decode up to 16 cached latents of every size bucket to
+    out_dir/img_{n}.png; returns the count."""
+    vae = pipeline._load_vae()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    count = 0
+    for bucket_ds in train_data.all_size_bucket_datasets():
+        for i in range(min(len(bucket_ds), 16)):
+            z = torch.as_tensor(bucket_ds[i]["latents"])[None].to(pipeline.device)
+            with torch.no_grad():
+                img = vae.decode(z)[0]
+            _to_png(img, out_dir / f"img_{count}.png")
+            count += 1
+    print(f"dumped {count} decoded examples to {out_dir}")
+    return count
+
+
+def test_sample(pipeline, config, prompt: str, device) -> Path:
+    """One 512 x 512 sample of `prompt` through the model as it stands,
+    written to output_dir/example.png."""
+    embeds = {}
+    for fn in pipeline.get_call_text_encoder_fns():
+        embeds.update(fn([prompt]))
+    embeds = {k: torch.as_tensor(v).to(device) for k, v in embeds.items()}
+    latents = pipeline.sample(width=512, height=512,
+                              generator=torch.Generator(device=device).manual_seed(0),
+                              num_steps=int(config.get("sample_steps", 20)), **embeds)
+    with torch.no_grad():
+        img = pipeline._load_vae().decode(latents)[0]
+    out = Path(config["output_dir"]) / "example.png"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _to_png(img, out)
+    print(f"test sample written to {out}")
+    return out
 
 
 def _stop_profiler(profiler, run_dir: Path) -> None:
@@ -131,6 +181,9 @@ def main(argv=None):
     for _, ds in eval_datasets:
         manager.register(ds)
     manager.cache()
+    if args.dump_dataset is not None:
+        dump_dataset(pipeline, train_data, args.dump_dataset)
+        return 0
     if args.cache_only:
         print("Cache generated. Exiting.")
         return 0
@@ -166,9 +219,9 @@ def main(argv=None):
         print(f"Computed eval_every_n_steps = {config['eval_every_n_steps']}")
     config["_total_steps"] = int(config.get("epochs", 1)) * steps_per_epoch
     base_lr = float(config.get("optimizer", {}).get("lr", 1e-4))
-    if "force_constant_lr" not in config and pipeline.lr_scale_map(base_lr):
-        raise NotImplementedError("per-module LR scales are not ported yet (ROADMAP A8)")
-    optimizer = get_optimizer(config)
+    # force_constant_lr overrides every LR group with one constant
+    lr_scales = {} if "force_constant_lr" in config else pipeline.lr_scale_map(base_lr)
+    optimizer = get_optimizer(config, lr_scales=lr_scales)
 
     try:
         state_dict = pipeline.load_weights()
@@ -184,6 +237,8 @@ def main(argv=None):
                              predicate_from_config(config), state_dict=state_dict,
                              partial=True)
     del state_dict
+    if args.test_sample is not None:
+        test_sample(pipeline, config, args.test_sample, device)
 
     loader = PipelineDataLoader(train_data, gas)
     saver = Saver(config, run_dir, pipeline, dataloader=loader)
@@ -203,7 +258,8 @@ def main(argv=None):
         pipeline, gradient_clipping=config.get("gradient_clipping", 1.0),
         gradient_accumulation_steps=gas,
         skip_invalid_grads=bool(ocfg.get("skip_invalid_grads", False)),
-        stochastic_rounding=bool(ocfg.get("stochastic_rounding", False)))
+        stochastic_rounding=bool(ocfg.get("stochastic_rounding", False)),
+        gradient_release=bool(ocfg.get("gradient_release", False)))
     eval_step = make_eval_step(pipeline)
 
     def run_eval(step_i, examples):

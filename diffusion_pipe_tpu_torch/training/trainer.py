@@ -8,8 +8,10 @@ gradients). With gradient accumulation the batch is split into microbatches
 whose f32 gradients are averaged (the mean-over-microbatches semantics of
 the JAX package) and stay f32 through the clip into the optimizer, as in
 the JAX package, whatever the parameter dtype. With stochastic rounding,
-bf16 parameters are updated through K4 (ops/quant.py). Gradient release is
-not ported yet.
+bf16 parameters are updated through K4 (ops/quant.py). With
+gradient_release the optimizer steps once a micro-batch instead, and no
+accumulator exists. The adapters' dropout draws its masks inside the step
+only (models/layers.py adapter_dropout).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..interop import load_state_dict
-from ..models.layers import prequantize_int8_
+from ..models.layers import KeepMasks, adapter_dropout, prequantize_int8_
 from .train_state import TrainState, partition_params
 
 
@@ -40,7 +42,7 @@ def init_train_state(pipeline, optimizer: Callable, generator: torch.Generator,
     trainable = partition_params(pipeline.model, predicate)
     prequantize_int8_(pipeline.model)
     return TrainState(step=0, examples=0, trainable=trainable,
-                      optimizer=optimizer(list(trainable.values())))
+                      optimizer=optimizer(list(trainable.values()), names=list(trainable)))
 
 
 def make_loss_fn(pipeline, timestep_quantile=None):
@@ -89,15 +91,25 @@ def _slice(x, sl):
     return None if x is None else x[sl]
 
 
+def dropout_masks(state: TrainState, generator=None) -> KeepMasks:
+    """A step's adapter-dropout masks: seeded with the generator's seed and
+    the step count, so a resumed run draws what an uninterrupted one does,
+    with no read from the card."""
+    base = generator.initial_seed() if generator is not None else 0
+    return KeepMasks((base * 1000003 + state.step) % (2**63))
+
+
 def make_train_step(pipeline, gradient_clipping: float = 1.0,
                     gradient_accumulation_steps: int = 1,
                     skip_invalid_grads: bool = False,
-                    stochastic_rounding: bool = False):
+                    stochastic_rounding: bool = False,
+                    gradient_release: bool = False):
     """Returns train_step(state, batch, generator=None, noise=None, t=None)
     -> metrics, updating `state` and the model in place.
 
     batch leaves are [GAS * mbs, ...]; noise [B, C, H, W] and t [B], when
-    given, replace the generator's draws and are split with the batch.
+    given, replace the generator's draws and are split with the batch. The
+    adapters' keep masks are dropout_masks(state, generator).
 
     skip_invalid_grads: a parameter whose gradient holds Inf/NaN keeps its
     value this step (its update is masked in optimizers.apply_update, as
@@ -108,51 +120,75 @@ def make_train_step(pipeline, gradient_clipping: float = 1.0,
     seeded with state.step (the count before this step) * 1000003 + its
     index among the trainable tensors (see _UpdateRule.step in
     optimizers.py); other dtypes take p + u.
+
+    gradient_release (with GAS > 1): the JAX gradient_release_step. Each
+    micro-batch's gradients, in the parameters' dtype, are masked (skip
+    invalid), clipped on their own global norm and applied at once, every
+    micro-batch's update seeded with the same state.step; the loss and the
+    norm reported are the micro-batches' means.
     """
     loss_fn = make_loss_fn(pipeline)
     gas = gradient_accumulation_steps
+
+    def grads_of(params):
+        return [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+
+    def update(state, params, grads, metrics):
+        """Mask, norm, clip and apply; returns the global norm."""
+        finite = None
+        if skip_invalid_grads:
+            finite = [torch.isfinite(g).all() for g in grads]
+            grads = [torch.where(ok, g, torch.zeros_like(g)) for g, ok in zip(grads, finite)]
+            skipped = sum((~ok).int() for ok in finite)
+            metrics["skipped_params"] = metrics.get("skipped_params", 0) + skipped
+        grad_norm = global_norm(grads)
+        if gradient_clipping and gradient_clipping > 0:
+            grads = clip_by_global_norm(grads, grad_norm, gradient_clipping)
+        step_kw = dict(grads=grads, sr_step=state.step if stochastic_rounding else None)
+        if finite is not None:
+            step_kw["finite"] = finite
+        state.optimizer.step(**step_kw)
+        state.optimizer.zero_grad(set_to_none=True)
+        return grad_norm
 
     def train_step(state: TrainState, batch: Dict[str, Any], generator=None,
                    noise=None, t=None):
         params = list(state.trainable.values())
         state.optimizer.zero_grad(set_to_none=True)
         batch_size = batch["latents"].shape[0]
+        masks = dropout_masks(state, generator)
+        metrics: Dict[str, Any] = {}
         if gas == 1:
-            loss = loss_fn(batch, generator, noise, t)
+            with adapter_dropout(masks):
+                loss = loss_fn(batch, generator, noise, t)
             loss.backward()
-            loss = loss.detach()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            metrics["loss"] = loss.detach()
+            metrics["grad_norm"] = update(state, params, grads_of(params), metrics)
         else:
             mbs = batch_size // gas
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            acc = None if gradient_release else [
+                torch.zeros_like(p, dtype=torch.float32) for p in params]
             loss = torch.zeros([], dtype=torch.float32, device=pipeline.device)
+            norm = torch.zeros([], dtype=torch.float32, device=pipeline.device)
             for i in range(gas):
                 sl = slice(i * mbs, (i + 1) * mbs)
                 sub = {k: _slice(v, sl) for k, v in batch.items()}
-                loss_i = loss_fn(sub, generator, _slice(noise, sl), _slice(t, sl))
+                with adapter_dropout(masks):
+                    loss_i = loss_fn(sub, generator, _slice(noise, sl), _slice(t, sl))
                 loss_i.backward()
                 loss += loss_i.detach()
+                if gradient_release:
+                    norm = norm + update(state, params, grads_of(params), metrics)
+                    continue
                 for a, p in zip(acc, params):
                     if p.grad is not None:
                         a.add_(p.grad.float())
                         p.grad = None
-            loss = loss / gas
-            grads = [a / gas for a in acc]
-
-        metrics = {"loss": loss}
-        if skip_invalid_grads:
-            finite = [torch.isfinite(g).all() for g in grads]
-            grads = [torch.where(ok, g, torch.zeros_like(g)) for g, ok in zip(grads, finite)]
-            metrics["skipped_params"] = sum((~ok).int() for ok in finite)
-        grad_norm = global_norm(grads)
-        metrics["grad_norm"] = grad_norm
-        if gradient_clipping and gradient_clipping > 0:
-            grads = clip_by_global_norm(grads, grad_norm, gradient_clipping)
-        step_kw = dict(grads=grads, sr_step=state.step if stochastic_rounding else None)
-        if skip_invalid_grads:
-            step_kw["finite"] = finite
-        state.optimizer.step(**step_kw)
-        state.optimizer.zero_grad(set_to_none=True)
+            metrics["loss"] = loss / gas
+            if gradient_release:
+                metrics["grad_norm"] = norm / gas
+            else:
+                metrics["grad_norm"] = update(state, params, [a / gas for a in acc], metrics)
         state.step += 1
         state.examples += batch_size
         return metrics

@@ -33,7 +33,14 @@ against the plain path on the CPU.
 The Wan caching encoders on the card: the Wan 2.1 VAE (encode and decode of
 a 1 + 4 + 4-frame clip) and UMT5 (with padding), at tiny width in f32,
 against the same weights on the CPU.
+
+The offload checkpointing policies ("offload_attn", "unsloth") with their
+host copies delayed on the side stream: true's loss and gradients, bit for
+bit, with dropout. The Euler sampler under "attn": K1 once a block a step,
+no K2 or K3.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -394,3 +401,107 @@ def test_wan_encoders_on_card_match_cpu(model, cuda_device):
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
 
+
+
+def _policy_block(dev):
+    """A block of three LoRA linears with dropout around K1 (2 heads of 128)
+    and its parameters, bf16 on the card."""
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    lin = [LoraDense(256, 256, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                     lora_rank=8, lora_alpha=8.0, lora_dropout=0.1,
+                     lora_dtype=torch.bfloat16).to(dev) for _ in range(3)]
+    for m in lin:
+        m.init_weights(g)
+        with torch.no_grad():
+            m.lora_b.normal_(0.0, 0.05, generator=g)
+
+    def block(x):
+        b, s, _ = x.shape
+        q = lin[0](x).reshape(b, s, 2, 128)
+        kv = lin[1](x).reshape(b, s, 2, 128)
+        o = port_fa.flash_attention(q, kv, kv)[0].reshape(b, s, 256)
+        return lin[2](o)
+
+    return block, [p for m in lin for p in (m.lora_a, m.lora_b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["offload_attn", "unsloth"])
+def test_offload_policy_waits_for_its_copies(policy, cuda_device, monkeypatch):
+    """The offload policies' host copies run on a side stream, delayed here
+    by a spin of 2e7 cycles before each: the recompute must wait for them
+    (an event a copy) and the caching allocator must not hand a tensor's
+    memory on before its copy has read it (record_stream). The loss and
+    the LoRA gradients equal true's bit for bit, with the same dropout
+    masks; the pinned slabs held the saved tensors."""
+    from diffusion_pipe_tpu_torch.models import layers
+    from diffusion_pipe_tpu_torch.ops import offload
+
+    block, params = _policy_block(cuda_device)
+    x = torch.randn((2, 256, 256), generator=torch.Generator(device=cuda_device).manual_seed(4),
+                    device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+
+    def run(spec):
+        for p in params + [x]:
+            p.grad = None
+        with layers.adapter_dropout(layers.KeepMasks(9)):
+            y = layers.remat_call(spec, block, x)
+            # churn the allocator while the copies are pending
+            junk = [torch.empty_like(y).fill_(7.0) for _ in range(4)]
+            loss = (y.float() ** 2).mean()
+        del junk
+        loss.backward()
+        return loss.detach(), [g.grad.clone() for g in params + [x]]
+
+    want = run("full")
+    offload.reset_stats()
+    real_stream = torch.cuda.stream
+
+    @contextlib.contextmanager
+    def delayed_stream(stream):
+        # every work queued on the side stream starts behind the spin
+        with real_stream(stream):
+            torch.cuda._sleep(20_000_000)
+            yield
+
+    monkeypatch.setattr(torch.cuda, "stream", delayed_stream)
+    got = run(policy)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert offload.stats["peak"] > 0 and offload.stats["held"] == 0
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sampler_launches_only_the_forward(cuda_device):
+    """FluxPipeline.sample under "attn" checkpointing: K1 once a block a step
+    (a two-block Flux at head dim 128), no K2 or K3, no graph."""
+    import dataclasses
+
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.flux_model import FluxConfig, FluxTransformer
+    from diffusion_pipe_tpu_torch.models.layers import init_module_weights
+
+    cfg = {"save_every_n_epochs": 1, "activation_checkpointing": "attn",
+           "model": {"type": "flux", "dtype": "bfloat16", "_tiny": True}}
+    pipe = get_model_class("flux")(cfg, device=cuda_device)
+    pipe.flux_config = dataclasses.replace(
+        FluxConfig.tiny(), num_layers=1, num_single_layers=1, attention_head_dim=128,
+        num_attention_heads=2, axes_dims_rope=(16, 56, 56), dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, remat="attn")
+    with torch.device(cuda_device):
+        pipe.model = FluxTransformer(pipe.flux_config)
+    init_module_weights(pipe.model, torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    t5 = torch.randn((1, 8, 64), generator=g, device=cuda_device)
+    clip = torch.randn((1, 32), generator=g, device=cuda_device)
+    port_fa.reset_launch_counts()
+    lat = pipe.sample(t5, clip, 64, 64, generator=g, num_steps=3)
+    counts = port_fa.launch_counts()
+    assert tuple(lat.shape) == (1, 16, 8, 8) and not lat.requires_grad
+    assert bool(torch.isfinite(lat).all())
+    assert counts == {"flash_fwd_cuda": 3 * 2, "flash_bwd_dq_cuda": 0, "flash_bwd_dkv_cuda": 0}

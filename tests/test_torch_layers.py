@@ -137,5 +137,6 @@ def test_remat_spec():
     assert tl.remat_spec({"activation_checkpointing": "attn"}) == "attn"
     assert tl.remat_spec({"activation_checkpointing": True, "remat_policy": "attn"}) == "attn"
     for spec in ("offload_attn", "dots", "unsloth", "offload_dots"):
-        with pytest.raises(NotImplementedError):
-            tl.remat_spec({"activation_checkpointing": spec})
+        assert tl.remat_spec({"activation_checkpointing": spec}) == spec
+    with pytest.raises(ValueError):
+        tl.remat_spec({"activation_checkpointing": "everything"})

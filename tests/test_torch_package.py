@@ -81,9 +81,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
         get_model_class("flux")(cfg)
     pipe = get_model_class("flux")(cfg, device="cpu")
     assert pipe.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        get_model_class("flux")(
-            dict(cfg, model=dict(cfg["model"], bypass_guidance_embedding=True)), device="cpu")
+    bypass = get_model_class("flux")(
+        dict(cfg, model=dict(cfg["model"], bypass_guidance_embedding=True)), device="cpu")
+    assert bypass.device.type == "cpu" and bypass._guidance(torch.ones(1)) is None
 
 
 def test_config_matches_jax_package():

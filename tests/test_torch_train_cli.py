@@ -180,8 +180,6 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "pipeline_stages": ("pipeline_stages = 2", None, []),
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
-    "test_sample": ("", None, ["--test_sample", "a cat"]),
-    "dump_dataset": ("", None, ["--dump_dataset", "dump"]),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
     "sdxl": ("", ('type = "flux"', 'type = "sdxl"'), []),
 }

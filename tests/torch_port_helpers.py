@@ -82,8 +82,10 @@ def tiny_batch(seed, b=2):
 
 # XLA CPU compile options for the JAX references: LLVM at optimisation level
 # 0 and the older fusion emitters compile a tiny model's train step about
-# five times faster than the defaults.
-JAX_FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False}
+# five times faster than the defaults; one LLVM module instead of parallel
+# parts takes a fifth off that on one core (the code is the same).
+JAX_FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_cpu_use_fusion_emitters": False,
+                    "xla_cpu_parallel_codegen_split_count": 1}
 
 
 def draw_noise_and_t(tdist, key, shape):
