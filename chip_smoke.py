@@ -32,9 +32,12 @@ Phases, each printing one JSON line (or more):
                      split). A batch element whose keys are all masked must
                      give O = 0, the mask value as its LSE and zero dQ, dK
                      and dV, on both K3 paths (Wan cross at B=2, and Flux).
-                     Each timing carries its share of the bound, K1 its
-                     factor against SDPA's forward, K3 that of K2 + K3
-                     against SDPA's backward.
+                     Every time (kernel, plain version, SDPA) is taken
+                     with the calls queued behind a spin of the card
+                     (queued_ms), so a call shorter than its wrapper's host
+                     time reads its device time. Each timing carries its
+                     share of the bound, K1 its factor against SDPA's
+                     forward, K3 that of K2 + K3 against SDPA's backward.
    sr-kernel      -- K4 (stochastic rounding of a bf16 update) at the largest
                      Wan2.1-1.3B leaf (ffn_in, 8960 x 1536) with bf16 and f32
                      updates: bit for bit equal to its plain version, every
@@ -178,6 +181,41 @@ Phases, each printing one JSON line (or more):
                      adamw8bit LoRA with gradient_release at GAS 2: losses,
                      step and optimizer times, K4 launches a step.
 
+14. kernels-sdxl -- (run after the optimizers) K1-K3 at head dim 64 at SDXL's
+                     attention shapes, bf16, batch 4: 512 px self-attention
+                     over 1,024 tokens (H 10) and 256 (H 20), cross-attention
+                     from both to the 77 CLIP tokens (one key tile, 51 keys
+                     padded: K3's query split), 1024 px self-attention over
+                     4,096 (H 10) and 1,024 (H 20); each against its plain
+                     version, the 256-token cross also with a padded batch
+                     element and with an all-masked one, K2 / K3
+                     deterministic there; each timed as in kernels beside
+                     its bound, its plain version and SDPA's forward and
+                     backward.
+    reference-sdxl -- a narrow SDXL UNet (64 / 128 / 128, six transformer
+                     blocks at head dim 64) bf16 on the card against f32 on
+                     the CPU: output, loss, LoRA gradients.
+    slice-sdxl-lora -- cell sdxl-lora-512, tools/bench_sdxl.py's
+                     configuration: SDXL at full size (UNet 2.57 B, CLIP-L,
+                     bigG) from a seed, LoRA r16, adamw8bit, clip 1.0, no
+                     checkpointing, batch 4 of 4 x 64 x 64 latents with
+                     77-token ids: one warm-up, five timed steps; finite
+                     losses, every LoRA tensor moved, the UNet and towers
+                     unchanged, 140 / 140 / 140 flash launches a step.
+    slice-sdxl-fullft -- cell sdxl-fullft: the same model fully fine-tuned
+                     (UNet and both towers) with adamw and unet_lr /
+                     text_encoder_1_lr / text_encoder_2_lr at three values,
+                     batch 1, two steps: every tensor moved (but CLIP-L's
+                     last layer, which SDXL's context and pooled embedding
+                     do not read), each group's step following its LR.
+    driver-sdxl   -- examples/sdxl.toml's settings through train.main: 8 + 4
+                     seeded 512 px PNGs with captions, a model folder with
+                     a seeded SDXL VAE and a synthetic CLIP tokenizer,
+                     --cache_only, 3 steps with the eval, a resume to 5 with
+                     --test_sample (DDIM); the loader position of an
+                     uninterrupted run, the kohya adapter's 2,100 keys, the
+                     launches.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -257,25 +295,57 @@ def kernel_device_ms(fn, kernel, iters=20):
     """Mean device time a call of fn spends in the CUDA kernels whose name
     holds `kernel`, from torch.profiler, after one warm-up: for a kernel
     shorter than its wrapper's host time, where cuda_ms measures the launch
-    rate instead."""
+    rate instead. Returns (ms, kernels the trace held of its lead + iters
+    calls)."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    # the trace can miss a kernel (19 of 20 seen once on the H100): it is
-    # taken again, up to three times, until it holds every call
+    # a trace can miss its first kernels (19 of 20 seen on the H100, in three
+    # traces running): each trace starts with `lead` calls that are not
+    # timed, and the last `iters` kernels it holds are. It may miss at most
+    # those `lead`, and hold no more kernels than calls; it is taken again,
+    # up to three times, until it holds at least `iters`.
+    lead = 2
     for attempt in range(1, 4):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(lead + iters):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if len(us) == iters:
+        seen = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and kernel in e.name)
+        check(len(seen) <= lead + iters, f"the profiler saw {len(seen)} {kernel} kernels "
+              f"in {lead + iters} calls, more than one a call")
+        if len(seen) >= iters:
             break
-    check(len(us) == iters,
-          f"the profiler saw {len(us)} {kernel} kernels in {iters} calls ({attempt} traces)")
-    return sum(us) / 1e3 / iters
+    check(len(seen) >= iters, f"the profiler saw {len(seen)} {kernel} kernels in "
+          f"{lead + iters} calls ({attempt} traces), more than the {lead} lead calls missing")
+    return sum(end - start for start, end in seen[-iters:]) / 1e3 / iters, len(seen)
+
+
+def queued_ms(fn, iters=20, sleep_cycles=200_000_000):
+    """Mean device time of a call of fn, every kernel it launches included,
+    after one warm-up: the card first spins for `sleep_cycles` (~0.1 s)
+    while the host queues all `iters` calls, and CUDA events time them run
+    back to back. For calls shorter than their host time, where events
+    around calls launched one by one read the launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_s = time.perf_counter() - t0
+    # the spin must outlast the queueing, or the events time launch gaps
+    check(queue_s < 0.5 * spin_s, f"queueing {iters} calls took {queue_s:.4f} s of the "
+          f"{spin_s:.4f} s the card was busy: raise sleep_cycles")
+    return start.elapsed_time(end) / iters
 
 
 def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -379,10 +449,15 @@ def _attn_inputs(b, sq, skv, h, d, masked, gen):
     mask = None
     if masked:
         # text padding: element 0 keeps 300 of its 512 text tokens, element 1
-        # all of them; image tokens (after the text) are always valid
+        # all of them; image tokens (after the text) are always valid. A
+        # slice names element 0's masked keys instead.
         mask = torch.ones((b, skv), dtype=torch.int32, device=dev)
-        mask[0, 300:512] = 0
+        mask[0, _masked_keys(masked)] = 0
     return q, k, v, do, mask
+
+
+def _masked_keys(masked):
+    return slice(300, 512) if masked is True else masked
 
 
 def _plain_all(fa, q, k, v, do, mask, scale):
@@ -428,9 +503,10 @@ def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None):
               f"{case}/{name}: kernel error {err} > 2 * {plain_err} + {floor}")
     if masked:
         # element 0's padded keys get no gradient
-        check(bool((got[3][0, 300:512] == 0).all() and (got[4][0, 300:512] == 0).all()),
+        keys = _masked_keys(masked)
+        check(bool((got[3][0, keys] == 0).all() and (got[4][0, keys] == 0).all()),
               "masked keys received dK/dV")
-    emit(phase="kernels", case=case, q_shape=[b, sq, h, d], kv_len=skv, masked=masked,
+    emit(phase="kernels", case=case, q_shape=[b, sq, h, d], kv_len=skv, masked=bool(masked),
          checked_heads=q.shape[2], errors=rec)
     return rec
 
@@ -438,7 +514,9 @@ def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None):
 def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
     """Each kernel's time, its bound, its plain version's (when with_plain)
     and SDPA's forward as the yardstick of K1, on unmasked inputs; SDPA's
-    backward (dQ, dK, dV in one call) is the yardstick of K2 + K3."""
+    backward (dQ, dK, dV in one call) is the yardstick of K2 + K3. Every
+    time is queued_ms's: calls run back to back behind a spin of the card,
+    so a call shorter than its host time reads its device time too."""
     scale = d ** -0.5
     q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
     o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
@@ -448,25 +526,25 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
     dot_ = do.transpose(1, 2).contiguous()
 
     def plain_ms(fn):
-        return cuda_ms(fn, 5) if with_plain else None
+        return queued_ms(fn, 5) if with_plain else None
 
     timing = {
         "flash_fwd": dict(
-            ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale)),
+            ms=queued_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale)),
             plain_ms=plain_ms(lambda: fa.flash_forward_plain(q, k, v, None, scale)),
-            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            library_ms=queued_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt.detach(), kt.detach(), vt.detach()))),
         "flash_bwd_dq": dict(
-            ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)),
+            ms=queued_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)),
             plain_ms=plain_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, None, lse, di, do, scale)),
             library_ms=None),
         "flash_bwd_dkv": dict(
-            ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)),
+            ms=queued_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)),
             plain_ms=plain_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, None, lse, di, do, scale)),
             library_ms=None),
     }
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qt, kt, vt), dot_, retain_graph=True))
+    sdpa_bwd_ms = queued_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot_, retain_graph=True))
 
     nq, nk = b * sq * h * d, b * skv * h * d  # elements of a query-/key-side tensor
     rows = b * h * sq
@@ -659,7 +737,8 @@ def _h1_timing(iq, case, m, k, prescale, gen):
     nbytes = 2 * m * k + (4 * k if prescale else 0) + m * k + 4 * m
     flops = (6 if prescale else 5) * m * k
     t, by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    rec = dict(ms=kernel_device_ms(lambda: iq.quant_rows_cuda(x, col), "quant_rows_kernel"),
+    ms, seen = kernel_device_ms(lambda: iq.quant_rows_cuda(x, col), "quant_rows_kernel")
+    rec = dict(ms=ms, kernels_traced=seen,
                launch_ms=cuda_ms(lambda: iq.quant_rows_cuda(x, col)),
                plain_ms=cuda_ms(lambda: iq.quant_rows_plain(x, col), 5), library_ms=None,
                bound_ms=t, bound_by=by, bytes=nbytes, flops=flops, max_abs_err=err)
@@ -683,8 +762,9 @@ def _h2_timing(iq, gen):
     nbytes = 4 * m * n + 2 * m * n + 4 * m + 4 * n  # int32 in, bf16 out, the scales
     flops = 3 * m * n  # convert and two multiplies an element
     t, by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    rec = dict(ms=kernel_device_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16),
-                                   "rescale_kernel"),
+    ms, seen = kernel_device_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16),
+                                "rescale_kernel")
+    rec = dict(ms=ms, kernels_traced=seen,
                launch_ms=cuda_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16)),
                plain_ms=cuda_ms(lambda: iq.rescale_i32_plain(y, rs, cs, torch.bfloat16), 5),
                library_ms=None, bound_ms=t, bound_by=by, bytes=nbytes, flops=flops,
@@ -1388,16 +1468,15 @@ def _uninterrupted_loader_state(root, steps, config=None, batch_size=2):
         t0 = time.perf_counter()
         _, batch = next(loader)
         t1 = time.perf_counter()
-        on_card = {k: v.to("cuda") for k, v in batch.items()}
+        on_card = {k: v.to("cuda") for k, v in batch.items() if torch.is_tensor(v)}
         torch.cuda.synchronize()
         if i:
             pull_s.append(t1 - t0)
             copy_s.append(time.perf_counter() - t1)
-    del on_card
     readers = sorted({b.latent_cache.last_reader for b in ds.all_size_bucket_datasets()})
     return loader.state_dict(), {
         "pull_ms": 1e3 * sum(pull_s) / len(pull_s), "copy_to_card_ms": 1e3 * sum(copy_s) / len(copy_s),
-        "batch_bytes": sum(v.numel() * v.element_size() for v in batch.values()),
+        "batch_bytes": sum(v.numel() * v.element_size() for v in on_card.values()),
         "cache_readers": readers}
 
 
@@ -2344,6 +2423,449 @@ def phase_sample():
     return {k: flux_counts[k] + wan_counts[k] for k in flux_counts}
 
 
+# --- slice 9: SDXL ------------------------------------------------------------
+
+# K1-K3 at SDXL's attention shapes (head dim 64, batch 4): 512 px has
+# self-attention over 1,024 tokens (H 10, 10 blocks) and 256 (H 20, 60
+# blocks), and 77-token cross-attention in every block; 1024 px four times
+# the tokens. (case, (B, Sq, Skv, H))
+SDXL_KERNEL_CASES = (
+    ("sdxl512_self_1024", (4, 1024, 1024, 10)),
+    ("sdxl512_self_256", (4, 256, 256, 20)),
+    ("sdxl512_cross_256", (4, 256, 77, 20)),
+    ("sdxl512_cross_1024", (4, 1024, 77, 10)),
+    ("sdxl1024_self_4096", (4, 4096, 4096, 10)),
+    ("sdxl1024_self_1024", (4, 1024, 1024, 20)),
+)
+SDXL_HEAD_DIM = 64
+SDXL_BLOCKS = 70  # transformer blocks of the SDXL UNet (2 x 2 + 2 x 10 + 10 + 3 x 2 + 3 x 10)
+
+
+def phase_kernels_sdxl():
+    """K1-K3 at SDXL's shapes (bf16, D 64) against their plain versions,
+    the cross shape also with a padded batch element (40 of 77 keys valid)
+    and with every key of an element masked, K2 / K3 deterministic there;
+    each timed beside its bound, its plain version and SDPA's forward and
+    backward. Returns {case: timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d = SDXL_HEAD_DIM
+    errors = {}
+    for case, (b, sq, skv, h) in SDXL_KERNEL_CASES:
+        errors[case] = _check_attention(fa, case, b, sq, skv, h, d, False, gen)
+        _free()
+    errors["sdxl512_cross_256_masked"] = _check_attention(
+        fa, "sdxl512_cross_256_masked", 4, 256, 77, 20, d, slice(40, 77), gen)
+    splits = _check_bwd_deterministic(fa, "sdxl512_cross_256", 4, 256, 77, 20, d, gen)
+    _check_all_masked(fa, "sdxl512_cross_256", 4, 256, 77, 20, d, gen)
+    _free()
+    timings = {}
+    for case, (b, sq, skv, h) in SDXL_KERNEL_CASES:
+        timing, sdpa_bwd_ms = _time_attention(fa, b, sq, skv, h, d, gen)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[case][k]["err"] for k in ERR_KEYS[name])
+            tm["sdpa_bwd_ms"] = sdpa_bwd_ms
+        emit(phase="kernels-sdxl", case=f"timing_{case}", q_shape=[b, sq, h, d], kv_len=skv,
+             timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[case] = timing
+        _free()
+    emit(phase="kernels-sdxl", k3_query_splits_cross_256=splits)
+    return timings
+
+
+SDXL_LORA_CONFIG = {  # sdxl-lora-512: tools/bench_sdxl.py's configuration
+    "save_every_n_epochs": 1,
+    "model": {"type": "sdxl", "dtype": "bfloat16", "_random_te": True},
+    "adapter": {"type": "lora", "rank": 16, "alpha": 16, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+}
+SDXL_FULLFT_LRS = {"unet.": 4e-5, "text_encoder.": 2e-5, "text_encoder_2.": 1e-5}
+SDXL_FULLFT_CONFIG = {  # sdxl-fullft: examples/sdxl.toml's adamw, every weight trained
+    "save_every_n_epochs": 1,
+    "model": {"type": "sdxl", "dtype": "bfloat16", "_random_te": True,
+              "unet_lr": SDXL_FULLFT_LRS["unet."],
+              "text_encoder_1_lr": SDXL_FULLFT_LRS["text_encoder."],
+              "text_encoder_2_lr": SDXL_FULLFT_LRS["text_encoder_2."]},
+    "optimizer": {"type": "adamw", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+}
+SDXL_FULLFT_STEPS = 2
+
+
+def _sdxl_ids(b, gen, device):
+    """[B, 1, 77] token ids laid out as the tokenizer's chunks: BOS, a
+    caption of 8-60 tokens, EOS, EOS padding."""
+    ids = torch.full((b, 1, 77), 49407, dtype=torch.int32)
+    g = torch.Generator().manual_seed(int(torch.randint(0, 2**31, (), generator=gen,
+                                                        device=gen.device)))
+    for i in range(b):
+        n = int(torch.randint(8, 61, (), generator=g))
+        ids[i, 0, 0] = 49406
+        ids[i, 0, 1:1 + n] = torch.randint(0, 49406, (n,), generator=g, dtype=torch.int32)
+    return ids.to(device)
+
+
+def build_sdxl_slice(cfg=SDXL_LORA_CONFIG, device="cuda", latent_hw=64, batch_size=4):
+    """The SDXL trainer through the entry points a user calls:
+    get_model_class("sdxl") -> init_train_state (predicate_from_config,
+    the optimizer with lr_scale_map's groups) -> make_train_step; a batch
+    of latents and token ids."""
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
+    from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
+    from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    pipeline = get_model_class("sdxl")(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    scales = pipeline.lr_scale_map(float(cfg["optimizer"]["lr"]))
+    state = init_train_state(pipeline, get_optimizer(cfg, lr_scales=scales), gen,
+                             predicate_from_config(cfg))
+    step = make_train_step(pipeline, gradient_clipping=cfg["gradient_clipping"])
+    ids = _sdxl_ids(batch_size, gen, device)
+    batch = {"latents": torch.randn((batch_size, 4, latent_hw, latent_hw), generator=gen,
+                                    device=device),
+             "input_ids": ids, "input_ids_2": ids}
+    return pipeline, state, step, batch, gen
+
+
+def phase_slice_sdxl(phase="slice-sdxl-lora", cell="sdxl-lora-512", cfg=SDXL_LORA_CONFIG,
+                     timed_steps=TIMED_STEPS, batch_size=4, device="cuda", latent_hw=64):
+    """An SDXL cell: one warm-up step, then `timed_steps` timed with the
+    counters set to 0 just before. LoRA: finite losses, every LoRA tensor
+    moved, the UNet's and towers' weights unchanged, 140 / 140 / 140 flash
+    launches a step (two attentions in each of 70 blocks, no
+    checkpointing). Full fine-tuning: every tensor of the UNet and both
+    towers moved, each group's largest step near its LR. Returns (launches,
+    samples/s, peak)."""
+    on_cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    pipeline, state, step, batch, gen = build_sdxl_slice(cfg, device, latent_hw, batch_size)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    trainable = dict(state.trainable)
+    frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+    n_params = sum(p.numel() for p in pipeline.model.parameters())
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    frozen0 = _fingerprint(frozen) if frozen else None
+
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm_loss = step(state, batch, gen)["loss"].item()
+    warm_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch, gen) for _ in range(timed_steps)]
+    _sync(device)
+    step_s = (time.perf_counter() - t0) / timed_steps
+    counts = launch_counts()
+    losses = [m["loss"].item() for m in metrics]
+    peak = torch.cuda.max_memory_allocated() if on_cuda else None
+    per_step = {k: v / timed_steps for k, v in counts.items()}
+    moved = {n: (p.detach() - start[n]).abs().max().item() for n, p in trainable.items()}
+    del start
+    frozen_same = frozen0 is None or torch.equal(_fingerprint(frozen), frozen0)
+    lora = "adapter" in cfg
+    # CLIP-L's last layer and final norm feed only its pooled output, which
+    # SDXL does not use: they get no gradient and stay where they are
+    te1_last = (f"text_encoder.text_model.encoder.layers."
+                f"{pipeline.model.text_encoder.config.num_hidden_layers - 1}.",
+                "text_encoder.text_model.final_layer_norm.")
+    groups = {}
+    if not lora:  # each group's largest element step over its LR, median over tensors
+        for prefix, lr in SDXL_FULLFT_LRS.items():
+            ratios = sorted(v / lr for n, v in moved.items()
+                            if n.startswith(prefix) and not n.startswith(te1_last))
+            groups[prefix] = dict(tensors=len(ratios), lr=lr,
+                                  median_step_over_lr=ratios[len(ratios) // 2],
+                                  min_step_over_lr=ratios[0], max_step_over_lr=ratios[-1])
+    expected = {"flash_fwd": 2 * SDXL_BLOCKS, "flash_bwd_dq": 2 * SDXL_BLOCKS,
+                "flash_bwd_dkv": 2 * SDXL_BLOCKS, "sr_add": 0, **NO_INT8}
+    emit(phase=phase, cell=cell, params=n_params, trainable_tensors=len(trainable),
+         trainable_params=sum(p.numel() for p in trainable.values()),
+         latent_shape=list(batch["latents"].shape), init_s=init_s, warmup_s=warm_s,
+         warmup_loss=warm_loss, timed_steps=timed_steps, step_s=step_s,
+         samples_per_s=batch_size / step_s, losses=losses, peak_memory_bytes=peak,
+         launches=counts, launches_per_step=per_step,
+         tensors_moved=sum(int(v > 0) for v in moved.values()), frozen_unchanged=frozen_same,
+         lr_groups=groups)
+    still = [n for n, v in moved.items() if v == 0]
+    check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
+    check(all(n.startswith(te1_last) for n in still),
+          f"{len(still)} trainable tensors did not move: {still[:5]}")
+    check(frozen_same, "frozen weights changed")
+    if lora:
+        check(len(trainable) == SDXL_BLOCKS * 10 * 2, f"{len(trainable)} LoRA tensors")
+    else:
+        check(len(trainable) == len(list(pipeline.model.parameters())), "not every weight trains")
+        # two adamw steps on one batch move an element by about twice its
+        # LR (bf16 UNet weights by whole ulps): each group's median largest
+        # step within 0.5x-6x its LR, the groups within 3x of each other
+        medians = [g["median_step_over_lr"] for g in groups.values()]
+        check(all(0.5 <= m <= 6.0 for m in medians) and max(medians) <= 3 * min(medians),
+              f"update scales do not follow the LR groups: {groups}")
+    check(not on_cuda or per_step == expected, f"launches per step {per_step}, expected {expected}")
+    return counts, batch_size / step_s, peak
+
+
+def phase_reference_sdxl(device="cuda"):
+    """A narrow SDXL UNet (widths 64 / 128 / 128, six transformer blocks at
+    head dim 64, a 24 x 24 latent: 36-token attention at the deepest stage,
+    77 context tokens) in bf16 on the card against the same weights in f32
+    on the CPU: output, loss and LoRA gradients (LoRA B nonzero)."""
+    from diffusion_pipe_tpu_torch.models.layers import init_module_weights
+    from diffusion_pipe_tpu_torch.models.sdxl_unet import SDXLConfig, SDXLUNet
+
+    def build(dtype, dev):
+        cfg = SDXLConfig(block_out_channels=(64, 128, 128), transformer_layers=(0, 0, 1),
+                         cross_attention_dim=256,
+                         projection_class_embeddings_input_dim=64 + 6 * 256,
+                         dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0)
+        with torch.device(dev):
+            return SDXLUNet(cfg)
+
+    cpu = build(torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    init_module_weights(cpu, gen)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=gen)
+    gpu = build(torch.bfloat16, device)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 4, 24, 24), generator=gen)
+    t = torch.tensor([100, 700], dtype=torch.int32)
+    ctx = torch.randn((2, 77, 256), generator=gen)
+    pooled = torch.randn((2, 64), generator=gen)
+    ids = torch.tensor([[512.0, 512, 0, 0, 512, 512]] * 2)
+    target = torch.randn(x.shape, generator=gen)
+
+    def run(model, dev):
+        for n, p in model.named_parameters():
+            p.requires_grad_(n.endswith(("lora_a", "lora_b")))
+        out = model(x.to(dev), t.to(dev), ctx.to(dev), pooled.to(dev), ids.to(dev))
+        loss = torch.mean((out.float() - target.to(dev)) ** 2)
+        loss.backward()
+        return (out.float().cpu(), loss.item(),
+                {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.requires_grad})
+
+    ref_out, ref_loss, ref_grads = run(cpu, "cpu")
+    reset_launch_counts()
+    out, loss, grads = run(gpu, device)
+    counts = {k: launch_counts()[k] for k in FLASH}
+    out_err = _rel(out, ref_out)
+    grad_err, worst = _compare_grads(grads, ref_grads)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    emit(phase="reference-sdxl", out_rel_l2=out_err, loss_rel=loss_err, grads_rel_l2=grad_err,
+         worst_tensor_rel_l2=worst, tensors=len(grads), launches=counts)
+    check(torch.device(device).type != "cuda" or all(c == 12 for c in counts.values()),
+          f"reference-sdxl launches {counts}, expected 12 each (6 blocks x 2)")
+    # bf16 against f32 through 17 resnets and 6 transformer blocks
+    check(out_err < 3e-2 and loss_err < 3e-2 and grad_err < 5e-2,
+          f"reference-sdxl mismatch: out {out_err}, loss {loss_err}, grads {grad_err}")
+
+
+def _bytes_to_unicode():
+    """GPT-2 / CLIP's byte -> printable character table."""
+    bs = list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1)) \
+        + list(range(ord("®"), ord("ÿ") + 1))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def _write_clip_tokenizer(folder):
+    """A synthetic CLIP BPE tokenizer (no merges: a word is its characters)
+    with CLIP's 49,408 ids, <|startoftext|> 49406 and <|endoftext|> 49407:
+    vocab.json, merges.txt and tokenizer_config.json. No tokenizer files
+    exist on the card's machine; this stands in for SDXL's."""
+    folder.mkdir(parents=True, exist_ok=True)
+    chars = list(_bytes_to_unicode().values())
+    tokens = chars + [c + "</w>" for c in chars]
+    tokens += [f"<|unused{i}|>" for i in range(49406 - len(tokens))]
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    (folder / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(tokens)}))
+    (folder / "merges.txt").write_text("#version: 0.2\n")
+    (folder / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>",
+        "eos_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>", "model_max_length": 77}))
+
+
+SDXL_DRIVER_TOML = """# examples/sdxl.toml's settings through the driver (driver-sdxl)
+output_dir = "{root}/out"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 100
+micro_batch_size_per_gpu = 4
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 5
+save_every_n_steps = 4
+eval_before_first_step = true
+sample_steps = {sample_steps}
+
+[model]
+type = "sdxl"
+diffusers_path = "{model}"
+dtype = "bfloat16"
+_random_te = true
+
+[adapter]
+type = "lora"
+rank = 16
+dtype = "bfloat16"
+
+[optimizer]
+type = "adamw"
+lr = 1e-4
+"""
+SDXL_DRIVER_IMAGES, SDXL_DRIVER_EVAL_IMAGES = 8, 4  # the eval: one batch of 4
+
+
+def phase_driver_sdxl():
+    """examples/sdxl.toml's settings (LoRA r16, adamw, micro batch 4)
+    through train.main: 8 seeded 512 px PNGs with captions and 4 for eval,
+    a model folder holding a seeded full-size SDXL VAE (diffusers layout)
+    and a synthetic CLIP tokenizer; the UNet and towers from random init.
+    --cache_only, 3 steps with the eval, a resume to 5 with --test_sample
+    (DDIM, decoded by the SDXL VAE). Checks: finite losses, the step
+    counter, the loader position of an uninterrupted run, LoRA moved and
+    the rest unchanged, the kohya adapter's keys (the JAX export's count
+    for this config, SDXL_KOHYA_KEYS), 140 K2 and K3 launches a step and
+    140 K1 a forward (steps, eval and sample). Returns the launches."""
+    import tomllib
+
+    from diffusion_pipe_tpu_torch import safetensors_io, train
+    from diffusion_pipe_tpu_torch.config import set_config_defaults
+    from diffusion_pipe_tpu_torch.models.autoencoder_kl import (AutoencoderKL, VAEConfig,
+                                                                diffusers_vae_state_dict)
+    from diffusion_pipe_tpu_torch.training import trainer
+    from PIL import Image
+
+    root = _fresh_dir(SMOKE_DIR / "driver_sdxl")
+    model_dir = root / "model"
+    _write_clip_tokenizer(model_dir / "tokenizer")
+    vae = AutoencoderKL(VAEConfig.sdxl())
+    vae.init_weights(torch.Generator().manual_seed(SEED))
+    (model_dir / "vae").mkdir()
+    safetensors_io.save_file(diffusers_vae_state_dict(vae),
+                             model_dir / "vae" / "diffusion_pytorch_model.safetensors")
+    del vae
+    _write_images(root / "train", SDXL_DRIVER_IMAGES, SEED)
+    _write_images(root / "eval", SDXL_DRIVER_EVAL_IMAGES, SEED + 1)
+    (root / "dataset.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/train"\n')
+    (root / "eval.toml").write_text(f'resolutions = [512]\n[[directory]]\npath = "{root}/eval"\n')
+    text = SDXL_DRIVER_TOML.format(root=root, model=model_dir, sample_steps=DRIVER_SAMPLE_STEPS)
+    cfg_path = root / "sdxl_lora.toml"
+    cfg_path.write_text(text)
+    argv = ["--config", str(cfg_path)]
+
+    captured = []
+    real_init = trainer.init_train_state
+
+    def init_and_keep(pipeline, *a, **kw):
+        state = real_init(pipeline, *a, **kw)
+        frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+        captured.append((pipeline, state, _fingerprint(frozen),
+                         {n: p.detach().cpu().clone() for n, p in state.trainable.items()}))
+        return state
+
+    def run(extra, steps, lora_before=None):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        check(train.main(argv + extra) == 0, f"train.main {extra} failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        pipeline, state, frozen_print, lora0 = captured.pop()
+        lora0 = lora_before or lora0
+        frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+        out = dict(steps=steps, wall_s=wall_s, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   frozen_unchanged=bool(torch.equal(_fingerprint(frozen), frozen_print)),
+                   lora_tensors=len(state.trainable),
+                   lora_tensors_moved=sum(int(not torch.equal(p.cpu(), lora0[n]))
+                                          for n, p in state.trainable.items()))
+        del pipeline, state, frozen
+        _free()
+        return out
+
+    trainer.init_train_state = init_and_keep
+    try:
+        t0 = time.perf_counter()
+        check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
+        cache_s = time.perf_counter() - t0
+        _free()
+        first = run(["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS)
+        run_dir = next((root / "out").iterdir())
+        at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
+                              map_location="cpu", weights_only=True)["trainable"]
+        second = run(["--resume_from_checkpoint", "--max_steps", str(DRIVER_RESUMED_STEPS),
+                      "--test_sample", SAMPLE_PROMPT], DRIVER_RESUMED_STEPS - DRIVER_STEPS,
+                     at_first)
+        del at_first
+    finally:
+        trainer.init_train_state = real_init
+    calls = [first, second]
+    # a step: 140 K1 / K2 / K3; an eval or sample forward 140 K1
+    per_step = 2 * SDXL_BLOCKS
+    forwards = [(c["launches"]["flash_fwd"] - per_step * c["steps"]) / per_step for c in calls]
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+    evals = [r for r in recs if any(k.startswith("eval/") for k in r)]
+    quantiles = sorted(k for r in evals for k in r if "loss_quantile_" in k)
+    final = run_dir / f"global_step{DRIVER_RESUMED_STEPS}"
+    meta = json.loads((final / "client_state.json").read_text())
+    saved_step = torch.load(final / "state.pt", map_location="cpu", weights_only=True)["step"]
+    adapter = safetensors_io.load_file(run_dir / "step4" / "adapter_model.safetensors")
+    config = set_config_defaults(tomllib.loads(text))
+    uninterrupted, loader_cost = _uninterrupted_loader_state(root, DRIVER_RESUMED_STEPS, config,
+                                                             batch_size=4)
+    step_times = _driver_step_times(run_dir / "metrics.jsonl")
+    step_s = sum(step_times) / len(step_times)
+    example = Image.open(Path(config["output_dir"]) / "example.png")
+    cache = sorted(p.name for p in (root / "train" / "cache" / "sdxl").iterdir())
+    emit(phase="driver-sdxl", cell="driver-sdxl", cache_only_s=cache_s, calls=calls,
+         forwards_beside_steps=forwards, losses=losses, eval=evals, step_s=step_s,
+         step_times_s=step_times, samples_per_s=4 / step_s, final_step=saved_step,
+         loader_state=meta.get("custom_loader"), uninterrupted_loader_state=uninterrupted,
+         loader_cost=loader_cost, adapter_keys=len(adapter), cache_dirs=cache,
+         example_png=list(example.size))
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
+    check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
+    check(len(quantiles) == 9, f"eval quantiles {quantiles}")
+    check(saved_step == DRIVER_RESUMED_STEPS and meta["step"] == DRIVER_RESUMED_STEPS,
+          f"step counter {saved_step}")
+    check(meta.get("custom_loader") == uninterrupted,
+          f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
+    check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
+    check(all(c["lora_tensors_moved"] == c["lora_tensors"] == SDXL_BLOCKS * 20 for c in calls),
+          "LoRA factors did not all move")
+    check(len(adapter) == SDXL_KOHYA_KEYS and all(k.startswith("lora_unet_") for k in adapter),
+          f"adapter keys {len(adapter)}, the JAX export gives {SDXL_KOHYA_KEYS}")
+    check(example.size == (512, 512), f"example.png is {example.size}")
+    for c, f in zip(calls, forwards):
+        check(c["launches"]["flash_bwd_dq"] == c["launches"]["flash_bwd_dkv"] == per_step * c["steps"]
+              and f == int(f) and f > 0, f"driver-sdxl launches {c['launches']}")
+    return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
+
+
+# the kohya adapter of SDXL's UNet at LoRA rank 16: 70 blocks x 10 linears x
+# (lora_down, lora_up, alpha), the key count of the JAX
+# export_sdxl_lora_kohya for that config (held on the CPU by
+# tests/test_torch_sdxl.py::test_full_size_kohya_key_set_matches_jax)
+SDXL_KOHYA_KEYS = 2100
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2369,7 +2891,7 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
-    extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd")
+    extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd", "sdpa_bwd_ms")
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         launches = wan_counts[name]
@@ -2388,7 +2910,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             main = timings["wan_cross"][name]
             beside = {shape: {k: timings[shape][name][k] for k in keys + extra
                               if k in timings[shape][name]}
-                      for shape in ("wan_self", "flux") + tuple(c for c, _ in I2V_CASES)}
+                      for shape in ("wan_self", "flux") + tuple(c for c, _ in I2V_CASES)
+                      + tuple(c for c, _ in SDXL_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -2456,11 +2979,25 @@ def main():
     _free()
     phase_slice_wan_policies()
     optimizer_counts = phase_optimizers()
+    _free()
+    sdxl_t0 = time.perf_counter()
+    timings.update(phase_kernels_sdxl())
+    phase_reference_sdxl()
+    sdxl_lora_counts, *_ = phase_slice_sdxl()
+    _free()
+    sdxl_full_counts, *_ = phase_slice_sdxl(
+        phase="slice-sdxl-fullft", cell="sdxl-fullft", cfg=SDXL_FULLFT_CONFIG,
+        timed_steps=SDXL_FULLFT_STEPS - 1, batch_size=1)
+    _free()
+    driver_sdxl_counts = phase_driver_sdxl()
+    _free()
+    emit(phase="sdxl-phases", seconds=time.perf_counter() - sdxl_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
             "launches_flux_lokr": lokr_counts, "launches_sample": sample_counts,
-            "launches_optimizers": optimizer_counts}
+            "launches_optimizers": optimizer_counts, "launches_sdxl_lora": sdxl_lora_counts,
+            "launches_sdxl_fullft": sdxl_full_counts, "launches_driver_sdxl": driver_sdxl_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more))
     print(card)

@@ -22,8 +22,10 @@ function:
   or `blocks.{i}.*` (Wan).
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
-2.2 VAEs and the CLIP vision tower (models/autoencoder_kl.py, umt5.py,
-wan_vae.py, wan_vae22.py, wan_clip.py): a Conv `kernel` [..., in, out] of
+2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
+(models/autoencoder_kl.py, umt5.py, wan_vae.py, wan_vae22.py, wan_clip.py,
+sdxl_unet.py, clip_text.py; for the towers it is the counterpart of the
+JAX sdxl_convert.flax_hf_to_torch_sd): a Conv `kernel` [..., in, out] of
 any rank becomes torch's `weight` [out, in, ...], a Dense `kernel` is
 transposed, an Embed `embedding` and a norm `scale` become `weight`, and
 the unrolled `block_{i}` modules become the ModuleList entries `blocks.{i}`.
@@ -142,8 +144,8 @@ _BLOCK = re.compile(r"^block_(\d+)$")
 
 
 def tree_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port module's state_dict from a JAX VAE, UMT5 or CLIP-vision
-    parameter tree (see module docstring)."""
+    """The port module's state_dict from a JAX VAE, UMT5, CLIP-vision,
+    SDXL UNet or CLIP text parameter tree (see module docstring)."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}

@@ -9,7 +9,11 @@ the JAX module (no flash kernel there either); convolutions, group norms and
 matmuls are torch's own. The caching phase runs `encode` on the card.
 
 Config presets: `flux` (16 latent channels, scaling 0.3611, shift 0.1159,
-no quant convs) and `tiny` (a small random VAE for tests).
+no quant convs), `sdxl` and `sd` (4 latent channels, scaling 0.13025 and
+0.18215, no shift, with the quant_conv and post_quant_conv 1 x 1
+convolutions) and `tiny` (a small random VAE for tests). load_image_vae
+reads any of them from diffusers, original-SD (`first_stage_model.`) or
+ComfyUI (`vae.`) keys, the topology inferred from the weights' shapes.
 """
 
 from __future__ import annotations
@@ -38,6 +42,16 @@ class VAEConfig:
     @staticmethod
     def flux(**kw) -> "VAEConfig":
         return VAEConfig(**kw)
+
+    @staticmethod
+    def sdxl(**kw) -> "VAEConfig":
+        return VAEConfig(**{**dict(latent_channels=4, scaling_factor=0.13025, shift_factor=0.0,
+                                   use_quant_conv=True), **kw})
+
+    @staticmethod
+    def sd(**kw) -> "VAEConfig":
+        return VAEConfig(**{**dict(latent_channels=4, scaling_factor=0.18215, shift_factor=0.0,
+                                   use_quant_conv=True), **kw})
 
     @staticmethod
     def tiny(**kw) -> "VAEConfig":
@@ -267,3 +281,91 @@ def diffusers_vae_state_dict(vae: AutoencoderKL) -> Dict[str, torch.Tensor]:
     convert_diffusers_vae."""
     ours = vae.state_dict()
     return {theirs: ours[mine] for mine, theirs in _diffusers_names(vae.config)}
+
+
+# --- universal image-VAE loader ----------------------------------------------
+
+
+def convert_sd_vae_keys_to_diffusers(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Original SD first_stage_model keys -> diffusers AutoencoderKL keys;
+    the mid-block attention's 1 x 1 convolution weights [O, I, 1, 1] become
+    linear weights [O, I]. (The JAX function renames the attention's
+    "k." inside "mid_block." too, giving "mid_blocto_k."; not copied.)"""
+    renames = [("conv_shortcut", "nin_shortcut"), ("conv_norm_out", "norm_out"),
+               ("mid_block.attentions.0.", "mid.attn_1.")]
+    for i in range(4):
+        for j in range(2):
+            renames.append((f"encoder.down_blocks.{i}.resnets.{j}.", f"encoder.down.{i}.block.{j}."))
+        if i < 3:
+            renames.append((f"down_blocks.{i}.downsamplers.0.", f"down.{i}.downsample."))
+            renames.append((f"up_blocks.{i}.upsamplers.0.", f"up.{3-i}.upsample."))
+        for j in range(3):
+            renames.append((f"decoder.up_blocks.{i}.resnets.{j}.", f"decoder.up.{3-i}.block.{j}."))
+    for i in range(2):
+        renames.append((f"mid_block.resnets.{i}.", f"mid.block_{i+1}."))
+    attn_renames = [("group_norm.", "norm."), ("to_q.", "q."), ("to_k.", "k."), ("to_v.", "v."),
+                    ("to_out.0.", "proj_out.")]
+    out = {}
+    for k, v in sd.items():
+        nk = k
+        for hf_part, sd_part in renames:
+            nk = nk.replace(sd_part, hf_part)
+        if "mid_block.attentions.0." in nk:
+            # renamed after the block prefix only ("k." is also the end of
+            # "mid_block.")
+            head, tail = nk.split("mid_block.attentions.0.", 1)
+            for hf_part, sd_part in attn_renames:
+                if tail.startswith(sd_part):
+                    tail = hf_part + tail[len(sd_part):]
+            nk = f"{head}mid_block.attentions.0.{tail}"
+            if v.dim() == 4 and v.shape[2] == v.shape[3] == 1:
+                v = v.reshape(v.shape[0], v.shape[1])
+        out[nk] = v
+    return out
+
+
+def infer_vae_config_from_sd(sd: Dict[str, torch.Tensor], **overrides) -> VAEConfig:
+    """The AutoencoderKL topology of a diffusers-keyed state dict: depth,
+    widths, resnets a stage, latent channels and quant convs from the
+    tensors; scaling and shift those of Flux (16 channels) or SDXL (4),
+    else 1 and 0, unless overridden."""
+    blocks = []
+    while f"encoder.down_blocks.{len(blocks)}.resnets.0.conv1.weight" in sd:
+        blocks.append(int(sd[f"encoder.down_blocks.{len(blocks)}.resnets.0.conv1.weight"].shape[0]))
+    if not blocks:
+        raise ValueError("not an AutoencoderKL-shaped state dict")
+    layers = 0
+    while f"encoder.down_blocks.0.resnets.{layers}.conv1.weight" in sd:
+        layers += 1
+    latent = int(sd["encoder.conv_out.weight"].shape[0]) // 2
+    defaults = {16: dict(scaling_factor=0.3611, shift_factor=0.1159),
+                4: dict(scaling_factor=0.13025, shift_factor=0.0)}
+    kw = dict(latent_channels=latent, block_out_channels=tuple(blocks), layers_per_block=layers,
+              use_quant_conv="quant_conv.weight" in sd,
+              **defaults.get(latent, dict(scaling_factor=1.0, shift_factor=0.0)))
+    kw.update(overrides)
+    return VAEConfig(**kw)
+
+
+def load_image_vae(path, device=None, **config_overrides):
+    """Any AutoencoderKL-family image VAE from a safetensors file or folder
+    (diffusers, original-SD `first_stage_model.` or ComfyUI `vae.` keys),
+    its topology inferred from the shapes: (vae on `device`, frozen, config).
+    config_overrides (e.g. dtype, scaling_factor) go to the config."""
+    from .weights import load_safetensors_dir
+
+    sd = {}
+    for k, v in load_safetensors_dir(path).items():
+        for p in ("first_stage_model.", "vae."):
+            if k.startswith(p):
+                k = k[len(p):]
+                break
+        sd[k] = v
+    if any(k.startswith("encoder.down.") for k in sd):
+        sd = convert_sd_vae_keys_to_diffusers(sd)
+    cfg = infer_vae_config_from_sd(sd, **config_overrides)
+    with torch.device("meta"):
+        vae = AutoencoderKL(cfg)
+    vae = vae.to_empty(device=device or "cpu")
+    vae.load_state_dict({k: v.to(cfg.dtype) for k, v in convert_diffusers_vae(sd, cfg).items()})
+    return vae.eval().requires_grad_(False), cfg

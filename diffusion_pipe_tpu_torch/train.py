@@ -20,15 +20,15 @@ steps [1, N + 1) to run_dir/profile.
 
 --dump_dataset DIR decodes up to 16 cached latents of each size bucket
 back to PNGs (the first frame of a video) and exits after the caching
-phase. --test_sample PROMPT samples one 512 x 512 latent with the Euler
-flow sampler (model.sample_steps steps, default 20) through the
-initialised model, decodes it (a video's first frame) and writes
+phase. --test_sample PROMPT samples one 512 x 512 latent (the Euler flow
+sampler; DDIM for SDXL) in model.sample_steps steps (default 20) through
+the initialised model, decodes it (a video's first frame) and writes
 output_dir/example.png before training.
 
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
 optimizer (A10), Flux full fine-tuning's diffusers-layout export (A4), and
-families other than Flux and Wan (A9).
+families other than Flux, Wan and SDXL (A9).
 """
 
 from __future__ import annotations
@@ -78,12 +78,13 @@ def _check_ported(config, args):
             "blocks_to_swap and optimizer.type = 'offload' are not ported yet (ROADMAP A10)")
     from .models import get_model_class
     from .models.flux import FluxPipeline
+    from .models.sdxl import SDXLPipeline
     from .models.wan import WanPipeline
 
-    if get_model_class(config["model"]["type"]) not in (FluxPipeline, WanPipeline):
+    if get_model_class(config["model"]["type"]) not in (FluxPipeline, WanPipeline, SDXLPipeline):
         raise NotImplementedError(
-            f"the driver trains the Flux and Wan families so far; {config['model']['type']!r} "
-            "needs its VAE and text encoders ported (ROADMAP A9)")
+            f"the driver trains the Flux, Wan and SDXL families so far; "
+            f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 
 def _to_png(image: torch.Tensor, path: Path) -> None:
@@ -116,14 +117,16 @@ def dump_dataset(pipeline, train_data, out_dir: Path) -> int:
 
 def test_sample(pipeline, config, prompt: str, device) -> Path:
     """One 512 x 512 sample of `prompt` through the model as it stands,
-    written to output_dir/example.png."""
+    written to output_dir/example.png. The caption goes to the sampler too
+    (SDXL encodes it with its towers)."""
     embeds = {}
     for fn in pipeline.get_call_text_encoder_fns():
         embeds.update(fn([prompt]))
     embeds = {k: torch.as_tensor(v).to(device) for k, v in embeds.items()}
     latents = pipeline.sample(width=512, height=512,
                               generator=torch.Generator(device=device).manual_seed(0),
-                              num_steps=int(config.get("sample_steps", 20)), **embeds)
+                              num_steps=int(config.get("sample_steps", 20)), caption=prompt,
+                              **embeds)
     with torch.no_grad():
         img = pipeline._load_vae().decode(latents)[0]
     out = Path(config["output_dir"]) / "example.png"

@@ -10,6 +10,8 @@ from a seed, in f32, at B=1, H=2, S=256, D=128.
 The kernels themselves are tested on the GPU by test_torch_kernels_gpu.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from diffusion_pipe_tpu.ops.flash_attention import (
 )
 from diffusion_pipe_tpu_torch.ops import flash_attention as port_fa
 from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import JAX_FAST_COMPILE
 
 
 B, SQ, H, D = 1, 256, 2, 128
@@ -68,6 +71,21 @@ def _jax_fn(skv, mask):
     return out, lse
 
 
+@functools.lru_cache(maxsize=None)
+def _reference(case):
+    """The Pallas kernel's O, LSE and (dQ, dK, dV) for `case`, from one jit
+    shared by the forward and backward tests."""
+    q, k, v, do, mask = _inputs(case)
+    out_fn, lse_fn = _jax_fn(k.shape[1], mask)
+
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+    def run(q, k, v, do):
+        o, vjp = jax.vjp(out_fn, q, k, v)
+        return o, lse_fn(q, k, v), vjp(do)
+
+    return jax.tree.map(np.asarray, run(q, k, v, do))
+
+
 def _port(q, k, v, mask):
     t = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     tmask = None if mask is None else torch.from_numpy(mask)
@@ -78,9 +96,7 @@ def _port(q, k, v, mask):
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_matches_pallas(case):
     q, k, v, _, mask = _inputs(case)
-    out_fn, lse_fn = _jax_fn(k.shape[1], mask)
-    o_ref = np.asarray(out_fn(q, k, v))
-    lse_ref = np.asarray(lse_fn(q, k, v))
+    o_ref, lse_ref, _ = _reference(case)
     _, o, lse = _port(q, k, v, mask)
     assert o.shape == (B, SQ, H, D) and lse.shape == (B, H, SQ)
     np.testing.assert_allclose(o.detach().numpy(), o_ref, atol=2e-5, rtol=2e-5)
@@ -90,14 +106,12 @@ def test_forward_matches_pallas(case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_backward_matches_pallas(case):
     q, k, v, do, mask = _inputs(case)
-    out_fn, _ = _jax_fn(k.shape[1], mask)
-    _, vjp = jax.vjp(out_fn, q, k, v)
-    refs = vjp(jnp.asarray(do))
+    _, _, refs = _reference(case)
     t, o, _ = _port(q, k, v, mask)
     o.backward(torch.from_numpy(do))
     for got, ref in zip(t, refs):
         assert got.grad.shape == ref.shape
-        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+        np.testing.assert_allclose(got.grad.numpy(), ref,
                                    atol=5e-4, rtol=1e-3)
 
 

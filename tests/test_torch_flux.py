@@ -23,8 +23,6 @@ from diffusion_pipe_tpu.training import flow as jflow
 from diffusion_pipe_tpu.training import losses as jlosses
 from diffusion_pipe_tpu.training.train_state import lora_predicate as jax_lora
 from diffusion_pipe_tpu.training.train_state import merge_params, partition_params
-from diffusion_pipe_tpu.training.optimizers import get_optimizer as jax_get_optimizer
-from diffusion_pipe_tpu.training.trainer import init_train_state as jax_init_train_state
 from diffusion_pipe_tpu.training.trainer import make_loss_fn
 from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
 from diffusion_pipe_tpu_torch.models import get_model_class
@@ -35,31 +33,47 @@ from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import (JAX_FAST_COMPILE, jax_draws, random_params, tiny_batch,
-                                tiny_flux_config)
+from torch_port_helpers import (JAX_FAST_COMPILE, jax_draws, jax_initial_state, random_params,
+                                tiny_batch, tiny_flux_config)
 
 KEY = jax.random.PRNGKey(4)
+PREP_KEY = jax.random.PRNGKey(3)
+
+
+def masked_batch():
+    """The tiny batch with a loss mask and Kontext control latents."""
+    batch = tiny_batch(11)
+    rng = np.random.default_rng(13)
+    batch["mask"] = (rng.random((2, 12, 20)) > 0.5).astype(np.float32)
+    batch["control_latents"] = rng.standard_normal((2, 16, 8, 8)).astype(np.float32)
+    return batch
 
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """JAX pipeline, weights, and its forward, loss and LoRA grads at KEY."""
+    """JAX pipeline, weights, and in one jit its forward, loss and LoRA
+    grads at KEY, and its prepare_inputs of masked_batch() at PREP_KEY."""
     cfg = tiny_flux_config()
     pipeline = jax_model_class("flux")(cfg)
     params = random_params(pipeline, seed=5, lora_b_std=0.05)
     jbatch = {k: jnp.asarray(v) for k, v in tiny_batch(11).items()}
+    jmasked = {k: jnp.asarray(v) for k, v in masked_batch().items()}
     trainable, frozen = partition_params(params, jax_lora)
 
-    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
-    def run(trainable, frozen):
-        inputs, _, _ = pipeline.prepare_inputs(KEY, jbatch)
+    def loss_fn(trainable):  # make_loss_fn's loss, with its output
+        inputs, target, mask = pipeline.prepare_inputs(KEY, jbatch)
         out = pipeline.forward(merge_params(trainable, frozen), inputs)
-        loss, grads = jax.value_and_grad(make_loss_fn(pipeline))(trainable, frozen, jbatch, KEY)
-        return out, loss, grads
+        return pipeline.loss_fn(out, target, mask), out
 
-    out, loss, grads = run(trainable, frozen)
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+    def run(trainable):
+        (loss, out), grads = jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+        return out, loss, grads, pipeline.prepare_inputs(PREP_KEY, jmasked)
+
+    out, loss, grads, prep = run(trainable)
     ref = dict(out=np.asarray(out), loss=float(loss),
-               grads=jax_to_state_dict(jax.tree.map(np.asarray, grads)))
+               grads=jax_to_state_dict(jax.tree.map(np.asarray, grads)),
+               prep=jax.tree.map(np.asarray, prep))
     return cfg, pipeline, params, ref
 
 
@@ -73,15 +87,10 @@ def _port(cfg, params):
 def test_prepare_inputs_matches(jax_side):
     """Including a loss mask (resized to the latents and packed) and Kontext
     control latents appended to the image sequence."""
-    cfg, jpipe, params, _ = jax_side
-    batch = tiny_batch(11)
-    rng = np.random.default_rng(13)
-    batch["mask"] = (rng.random((2, 12, 20)) > 0.5).astype(np.float32)
-    batch["control_latents"] = rng.standard_normal((2, 16, 8, 8)).astype(np.float32)
-    key = jax.random.PRNGKey(3)
-    j_inputs, j_target, j_mask = jax.jit(jpipe.prepare_inputs, compiler_options=JAX_FAST_COMPILE)(
-        key, {k: jnp.asarray(v) for k, v in batch.items()})
-    noise, t = jax_draws(jpipe, key, batch)
+    cfg, jpipe, params, ref = jax_side
+    batch = masked_batch()
+    j_inputs, j_target, j_mask = ref["prep"]
+    noise, t = jax_draws(jpipe, PREP_KEY, batch)
     pipe = _port(cfg, params)
     t_inputs, t_target, t_mask = pipe.prepare_inputs(
         {k: torch.from_numpy(v) for k, v in batch.items()}, noise=noise, t=t)
@@ -128,8 +137,11 @@ def test_timestep_quantiles_match(dist):
     shape of every draw), shift and truncation included; 1e-6."""
     jd = jflow.TimestepDistribution.from_model_config(dist)
     td = tflow.TimestepDistribution.from_model_config(dist)
-    for q in (0.1, 0.5, 0.9):
-        j = jflow.sample_timesteps(jax.random.PRNGKey(0), 3, jd, quantile=q, image_seq_len=1024)
+    quantiles = (0.1, 0.5, 0.9)
+    refs = jax.jit(lambda key: [
+        jflow.sample_timesteps(key, 3, jd, quantile=q, image_seq_len=1024) for q in quantiles],
+        compiler_options=JAX_FAST_COMPILE)(jax.random.PRNGKey(0))
+    for q, j in zip(quantiles, refs):
         t = tflow.sample_timesteps(3, td, quantile=q, image_seq_len=1024)
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6, rtol=1e-6)
 
@@ -158,16 +170,15 @@ def _int8_config(mode):
 
 @pytest.fixture(scope="module")
 def jax_int8_state():
-    """The JAX state after init_train_state for the tiny Flux with fp8 block
-    weights and int8_matmul (its frozen block weights pre-quantized to
-    int8), as a port state_dict; both int8 modes share its structure."""
+    """The JAX trees that init_train_state builds for the tiny Flux with fp8
+    block weights and int8_matmul (its frozen block weights pre-quantized
+    to int8), and them as a port state_dict; both int8 modes share its
+    structure."""
     cfg = _int8_config("fwd_bwd")
     pipeline = jax_model_class("flux")(cfg)
     params = random_params(pipeline, seed=5, lora_b_std=0.05)
-    state = jax_init_train_state(pipeline, jax_get_optimizer(cfg), jax.random.PRNGKey(0),
-                                 jax_lora, params=params)
-    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(state.trainable, state.frozen)))
-    return state, sd
+    trainable, frozen, sd = jax_initial_state(params, jax_lora)
+    return (trainable, frozen), sd
 
 
 @pytest.mark.parametrize("mode", [True, "fwd_bwd"], ids=["int8", "int8_fwd_bwd"])
@@ -183,13 +194,12 @@ def test_fp8_int8_attn_loss_and_lora_grads_match(jax_int8_state, mode):
     multiplies by 1/127 instead of dividing by 127, so a per-row scale can
     differ by one ulp and a value at a .5 boundary round the other way;
     every other step is f32, summed in another order."""
-    state, sd = jax_int8_state
+    (trainable, frozen), sd = jax_int8_state
     cfg = _int8_config(mode)
     jpipe = jax_model_class("flux")(cfg)
     jbatch = {k: jnp.asarray(v) for k, v in tiny_batch(11).items()}
     ref_loss, grads = jax.jit(jax.value_and_grad(make_loss_fn(jpipe)),
-                              compiler_options=JAX_FAST_COMPILE)(state.trainable, state.frozen,
-                                                                 jbatch, KEY)
+                              compiler_options=JAX_FAST_COMPILE)(trainable, frozen, jbatch, KEY)
     ref_grads = jax_to_state_dict(jax.tree.map(np.asarray, grads))
 
     pipe = get_model_class("flux")(cfg, device="cpu")

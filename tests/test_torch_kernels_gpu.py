@@ -17,7 +17,9 @@ against the f32 plain result must be at most twice the plain version's in
 the same dtype, plus 1e-3 of the reference's largest magnitude. K3 gives the
 same bits on two launches, with and without the query split, and K2 at the
 Flux-dev and Wan2.1 cross-attention shapes; K2 and K3 at the i2v image
-cross-attention (H 40, Skv 257 and 514). A batch element whose keys are
+cross-attention (H 40, Skv 257 and 514). SDXL's cross-attention (B 4,
+H 20, Sq 256 against 77 CLIP tokens, D 64), with and without a padded
+batch element, K2 and K3 deterministic there. A batch element whose keys are
 all masked gets O = 0, the mask value as its LSE and zero gradients, with
 and without the query split.
 
@@ -180,6 +182,51 @@ def test_image_cross_backward_is_deterministic(skv, cuda_device):
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x).all()) for x in (dq1, dk1, dv1))
     assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdxl_cross_shape_matches_plain(masked, cuda_device):
+    """K1-K3 at SDXL's 512 px cross-attention (B 4, Sq 256, H 20, D 64,
+    bf16) against the 77 CLIP tokens, one key tile with 51 padded keys
+    (K3's query split), optionally with batch element 0 keeping 40 of the
+    77: the error bound of test_kernels_match_plain_on_gpu; the masked keys
+    get no dK / dV; K2 and K3 give the same bits twice."""
+    b, sq, skv, h, d = 4, 256, 77, 20, 64
+    rng = np.random.default_rng(19)
+    q, do = (torch.from_numpy(rng.standard_normal((b, sq, h, d), dtype=np.float32))
+             .to(cuda_device, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, skv, h, d), dtype=np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.ones((b, skv), dtype=torch.int32, device=cuda_device)
+        mask[0, 40:] = 0
+    scale = d ** -0.5
+
+    def plain(q, k, v, do):
+        o, lse = port_fa.flash_forward_plain(q, k, v, mask, scale)
+        di = port_fa.row_dot(do, o)
+        return (o, lse, port_fa.flash_bwd_dq_plain(q, k, v, mask, lse, di, do, scale),
+                *port_fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale))
+
+    refs = plain(q.float(), k.float(), v.float(), do.float())
+    plains = plain(q, k, v, do)
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, mask, scale)
+    di = port_fa.row_dot(do, o)
+    dq = port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)
+    dk, dv = port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
+    assert port_fa.flash_bwd_dkv_cuda.last_splits > 1
+    dq2 = port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)
+    dk2, dv2 = port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
+    torch.cuda.synchronize()
+    for got, plain_out, ref in zip((o, lse, dq, dk, dv), plains, refs):
+        err = (got.float() - ref).abs().max().item()
+        plain_err = (plain_out.float() - ref).abs().max().item()
+        assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item(), (err, plain_err)
+    if masked:
+        assert torch.all(dk[0, 40:] == 0) and torch.all(dv[0, 40:] == 0)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.cuda

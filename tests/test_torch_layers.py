@@ -2,7 +2,8 @@
 
 Weights come from the Flax init and cross over through interop.py; every
 comparison is in f32 on the CPU with atol/rtol 1e-5 (the two frameworks
-differ only in summation order).
+differ only in summation order). The JAX side runs under jit with
+JAX_FAST_COMPILE (op by op, each op would compile on its own).
 """
 
 import jax
@@ -17,9 +18,14 @@ from diffusion_pipe_tpu.models import wan_model as jwan
 from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
 from diffusion_pipe_tpu_torch.models import layers as tl
 from torch_port_helpers import one_torch_thread  # noqa: F401
+from torch_port_helpers import JAX_FAST_COMPILE
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 RNG = np.random.default_rng(3)
+
+
+def _jit(fn, **kw):
+    return jax.jit(fn, compiler_options=JAX_FAST_COMPILE, **kw)
 
 
 def _np(shape, scale=1.0):
@@ -38,13 +44,13 @@ def test_lora_dense(rank):
     x = _np((2, 5, 24))
     jm = jl.LoraDense(16, dtype=jnp.float32, param_dtype=jnp.float32,
                       lora_rank=rank, lora_alpha=8.0)
-    params = jax.tree.map(np.asarray, nn.unbox(jm.init(jax.random.PRNGKey(0), x)))
+    params = jax.tree.map(np.asarray, nn.unbox(_jit(jm.init)(jax.random.PRNGKey(0), x)))
     if rank:
         params["params"]["lora_b"] = _np((rank, 16))
         assert params["params"]["lora_a"].min() >= 0.0  # stored unshifted
     tm = tl.LoraDense(24, 16, dtype=torch.float32, lora_rank=rank, lora_alpha=8.0)
     tm.load_state_dict(jax_to_state_dict(params))
-    _close(tm(torch.from_numpy(x)), jm.apply(params, x))
+    _close(tm(torch.from_numpy(x)), _jit(jm.apply)(params, x))
 
 
 def test_rmsnorm_and_layer_norm_and_modulate():
@@ -53,16 +59,17 @@ def test_rmsnorm_and_layer_norm_and_modulate():
     params = {"params": {"scale": _np((32,))}}
     tm = tl.RMSNorm(32)
     tm.load_state_dict(jax_to_state_dict(params))
-    _close(tm(torch.from_numpy(x)), jm.apply(params, x))
-
     y = _np((2, 7, 32), 2.0) + 1.5
-    _close(tl.layer_norm(torch.from_numpy(y)), jl.layer_norm_no_affine(y))
     w, b = _np((32,)), _np((32,))  # Wan's affine f32 layer norm
-    _close(tl.layer_norm(torch.from_numpy(y), 1e-6, torch.from_numpy(w), torch.from_numpy(b)),
-           jwan._layer_norm(y, 1e-6, w, b))
     shift, scale = _np((2, 32)), _np((2, 32))
-    _close(tl.modulate(*(torch.from_numpy(a) for a in (y, shift, scale))),
-           jl.modulate(y, shift, scale))
+    ref = _jit(lambda x, y, w, b, shift, scale: (
+        jm.apply(params, x), jl.layer_norm_no_affine(y), jwan._layer_norm(y, 1e-6, w, b),
+        jl.modulate(y, shift, scale)))(x, y, w, b, shift, scale)
+    _close(tm(torch.from_numpy(x)), ref[0])
+    _close(tl.layer_norm(torch.from_numpy(y)), ref[1])
+    _close(tl.layer_norm(torch.from_numpy(y), 1e-6, torch.from_numpy(w), torch.from_numpy(b)),
+           ref[2])
+    _close(tl.modulate(*(torch.from_numpy(a) for a in (y, shift, scale))), ref[3])
 
 
 def test_timestep_embeddings():
@@ -71,7 +78,8 @@ def test_timestep_embeddings():
     t = np.array([0.0, 137.5, 999.0], np.float32)
     np.testing.assert_allclose(
         tl.sinusoidal_timestep_embedding(torch.from_numpy(t), 256).numpy(),
-        np.asarray(jl.sinusoidal_timestep_embedding(t, 256)), atol=1e-4, rtol=0)
+        np.asarray(_jit(jl.sinusoidal_timestep_embedding, static_argnums=1)(t, 256)),
+        atol=1e-4, rtol=0)
     t = t / 1000.0  # small arguments keep the embedders within 1e-5
 
     for jcls, tcls, x in (
@@ -82,10 +90,10 @@ def test_timestep_embeddings():
          _np((3, 32))),
     ):
         jm = jcls()
-        params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1), x))
+        params = jax.tree.map(np.asarray, _jit(jm.init)(jax.random.PRNGKey(1), x))
         tm = tcls()
         tm.load_state_dict(jax_to_state_dict(params))
-        _close(tm(torch.from_numpy(x)), jm.apply(params, x))
+        _close(tm(torch.from_numpy(x)), _jit(jm.apply)(params, x))
 
 
 def test_patch_embedding():
@@ -106,13 +114,18 @@ def test_rope():
     ids = np.stack([np.zeros(12), np.arange(12) // 4, np.arange(12) % 4], -1)
     ids = ids.astype(np.float32)
     axes = (8, 12, 12)
-    jcos, jsin = jl.rope_frequencies(jnp.asarray(ids), axes)
+    x = _np((2, 12, 3, 32))
+
+    @_jit
+    def ref(ids, x):
+        jcos, jsin = jl.rope_frequencies(ids, axes)
+        return jcos, jsin, jl.apply_rope(x, jcos, jsin)
+
+    jcos, jsin, jrot = ref(ids, x)
     tcos, tsin = tl.rope_frequencies(torch.from_numpy(ids), axes)
     _close(tcos, jcos)
     _close(tsin, jsin)
-    x = _np((2, 12, 3, 32))
-    _close(tl.apply_rope(torch.from_numpy(x), tcos, tsin),
-           jl.apply_rope(x, jcos, jsin))
+    _close(tl.apply_rope(torch.from_numpy(x), tcos, tsin), jrot)
 
 
 def test_interop_splits_stacks_and_keeps_bf16():

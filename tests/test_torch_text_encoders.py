@@ -46,11 +46,21 @@ def models(tmp_path_factory):
 
 
 def test_t5_matches_jax(models, monkeypatch):
-    """The JAX encoder's jit compiles with JAX_FAST_COMPILE."""
+    """The JAX encoder's jit compiles with JAX_FAST_COMPILE, and the Flax
+    model's random init, which from_pretrained replaces by the loaded
+    weights, runs in one jit (op by op it compiles every op)."""
     import functools
 
     import jax
+    from transformers import FlaxT5EncoderModel
 
+    init_weights = FlaxT5EncoderModel.init_weights
+
+    def jitted_init_weights(self, rng, input_shape, params=None):
+        return jax.jit(lambda r: init_weights(self, r, input_shape, params),
+                       compiler_options=JAX_FAST_COMPILE)(rng)
+
+    monkeypatch.setattr(FlaxT5EncoderModel, "init_weights", jitted_init_weights)
     monkeypatch.setattr(jax, "jit", functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE))
     ref = np.asarray(JaxEncoder("t5", str(models / "t5"), 8,
                                 tokenizer_path=str(models / "tok")).encode(CAPTIONS))

@@ -16,6 +16,10 @@ images as one-frame videos):
 - a resume with --reset_dataloader, --reset_optimizer or
   --reset_optimizer_params restarts the loader, the optimizer state, or the
   LR schedule only; --profile_steps writes a trace;
+- tiny SDXL (captions tokenized in the step, its seeded VAE) with LoRA: 2
+  steps, a resume to 3 against an uninterrupted 3-step run, and the kohya
+  adapter export (510 keys, as the JAX export gives them); with full
+  fine-tuning (three LR groups): 2 steps and the single-file export;
 - the options and families not ported yet raise NotImplementedError.
 """
 
@@ -163,6 +167,95 @@ def _cache_train_resume(root, make_config, family, adapter_keys):
                    for k in sb)
 
 
+def _sdxl_config(root, out, full=False):
+    path = _config(root, out, f"save_every_n_steps = {2 if full else 3}\n")
+    with open(path) as f:
+        text = f.read().replace('type = "flux"', 'type = "sdxl"')
+    # no eval (its 9-quantile forwards would double the steps' time; the
+    # chip smoke's driver-sdxl phase runs it) and, as examples/sdxl.toml,
+    # no checkpointing
+    text = text.replace("eval_every_n_steps = 2\n", "eval_before_first_step = false\n")
+    text = text.replace('activation_checkpointing = "attn"\n', "")
+    if full:  # no adapter: every UNet and tower weight trains, in three groups
+        text = text.replace('[adapter]\ntype = "lora"\nrank = 4\n', "")
+        text = text.replace('_tiny = true', '_tiny = true\nunet_lr = 2e-3\n'
+                            'text_encoder_1_lr = 5e-4\ntext_encoder_2_lr = 0')
+        text = text.replace('type = "adamw8bit"', 'type = "adamw"')
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def test_sdxl_lora_train_resume_and_kohya_export(root):
+    """Captions reach host_prepare in the batch (no text cache); 2 steps,
+    a resume to 3 equal to an uninterrupted run, the kohya adapter."""
+    cfg = _sdxl_config(root, "sdxl_resumed")
+    assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "2"]) == 0
+    caches = sorted(p.name for p in (root / "train" / "cache" / "sdxl").iterdir())
+    assert caches == ["cache_64x64x1", "cache_96x32x1", "metadata.json"]
+    assert train.main(["--config", cfg, "--device", "cpu", "--resume_from_checkpoint",
+                       "--max_steps", "3"]) == 0
+    assert train.main(["--config", _sdxl_config(root, "sdxl_straight"), "--device", "cpu",
+                       "--max_steps", "3"]) == 0
+    run, straight = _run_dir(root, "sdxl_resumed"), _run_dir(root, "sdxl_straight")
+    strip = [[{k: v for k, v in r.items() if k not in ("time", "eval/eval/eval_time_sec")}
+              for r in _records(d)] for d in (run, straight)]
+    assert [r["step"] for r in strip[0] if "train/loss" in r] == [1, 2, 3]
+    assert strip[0] == strip[1]
+    assert all(np.isfinite(r["train/loss"]) for r in strip[0] if "train/loss" in r)
+    assert ((run / "global_step3" / "client_state.json").read_text()
+            == (straight / "global_step3" / "client_state.json").read_text())
+    a = torch.load(run / "global_step3" / "state.pt", weights_only=True)
+    b = torch.load(straight / "global_step3" / "state.pt", weights_only=True)
+    for k, v in b["trainable"].items():
+        assert torch.equal(a["trainable"][k], v), k
+    from safetensors.numpy import load_file
+
+    adapter = load_file(str(run / "step3" / "adapter_model.safetensors"))
+    # 17 transformer blocks x 10 LoRA linears x (lora_down, lora_up, alpha)
+    assert len(adapter) == 17 * 10 * 3
+    assert all(k.startswith("lora_unet_") for k in adapter)
+
+
+def test_sdxl_full_fine_tuning_and_single_file_export(root):
+    """Full fine-tuning (unet_lr, text_encoder_1_lr, text_encoder_2_lr = 0:
+    bigG stays where it started), 2 steps and the step's single-file
+    export."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+
+    cfg = _sdxl_config(root, "sdxl_full", full=True)
+    assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "2"]) == 0
+    run = _run_dir(root, "sdxl_full")
+    state = torch.load(run / "global_step2" / "state.pt", weights_only=True)["trainable"]
+    assert any(k.startswith("text_encoder_2.") for k in state)
+    model = safetensors_io.load_file(run / "step2" / "model.safetensors")
+    assert any(k.startswith("model.diffusion_model.") for k in model)
+    assert "conditioner.embedders.1.model.text_projection" in model
+    te2 = {k.removeprefix("conditioner.embedders.1.model."): v for k, v in model.items()
+           if k.startswith("conditioner.embedders.1.model.")}
+    # lr 0: the exported bigG equals the seeded initialisation
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.sdxl_convert import convert_hf_clip_to_openclip
+    from diffusion_pipe_tpu_torch.training.train_state import full_ft_predicate
+    from diffusion_pipe_tpu_torch.training.trainer import init_train_state
+    from diffusion_pipe_tpu_torch.config import load_config
+
+    pipe = get_model_class("sdxl")(load_config(cfg), device="cpu")
+    init_train_state(pipe, lambda params, names: None,
+                     torch.Generator().manual_seed(load_config(cfg)["seed"]), full_ft_predicate)
+    init = convert_hf_clip_to_openclip(pipe.model.text_encoder_2.state_dict())
+    init["text_projection"] = init.pop("text_projection.weight").t()
+    assert set(init) == set(te2)
+    for k, v in init.items():
+        assert torch.equal(te2[k], v), k
+    # unet_lr 2e-3: every UNet tensor moved from the seeded initialisation
+    unet = {k: v for k, v in state.items() if k.startswith("unet.")}
+    unet_init = {f"unet.{k}": v for k, v in pipe.model.unet.state_dict().items()}
+    assert unet and set(unet) == set(unet_init)
+    for k, v in unet.items():
+        assert not torch.equal(v, unet_init[k].to(v.dtype)), k
+
+
 def test_module_entry_point_and_device_rule(root, monkeypatch):
     cfg = _config(root, "module")
     monkeypatch.setattr(sys, "argv", ["train", "--config", cfg, "--device", "cpu",
@@ -181,7 +274,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "sdxl": ("", ('type = "flux"', 'type = "sdxl"'), []),
+    "sd3": ("", ('type = "flux"', 'type = "sd3"'), []),
 }
 
 

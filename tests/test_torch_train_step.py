@@ -59,7 +59,8 @@ def test_three_adamw8bit_steps_match_jax():
     trainable, frozen = partition_params(params, jax_lora)
     # as the JAX init_train_state builds it, with the optimizer init jitted
     jstate = TrainState(step=jnp.zeros([], jnp.int32), trainable=trainable, frozen=frozen,
-                        opt_state=jax.jit(jopt.init)(trainable),
+                        opt_state=jax.jit(jopt.init, compiler_options=JAX_FAST_COMPILE)(
+                            trainable),
                         examples=jnp.zeros([], jnp.int32))
     train_step = jax_make_step(jpipe, jopt, gradient_clipping=CONFIG["gradient_clipping"])
 

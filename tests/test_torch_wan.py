@@ -38,7 +38,6 @@ from diffusion_pipe_tpu.training.optimizers import get_optimizer as jax_get_opti
 from diffusion_pipe_tpu.training.train_state import TrainState, merge_params, partition_params
 from diffusion_pipe_tpu.training.train_state import full_ft_predicate as jax_full_ft
 from diffusion_pipe_tpu.training.train_state import lora_predicate as jax_lora
-from diffusion_pipe_tpu.training.trainer import init_train_state as jax_init_train_state
 from diffusion_pipe_tpu.training.trainer import make_loss_fn as jax_make_loss_fn
 from diffusion_pipe_tpu.training.trainer import make_train_step as jax_make_step
 from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
@@ -48,7 +47,7 @@ from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 from torch_port_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import (JAX_FAST_COMPILE, bf16_ulp, draw_noise_and_t, jax_draws,
-                                random_params)
+                                jax_initial_state, random_params)
 
 KEY = jax.random.PRNGKey(4)
 LR = 5e-3
@@ -175,7 +174,8 @@ def _jax_bf16_steps(cfg, steps, stochastic_rounding):
     tx = jax_get_optimizer(cfg)
     trainable, frozen = partition_params(params, jax_full_ft)
     jstate = TrainState(step=jnp.zeros([], jnp.int32), trainable=trainable, frozen=frozen,
-                        opt_state=tx.init(trainable), examples=jnp.zeros([], jnp.int32))
+                        opt_state=jax.jit(tx.init, compiler_options=JAX_FAST_COMPILE)(trainable),
+                        examples=jnp.zeros([], jnp.int32))
     train_step = jax_make_step(jpipe, tx, gradient_clipping=cfg["gradient_clipping"],
                                gradient_accumulation_steps=gas,
                                stochastic_rounding=stochastic_rounding)
@@ -286,16 +286,12 @@ def test_lora_fp8_int8_attn_loss_and_grads_match():
     cfg["model"] = dict(cfg["model"], transformer_dtype="float8", int8_matmul="fwd_bwd")
     jpipe = jax_model_class("wan")(cfg)
     params = random_params(jpipe, seed=5, lora_b_std=0.05)
-    jstate = jax_init_train_state(jpipe, jax_get_optimizer(cfg), jax.random.PRNGKey(0),
-                                  jax_lora, params=params)
+    trainable, frozen, sd = jax_initial_state(params, jax_lora)
     batch = wan_batch(11)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     ref_loss, grads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jpipe)),
-                              compiler_options=JAX_FAST_COMPILE)(
-        jstate.trainable, jstate.frozen, jbatch, KEY)
+                              compiler_options=JAX_FAST_COMPILE)(trainable, frozen, jbatch, KEY)
     ref_grads = jax_to_state_dict(jax.tree.map(np.asarray, grads))
-    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(jstate.trainable,
-                                                                 jstate.frozen)))
 
     pipe = get_model_class("wan")(cfg, device="cpu")
     state = init_train_state(pipe, get_optimizer(cfg), torch.Generator().manual_seed(0),
@@ -364,16 +360,12 @@ def test_variant_lora_loss_and_grads_match(vt):
     cfg = variant_config(vt)
     jpipe = jax_variant_pipeline(cfg)
     params = random_params(jpipe, seed=5, lora_b_std=0.05)
-    jstate = jax_init_train_state(jpipe, jax_get_optimizer(cfg), jax.random.PRNGKey(0),
-                                  jax_lora, params=params)
+    trainable, frozen, sd = jax_initial_state(params, jax_lora)
     batch = variant_batch(vt, 21)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     ref_loss, grads = jax.jit(jax.value_and_grad(jax_make_loss_fn(jpipe)),
-                              compiler_options=JAX_FAST_COMPILE)(
-        jstate.trainable, jstate.frozen, jbatch, KEY)
+                              compiler_options=JAX_FAST_COMPILE)(trainable, frozen, jbatch, KEY)
     ref_grads = jax_to_state_dict(jax.tree.map(np.asarray, grads))
-    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(jstate.trainable,
-                                                                 jstate.frozen)))
 
     pipe = get_model_class("wan")(cfg, device="cpu")
     assert pipe.wan_config.in_dim == jpipe.wan_config.in_dim

@@ -10,15 +10,24 @@ normal.
 """
 
 import functools
+import json
+import os
+import re
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-import pytest
-import torch
-from flax import linen as nn
+# transformers imports TensorFlow when it finds it (seconds a process), and
+# no port test uses it
+os.environ.setdefault("USE_TF", "0")
 
-from diffusion_pipe_tpu.training.flow import sample_timesteps
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+from flax import linen as nn  # noqa: E402
+
+from diffusion_pipe_tpu.models.layers import prequantize_int8_tree  # noqa: E402
+from diffusion_pipe_tpu.training.flow import sample_timesteps  # noqa: E402
+from diffusion_pipe_tpu.training.train_state import merge_params, partition_params  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,10 +57,27 @@ def tiny_flux_config(**top):
     return cfg
 
 
+_SHAPES = {}
+
+
+def param_shapes(pipeline):
+    """jax.eval_shape of the JAX pipeline's init_params, traced once a
+    process for each model (its module's repr, which holds its config) and
+    model / adapter config: the test files share it."""
+    # the checkpointing policy wraps blocks without renaming a parameter
+    model = re.sub(r"remat=[^,)]*", "", repr(getattr(pipeline, "model", None)))
+    key = (type(pipeline).__name__, model,
+           json.dumps({k: pipeline.config.get(k) for k in ("model", "adapter")},
+                      sort_keys=True, default=str))
+    if key not in _SHAPES:
+        _SHAPES[key] = nn.unbox(jax.eval_shape(pipeline.init_params, jax.random.PRNGKey(0)))
+    return _SHAPES[key]
+
+
 def random_params(pipeline, seed, lora_b_std=0.0):
     """A numpy parameter tree with the JAX pipeline's structure."""
     rng = np.random.default_rng(seed)
-    shapes = nn.unbox(jax.eval_shape(pipeline.init_params, jax.random.PRNGKey(0)))
+    shapes = param_shapes(pipeline)
 
     def fill(path, leaf):
         name = path[-1].key
@@ -104,3 +130,25 @@ def jax_draws(pipeline, key, batch):
     """The noise and t that the JAX prepare_inputs draws from `key`."""
     noise, t = _draws(pipeline.tdist, key, tuple(batch["latents"].shape))
     return torch.tensor(np.asarray(noise)), torch.tensor(np.asarray(t))
+
+
+_prequantize = jax.jit(prequantize_int8_tree, compiler_options=JAX_FAST_COMPILE)
+
+
+def jax_initial_state(params, predicate):
+    """The trainable and frozen trees that the JAX init_train_state builds
+    from `params` (its frozen block kernels pre-quantized to int8 where the
+    config asks), and the whole tree as a port state_dict, for tests that
+    take no JAX optimizer step: init_train_state's eager optimizer init and
+    its prequantize_int8_tree compiled with the default options take
+    seconds, and give the same trees bit for bit."""
+    from diffusion_pipe_tpu_torch.interop import jax_to_state_dict
+
+    from flax import traverse_util
+
+    trainable, frozen = partition_params(params, predicate)
+    if any(k[-1] == "kernel_scale" and v is not None
+           for k, v in traverse_util.flatten_dict(frozen).items()):
+        frozen = _prequantize(frozen)
+    sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(trainable, frozen)))
+    return trainable, frozen, sd

@@ -6,6 +6,8 @@
                                                      # flux-dev-lora-512-fp8-int8
     python3 tools/profile_torch_step.py --slice wan  # wan-1.3b-t2v-fullft-sr
     python3 tools/profile_torch_step.py --slice wan-lora  # wan-1.3b-t2v-lora-attn
+    python3 tools/profile_torch_step.py --slice sdxl-lora # sdxl-lora-512
+    python3 tools/profile_torch_step.py --slice sdxl-fullft  # sdxl-fullft
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -15,7 +17,9 @@ pre-quantized to int8, int8_matmul "fwd_bwd" and "attn" checkpointing as
 bench.py runs it; or chip_smoke.build_wan_slice: full-width Wan2.1-1.3B t2v, full
 fine-tuning in bf16, adamw with stochastic rounding, per-block
 checkpointing, one 81-frame 512 px clip; with chip_smoke.WAN_LORA_CONFIG
-bench.py's Wan row: LoRA r32, adamw8bit, "attn"), builds the kernels if needed, runs
+bench.py's Wan row: LoRA r32, adamw8bit, "attn"; or chip_smoke.build_sdxl_slice:
+SDXL at full size, LoRA r16 with adamw8bit at batch 4 of 512 px, or full
+fine-tuning with adamw at batch 1), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -32,10 +36,11 @@ activities). Prints one JSON line with:
 - unprofiled host-clock times (each ended by a synchronize) of a whole step,
   of forward + backward alone, and of optimizer.step() alone;
 - the matmul flops of one forward (torch.utils.flop_counter; the attention
-  kernels are outside it), the step's dense-product flops taken as three
-  forwards under LoRA (forward, checkpoint recompute, input gradients; the
-  LoRA weight gradients add under 2%) and four under full fine-tuning (the
-  weight gradients as well), and the rate the GEMM kernels reached on them.
+  kernels are outside it; SDXL's convolutions are in it), the step's
+  dense-product flops taken as one forward, one more for the checkpoint
+  recompute when the path checkpoints, one for the input gradients and,
+  under full fine-tuning, one for the weight gradients (the LoRA weight
+  gradients add under 2%), and the rate the GEMM kernels reached on them.
 """
 
 import argparse
@@ -113,7 +118,8 @@ def forward_matmul_flops(pipeline, batch, gen):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora"),
+    ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora",
+                                        "sdxl-lora", "sdxl-fullft"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -131,6 +137,9 @@ def main(argv=None):
         "flux-fp8-int8": ("flux-dev-lora-512-fp8-int8", chip_smoke.FP8_INT8_CONFIG,
                           chip_smoke.build_slice),
         "flux": ("flux-dev-lora-512", chip_smoke.SLICE_CONFIG, chip_smoke.build_slice),
+        "sdxl-lora": ("sdxl-lora-512", chip_smoke.SDXL_LORA_CONFIG, chip_smoke.build_sdxl_slice),
+        "sdxl-fullft": ("sdxl-fullft", chip_smoke.SDXL_FULLFT_CONFIG,
+                        lambda cfg: chip_smoke.build_sdxl_slice(cfg, batch_size=1)),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing
@@ -138,7 +147,8 @@ def main(argv=None):
         cell += f" (activation_checkpointing {args.checkpointing})"
     pipeline, state, step, batch, gen = build(cfg)
     sr = bool(cfg["optimizer"].get("stochastic_rounding", False))
-    forwards = 3 if "adapter" in cfg else 4
+    forwards = (2 + bool(cfg.get("activation_checkpointing"))
+                + ("adapter" not in cfg))
     step(state, batch, gen)
     torch.cuda.synchronize()
 
