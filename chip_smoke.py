@@ -216,6 +216,38 @@ Phases, each printing one JSON line (or more):
                      uninterrupted run, the kohya adapter's 2,100 keys, the
                      launches.
 
+15. kernels-sd3-chroma -- (run last) K1-K3 at SD3's joint sequence at 1024
+                     px (B 2, 4,429 keys = 34 x 128 + 77, D 64) with
+                     SD3-Medium's 24 heads and SD3.5-Large's 38 (checked on
+                     six heads), and Chroma's at 512 px (B 2, 1,536 keys,
+                     D 128, 77 and 300 of the 512 T5 keys valid): against
+                     the plain versions, K2 / K3 deterministic on the masked
+                     shape, timed beside the bound (the valid keys' work),
+                     the plain versions and SDPA (given the same mask).
+    reference-sd3 / reference-chroma -- two blocks of each at its real head
+                     dim (SD3 with qk_norm; Chroma with a T5 key mask), bf16
+                     on the card against f32 on the CPU: output, loss, LoRA
+                     gradients.
+    slice-sd3-lora -- cell sd3-medium-lora-1024: SD3-Medium at full width and
+                     depth (24 joint blocks, hidden 1,536, 2.0 B), LoRA r32
+                     on every block linear, adamw8bit, clip 1.0, per-block
+                     checkpointing, batch 2 of 16 x 128 x 128 latents with
+                     333 text rows (77 CLIP, 256 T5): one warm-up, five
+                     timed steps; 48 / 24 / 24 flash launches a step.
+    slice-chroma-lora -- cell chroma-lora-512: Chroma at full width and
+                     depth (19 + 38 blocks, 8.9 B, Approximator 5 x 5,120),
+                     LoRA r32, adamw8bit, "attn", batch 2 at 512 px with 512
+                     T5 tokens of which 60 and 200 are valid; 57 / 57 / 57.
+    driver-sd3 / driver-chroma -- each family through train.main at full
+                     width and depth: 8 + 2 seeded 512 px PNGs, a seeded VAE
+                     (SD3's 16-channel one; Flux's for Chroma) and seeded
+                     text stand-ins (Chroma's with a T5 mask), --cache_only,
+                     3 steps with the eval, a resume to 5 with --test_sample;
+                     the adapter's keys (999 / 684 with the alphas), and a
+                     third call whose adapter.init_from_existing loads the
+                     epoch export: exported again, the same tensors bit for
+                     bit (Chroma's fused pairs included).
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -450,14 +482,19 @@ def _attn_inputs(b, sq, skv, h, d, masked, gen):
     if masked:
         # text padding: element 0 keeps 300 of its 512 text tokens, element 1
         # all of them; image tokens (after the text) are always valid. A
-        # slice names element 0's masked keys instead.
+        # slice names element 0's masked keys instead, a tuple of slices
+        # each element's.
         mask = torch.ones((b, skv), dtype=torch.int32, device=dev)
-        mask[0, _masked_keys(masked)] = 0
+        for i, keys in enumerate(_masked_keys(masked)):
+            mask[i, keys] = 0
     return q, k, v, do, mask
 
 
 def _masked_keys(masked):
-    return slice(300, 512) if masked is True else masked
+    """The masked keys of each batch element, from the first on."""
+    if isinstance(masked, tuple):
+        return masked
+    return (slice(300, 512) if masked is True else masked,)
 
 
 def _plain_all(fa, q, k, v, do, mask, scale):
@@ -502,27 +539,30 @@ def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None):
         check(err <= 2 * plain_err + floor,
               f"{case}/{name}: kernel error {err} > 2 * {plain_err} + {floor}")
     if masked:
-        # element 0's padded keys get no gradient
-        keys = _masked_keys(masked)
-        check(bool((got[3][0, keys] == 0).all() and (got[4][0, keys] == 0).all()),
-              "masked keys received dK/dV")
+        # the padded keys get no gradient
+        for i, keys in enumerate(_masked_keys(masked)):
+            check(bool((got[3][i, keys] == 0).all() and (got[4][i, keys] == 0).all()),
+                  "masked keys received dK/dV")
     emit(phase="kernels", case=case, q_shape=[b, sq, h, d], kv_len=skv, masked=bool(masked),
          checked_heads=q.shape[2], errors=rec)
     return rec
 
 
-def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
+def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True, masked=False):
     """Each kernel's time, its bound, its plain version's (when with_plain)
-    and SDPA's forward as the yardstick of K1, on unmasked inputs; SDPA's
+    and SDPA's forward as the yardstick of K1, on unmasked inputs (masked:
+    with that key mask, SDPA given the same one as a boolean mask); SDPA's
     backward (dQ, dK, dV in one call) is the yardstick of K2 + K3. Every
     time is queued_ms's: calls run back to back behind a spin of the card,
-    so a call shorter than its host time reads its device time too."""
+    so a call shorter than its host time reads its device time too. The
+    bound counts the valid keys only: what this run's data needs."""
     scale = d ** -0.5
-    q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
-    o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
+    q, k, v, do, mask = _attn_inputs(b, sq, skv, h, d, masked, gen)
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, scale)
     di = fa.row_dot(do, o)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    sdpa_mask = None if mask is None else mask.bool()[:, None, None, :]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
     dot_ = do.transpose(1, 2).contiguous()
 
     def plain_ms(fn):
@@ -530,17 +570,17 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
 
     timing = {
         "flash_fwd": dict(
-            ms=queued_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale)),
-            plain_ms=plain_ms(lambda: fa.flash_forward_plain(q, k, v, None, scale)),
+            ms=queued_ms(lambda: fa.flash_fwd_cuda(q, k, v, mask, scale)),
+            plain_ms=plain_ms(lambda: fa.flash_forward_plain(q, k, v, mask, scale)),
             library_ms=queued_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt.detach(), kt.detach(), vt.detach()))),
+                qt.detach(), kt.detach(), vt.detach(), attn_mask=sdpa_mask))),
         "flash_bwd_dq": dict(
-            ms=queued_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)),
-            plain_ms=plain_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, None, lse, di, do, scale)),
+            ms=queued_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)),
+            plain_ms=plain_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, mask, lse, di, do, scale)),
             library_ms=None),
         "flash_bwd_dkv": dict(
-            ms=queued_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)),
-            plain_ms=plain_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, None, lse, di, do, scale)),
+            ms=queued_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)),
+            plain_ms=plain_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale)),
             library_ms=None),
     }
     sdpa_bwd_ms = queued_ms(
@@ -548,7 +588,8 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
 
     nq, nk = b * sq * h * d, b * skv * h * d  # elements of a query-/key-side tensor
     rows = b * h * sq
-    pair = b * h * sq * skv * d
+    valid = b * skv if mask is None else int(mask.sum().item())  # valid (element, key) pairs
+    pair = h * sq * valid * d
     work = {  # flops, bytes (each input read once, each output written once)
         "flash_fwd": (4 * pair, 2 * (2 * nq + 2 * nk) + 4 * rows),
         "flash_bwd_dq": (6 * pair, 2 * (3 * nq + 2 * nk) + 2 * 4 * rows),
@@ -566,17 +607,17 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True):
     return timing, sdpa_bwd_ms
 
 
-def _check_bwd_deterministic(fa, case, b, sq, skv, h, d, gen):
-    """Two K2 launches on the same inputs give the same bits, and so do two
-    K3 launches; returns K3's split count."""
+def _check_bwd_deterministic(fa, case, b, sq, skv, h, d, gen, masked=False):
+    """Two K2 launches on the same inputs (masked: with that key mask) give
+    the same bits, and so do two K3 launches; returns K3's split count."""
     scale = d ** -0.5
-    q, k, v, do, _ = _attn_inputs(b, sq, skv, h, d, False, gen)
-    o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
+    q, k, v, do, mask = _attn_inputs(b, sq, skv, h, d, masked, gen)
+    o, lse = fa.flash_fwd_cuda(q, k, v, mask, scale)
     di = fa.row_dot(do, o)
-    dq = [fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale) for _ in range(2)]
-    first = fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    dq = [fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale) for _ in range(2)]
+    first = fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
     splits = fa.flash_bwd_dkv_cuda.last_splits
-    second = fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
+    second = fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
     torch.cuda.synchronize()
     check(fa.flash_bwd_dkv_cuda.last_splits == splits,
           f"K3 at the {case} shape launched with two split counts")
@@ -2866,6 +2907,547 @@ def phase_driver_sdxl():
 SDXL_KOHYA_KEYS = 2100
 
 
+# --- slice 10: SD3 and Chroma --------------------------------------------------
+
+# K1-K3 at the joint-attention shapes of the two families (bf16, batch 2):
+# SD3 at 1024 px, 77 CLIP + 256 T5 + 4,096 image tokens = 4,429 keys (34 x
+# 128 + 77: a ragged last tile), head dim 64, at SD3-Medium's 24 heads and
+# SD3.5-Large's 38; Chroma at 512 px, 512 T5 + 1,024 image tokens, head dim
+# 128, with 77 and 300 of the T5 keys valid. (case, (B, S, H), D, masked
+# keys of each batch element or False, checked heads)
+SD3_CHROMA_KERNEL_CASES = (
+    ("sd3_1024", (2, 4429, 24), 64, False, slice(0, 6)),
+    ("sd35l_1024", (2, 4429, 38), 64, False, slice(32, 38)),
+    ("chroma_512_masked", (2, 1536, 24), 128, (slice(77, 512), slice(300, 512)), None),
+)
+
+
+def phase_kernels_sd3_chroma():
+    """K1-K3 at SD3's and Chroma's shapes against their plain versions (the
+    SD3 shapes on six heads, strided views of the full inputs: about 2 GB of
+    f32 logits each), K2 / K3 deterministic on the masked Chroma shape;
+    each timed as in kernels beside its bound (the valid keys' work),
+    its plain version and SDPA's forward and backward (given the same
+    boolean key mask). Returns {case: timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errors, timings = {}, {}
+    for case, (b, s, h), d, masked, heads in SD3_CHROMA_KERNEL_CASES:
+        errors[case] = _check_attention(fa, case, b, s, s, h, d, masked, gen, heads=heads)
+        _free()
+    case, (b, s, h), d, masked, _ = SD3_CHROMA_KERNEL_CASES[2]
+    splits = _check_bwd_deterministic(fa, case, b, s, s, h, d, gen, masked=masked)
+    _free()
+    for case, (b, s, h), d, masked, _ in SD3_CHROMA_KERNEL_CASES:
+        timing, sdpa_bwd_ms = _time_attention(fa, b, s, s, h, d, gen,
+                                              with_plain=case != "sd35l_1024", masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[case][k]["err"] for k in ERR_KEYS[name])
+            tm["sdpa_bwd_ms"] = sdpa_bwd_ms
+        emit(phase="kernels-sd3-chroma", case=f"timing_{case}", q_shape=[b, s, h, d], kv_len=s,
+             masked=bool(masked), timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[case] = timing
+        _free()
+    emit(phase="kernels-sd3-chroma", k3_query_splits_chroma_masked=splits)
+    return timings
+
+
+def _small_run(model, inputs, target, dev):
+    """Output, loss and LoRA gradients of one forward and backward."""
+    for n, p in model.named_parameters():
+        p.requires_grad_(n.endswith(("lora_a", "lora_b")))
+    out = model(**{k: v.to(dev) if torch.is_tensor(v) else v for k, v in inputs.items()})
+    loss = torch.mean((out.float() - target.to(dev)) ** 2)
+    loss.backward()
+    return (out.float().cpu(), loss.item(),
+            {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.requires_grad})
+
+
+def _reference_family(phase, build, inputs, target, device):
+    """A narrow model in bf16 on the card against the same weights in f32
+    on the CPU (LoRA B nonzero): output, loss and LoRA gradients; K1-K3
+    once a block."""
+    from diffusion_pipe_tpu_torch.models.layers import init_module_weights
+
+    cpu = build(torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    init_module_weights(cpu, gen)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=gen)
+    gpu = build(torch.bfloat16, device)
+    gpu.load_state_dict(cpu.state_dict())
+    ref_out, ref_loss, ref_grads = _small_run(cpu, inputs(torch.float32), target, "cpu")
+    reset_launch_counts()
+    out, loss, grads = _small_run(gpu, inputs(torch.bfloat16), target, device)
+    counts = {k: launch_counts()[k] for k in FLASH}
+    out_err = _rel(out, ref_out)
+    grad_err, worst = _compare_grads(grads, ref_grads)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    blocks = len(gpu.blocks) + 1 if hasattr(gpu, "blocks") else (len(gpu.double_blocks)
+                                                                 + len(gpu.single_blocks))
+    emit(phase=phase, out_rel_l2=out_err, loss_rel=loss_err, lora_grads_rel_l2=grad_err,
+         worst_lora_tensor_rel_l2=worst, tensors=len(grads), launches=counts)
+    check(torch.device(device).type != "cuda" or all(c == blocks for c in counts.values()),
+          f"{phase} launches {counts}, expected {blocks} each")
+    check(out_err < 3e-2 and loss_err < 3e-2 and grad_err < 5e-2,
+          f"{phase} mismatch: out {out_err}, loss {loss_err}, grads {grad_err}")
+
+
+def phase_reference_sd3(device="cuda"):
+    """SD3 with 2 joint blocks (one scanned, the context_pre_only final) at
+    head dim 64, qk_norm on, 2 heads: a 16 x 16 latent (64 image tokens) and
+    40 text rows, 104 keys (a ragged tile)."""
+    from diffusion_pipe_tpu_torch.models.sd3_model import SD3Config, SD3Transformer
+
+    def build(dtype, dev):
+        cfg = SD3Config(num_layers=2, num_attention_heads=2, joint_attention_dim=64,
+                        pooled_projection_dim=32, pos_embed_max_size=32, sample_size=16,
+                        qk_norm=True, dtype=dtype, param_dtype=dtype, lora_rank=4,
+                        lora_alpha=4.0, lora_dtype=dtype)
+        with torch.device(dev):
+            return SD3Transformer(cfg)
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    x = torch.randn((1, 16, 16, 16), generator=gen)
+    ctx = torch.randn((1, 40, 64), generator=gen)
+    pooled = torch.randn((1, 32), generator=gen)
+    target = torch.randn(x.shape, generator=gen)
+
+    def inputs(dtype):
+        return dict(hidden_states=x.to(dtype), timestep=torch.tensor([400.0]),
+                    encoder_hidden_states=ctx.to(dtype), pooled_projections=pooled.to(dtype))
+
+    _reference_family("reference-sd3", build, inputs, target, device)
+
+
+def phase_reference_chroma(device="cuda"):
+    """Chroma with one double and one single block at head dim 128, 2
+    heads, an Approximator of 2 layers at width 64: 64 image tokens and 40
+    T5 tokens of which 25 are valid (the key mask), 104 keys."""
+    from diffusion_pipe_tpu_torch.models.chroma_model import ChromaConfig, ChromaTransformer
+    from diffusion_pipe_tpu_torch.models.flux import latent_image_ids
+
+    def build(dtype, dev):
+        cfg = ChromaConfig(num_layers=1, num_single_layers=1, num_attention_heads=2,
+                           joint_attention_dim=64, approximator_hidden=64, approximator_layers=2,
+                           dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0,
+                           lora_dtype=dtype)
+        with torch.device(dev):
+            return ChromaTransformer(cfg)
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn((1, 64, 64), generator=gen)
+    t5 = torch.randn((1, 40, 64), generator=gen)
+    mask = torch.zeros((1, 40), dtype=torch.int32)
+    mask[:, :25] = 1
+    target = torch.randn((1, 64, 64), generator=gen)
+
+    def inputs(dtype):
+        return dict(hidden_states=x.to(dtype), encoder_hidden_states=t5.to(dtype),
+                    timestep=torch.tensor([0.4]), img_ids=latent_image_ids(8, 8),
+                    txt_ids=torch.zeros((40, 3)), guidance=torch.zeros(1), txt_mask=mask)
+
+    _reference_family("reference-chroma", build, inputs, target, device)
+
+
+SD3_LORA_CONFIG = {  # sd3-medium-lora-1024
+    "save_every_n_epochs": 1,
+    "model": {"type": "sd3", "dtype": "bfloat16"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+CHROMA_LORA_CONFIG = {  # chroma-lora-512
+    "save_every_n_epochs": 1,
+    "model": {"type": "chroma", "dtype": "bfloat16"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": "attn",
+}
+CHROMA_VALID_T5 = (60, 200)  # valid T5 tokens of each example's 512 in slice-chroma-lora
+
+
+def _build_family_slice(family, cfg, device, make_batch):
+    """A family's trainer through the entry points a user calls:
+    get_model_class -> init_train_state (predicate_from_config) ->
+    make_train_step; make_batch(pipeline, gen) gives the batch."""
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
+    from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
+    from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
+
+    pipeline = get_model_class(family)(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    state = init_train_state(pipeline, get_optimizer(cfg), gen, predicate_from_config(cfg))
+    step = make_train_step(pipeline, gradient_clipping=cfg["gradient_clipping"])
+    return pipeline, state, step, make_batch(pipeline, gen), gen
+
+
+def build_sd3_slice(cfg=SD3_LORA_CONFIG, device="cuda", latent_hw=128, batch_size=2,
+                    t5_len=256, clip_widths=(768, 1280)):
+    """SD3 at the config's size; a batch of latents and the cached text:
+    CLIP-L and CLIP-G rows [77, 768 / 1280] and their pooled vectors of the
+    same widths, T5 rows [t5_len, 4096]."""
+    def make_batch(pipeline, gen):
+        dt = pipeline.sd3_config.dtype
+        w1, w2 = clip_widths
+
+        def r(*shape):
+            return torch.randn((batch_size, *shape), generator=gen, device=device).to(dt)
+
+        return {"latents": r(16, latent_hw, latent_hw).float(), "prompt_embed": r(77, w1),
+                "prompt_2_embed": r(77, w2), "pooled_prompt_embed": r(w1),
+                "pooled_prompt_2_embed": r(w2),
+                "t5_prompt_embed": r(t5_len, pipeline.sd3_config.joint_attention_dim)}
+
+    return _build_family_slice("sd3", cfg, device, make_batch)
+
+
+def build_chroma_slice(cfg=CHROMA_LORA_CONFIG, device="cuda", latent_hw=64, t5_len=512,
+                       valid=CHROMA_VALID_T5):
+    """Chroma at the config's size; a batch of latents and T5 rows [t5_len,
+    4096] with `valid` tokens of each example unmasked (zero rows after)."""
+    def make_batch(pipeline, gen):
+        cc = pipeline.chroma_config
+        b = len(valid)
+        mask = torch.zeros((b, t5_len), dtype=torch.int32, device=device)
+        for i, n in enumerate(valid):
+            mask[i, :n] = 1
+        t5 = torch.randn((b, t5_len, cc.joint_attention_dim), generator=gen, device=device)
+        return {"latents": torch.randn((b, 16, latent_hw, latent_hw), generator=gen,
+                                       device=device),
+                "t5_embed": (t5 * mask[..., None]).to(cc.dtype), "t5_mask": mask}
+
+    return _build_family_slice("chroma", cfg, device, make_batch)
+
+
+# SD3's final block is context_pre_only: its text-stream attention output
+# is dropped, so its text queries get no gradient and their LoRA B stays at
+# its zero init
+NO_GRADIENT = ("final_block.attn_add_q.",)
+
+
+def _flash_per_step(blocks, remat):
+    """K1 once a block (twice under "full" checkpointing), K2 and K3 once."""
+    return {"flash_fwd": blocks * (2 if remat == "full" else 1), "flash_bwd_dq": blocks,
+            "flash_bwd_dkv": blocks, "sr_add": 0, **NO_INT8}
+
+
+def _model_blocks(pipeline):
+    """(attention blocks, model config) of an SD3 or Chroma pipeline."""
+    if hasattr(pipeline, "sd3_config"):
+        return pipeline.sd3_config.num_layers, pipeline.sd3_config
+    cfg = pipeline.chroma_config
+    return cfg.num_layers + cfg.num_single_layers, cfg
+
+
+def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda"):
+    """An SD3 or Chroma LoRA cell: one warm-up step, then `timed_steps`
+    timed with the counters set to 0 just before: finite losses, every LoRA
+    tensor moved, the base weights unchanged, K1-K3 launches a step as the
+    depth and checkpointing give them. Returns (launches, samples/s,
+    peak)."""
+    on_cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    pipeline, state, step, batch, gen = build()
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    trainable = dict(state.trainable)
+    frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    frozen0 = _fingerprint(frozen)
+    batch_size = batch["latents"].shape[0]
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm_loss = step(state, batch, gen)["loss"].item()
+    warm_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch, gen) for _ in range(timed_steps)]
+    _sync(device)
+    step_s = (time.perf_counter() - t0) / timed_steps
+    counts = launch_counts()
+    losses = [m["loss"].item() for m in metrics]
+    peak = torch.cuda.max_memory_allocated() if on_cuda else None
+    per_step = {k: v / timed_steps for k, v in counts.items()}
+    still = [n for n, p in trainable.items() if torch.equal(p, start[n])]
+    moved = len(trainable) - len(still)
+    del start
+    frozen_same = torch.equal(_fingerprint(frozen), frozen0)
+    blocks, mc = _model_blocks(pipeline)
+    expected = _flash_per_step(blocks, mc.remat)
+    emit(phase=phase, cell=cell, params=sum(p.numel() for p in pipeline.model.parameters()),
+         blocks=blocks, hidden=mc.hidden_size, remat=mc.remat,
+         lora_params=sum(p.numel() for p in trainable.values()), lora_tensors=len(trainable),
+         latent_shape=list(batch["latents"].shape), init_s=init_s, warmup_s=warm_s,
+         warmup_loss=warm_loss, timed_steps=timed_steps, step_s=step_s,
+         samples_per_s=batch_size / step_s, losses=losses,
+         grad_norms=[m["grad_norm"].item() for m in metrics], peak_memory_bytes=peak,
+         launches=counts, launches_per_step=per_step, expected_per_step=expected,
+         lora_tensors_moved=moved, frozen_unchanged=frozen_same)
+    check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
+    check(all(n.startswith(NO_GRADIENT) for n in still),
+          f"{len(still)} LoRA tensors did not move: {still[:5]}")
+    check(frozen_same, "frozen weights changed")
+    check(not on_cuda or per_step == expected,
+          f"launches per step {per_step}, expected {expected}")
+    return counts, batch_size / step_s, peak
+
+
+SD3_DRIVER_TOML = """# sd3-medium-lora-1024's trainer settings through the driver, at 512 px
+output_dir = "{root}/{out}"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 100
+micro_batch_size_per_gpu = 2
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 1
+eval_before_first_step = {eval_first}
+activation_checkpointing = true
+sample_steps = {sample_steps}
+
+[model]
+type = "sd3"
+dtype = "bfloat16"
+vae_path = "{vae}"
+
+[adapter]
+type = "lora"
+rank = 32
+{init}
+[optimizer]
+type = "adamw8bit"
+lr = 1e-4
+"""
+CHROMA_DRIVER_TOML = SD3_DRIVER_TOML.replace(
+    "sd3-medium-lora-1024", "chroma-lora-512").replace(
+    'activation_checkpointing = true', 'activation_checkpointing = "attn"').replace(
+    'type = "sd3"', 'type = "chroma"')
+
+
+def _sd3_text_stand_ins():
+    """Seeded draws at SD3's cached shapes: CLIP-L [77, 768] + pooled 768,
+    CLIP-G [77, 1280] + pooled 1280, T5 [256, 4096]."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    return [lambda caps: {"prompt_embed": seeded_draws(caps, "1", (77, 768)),
+                          "pooled_prompt_embed": seeded_draws(caps, "p1", (768,))},
+            lambda caps: {"prompt_2_embed": seeded_draws(caps, "2", (77, 1280)),
+                          "pooled_prompt_2_embed": seeded_draws(caps, "p2", (1280,))},
+            lambda caps: {"t5_prompt_embed": seeded_draws(caps, "t5", (256, 4096))}]
+
+
+def _chroma_text_stand_in():
+    """Seeded T5 rows [512, 4096] with the first min(len(caption) + 1, 512)
+    valid and the mask: the `_tiny` hook's rule at full size."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    def t5(caps):
+        emb = seeded_draws(caps, "t5", (512, 4096))
+        mask = torch.zeros((len(caps), 512), dtype=torch.int32)
+        for i, c in enumerate(caps):
+            mask[i, :min(len(c) + 1, 512)] = 1
+        return {"t5_embed": emb * mask[..., None], "t5_mask": mask}
+
+    return [t5]
+
+
+def _write_sd3_vae(folder):
+    """A seeded full-width SD3 VAE (VAEConfig.sd3) in the diffusers layout."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.autoencoder_kl import (AutoencoderKL, VAEConfig,
+                                                                diffusers_vae_state_dict)
+
+    folder.mkdir(parents=True)
+    vae = AutoencoderKL(VAEConfig.sd3())
+    vae.init_weights(torch.Generator().manual_seed(SEED))
+    safetensors_io.save_file(diffusers_vae_state_dict(vae),
+                             folder / "diffusion_pytorch_model.safetensors")
+    return folder
+
+
+def phase_driver_family(family, vae_dir=None):
+    """SD3 (sd3-medium-lora-1024's settings at 512 px: LoRA r32, adamw8bit,
+    full checkpointing) or Chroma (chroma-lora-512's: "attn") at full width
+    and depth through train.main: 8 seeded 512 px PNGs and 2 for eval, a
+    seeded VAE (SD3's 16-channel one written here; Chroma: the vae phase's
+    Flux VAE) and seeded text stand-ins (Chroma's with its T5 mask),
+    --cache_only, 3 steps with the eval, a resume to 5 with --test_sample.
+    Then a third call with adapter.init_from_existing naming the epoch
+    export: the factors it loads, exported again, give the file's tensors
+    bit for bit (Chroma's fused qkv / linear1 pairs included). Checks as
+    driver-sdxl, the adapter's key count (pairs and alphas) and the
+    launches (steps, eval and sample forwards). Returns the launches of the
+    two training calls."""
+    import tomllib
+
+    from PIL import Image
+
+    from diffusion_pipe_tpu_torch import safetensors_io, train
+    from diffusion_pipe_tpu_torch.config import set_config_defaults
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.keymaps import export_lora_keymap
+    from diffusion_pipe_tpu_torch.training import trainer
+
+    root = _fresh_dir(SMOKE_DIR / f"driver_{family}")
+    if family == "sd3":
+        vae_dir = _write_sd3_vae(root / "vae")
+        toml, stand_ins = SD3_DRIVER_TOML, _sd3_text_stand_ins
+    else:
+        toml, stand_ins = CHROMA_DRIVER_TOML, _chroma_text_stand_in
+    _write_images(root / "train", DRIVER_IMAGES, SEED)
+    _write_images(root / "eval", DRIVER_EVAL_IMAGES, SEED + 1)
+    for name in ("dataset", "eval"):
+        folder = "train" if name == "dataset" else "eval"
+        (root / f"{name}.toml").write_text(
+            f'resolutions = [512]\n[[directory]]\npath = "{root}/{folder}"\n')
+    text = toml.format(root=root, out="out", vae=vae_dir, sample_steps=DRIVER_SAMPLE_STEPS,
+                       eval_first="true", init="")
+    cfg_path = root / f"{family}_lora.toml"
+    cfg_path.write_text(text)
+    argv = ["--config", str(cfg_path)]
+    cls = get_model_class(family)
+
+    captured = []
+    real_init = trainer.init_train_state
+    real_te = cls.get_call_text_encoder_fns
+
+    def init_and_keep(pipeline, *a, **kw):
+        state = real_init(pipeline, *a, **kw)
+        frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+        captured.append((pipeline, state, _fingerprint(frozen),
+                         {n: p.detach().cpu().clone() for n, p in state.trainable.items()}))
+        return state
+
+    def run(argv_, extra, steps, lora_before=None):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        check(train.main(argv_ + extra) == 0, f"train.main {extra} failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        pipeline, state, frozen_print, lora0 = captured.pop()
+        lora0 = lora_before or lora0
+        frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
+        blocks, mc = _model_blocks(pipeline)
+        out = dict(steps=steps, wall_s=wall_s, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   frozen_unchanged=bool(torch.equal(_fingerprint(frozen), frozen_print)),
+                   lora_tensors=len(state.trainable),
+                   lora_tensors_still=[n for n, p in state.trainable.items()
+                                       if torch.equal(p.cpu(), lora0[n])])
+        shape = dict(blocks=blocks, step=_flash_per_step(blocks, mc.remat))
+        del pipeline, state, frozen
+        _free()
+        return out, shape
+
+    trainer.init_train_state = init_and_keep
+    cls.get_call_text_encoder_fns = lambda self: stand_ins()
+    try:
+        t0 = time.perf_counter()
+        check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
+        cache_s = time.perf_counter() - t0
+        _free()
+        first, shape = run(argv, ["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS)
+        run_dir = next((root / "out").iterdir())
+        at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
+                              map_location="cpu", weights_only=True)["trainable"]
+        second, _ = run(argv, ["--resume_from_checkpoint", "--max_steps",
+                               str(DRIVER_RESUMED_STEPS), "--test_sample", SAMPLE_PROMPT],
+                        DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
+        del at_first
+        # the epoch export, imported by a fresh run through init_from_existing
+        export = run_dir / "epoch1"
+        reimport_path = root / f"{family}_reimport.toml"
+        reimport_path.write_text(toml.format(
+            root=root, out="reimport", vae=vae_dir, sample_steps=DRIVER_SAMPLE_STEPS,
+            eval_first="false", init=f'init_from_existing = "{export}"\n'))
+        loaded, keymap = {}, []
+
+        def init_and_copy(pipeline, *a, **kw):
+            state = init_and_keep(pipeline, *a, **kw)
+            loaded.update({n: p.detach().cpu().clone() for n, p in state.trainable.items()})
+            keymap.extend((pipeline.keymap(), pipeline._keymap_config()))
+            return state
+
+        trainer.init_train_state = init_and_copy
+        run(["--config", str(reimport_path)], ["--max_steps", "1"], 1)
+        config = set_config_defaults(tomllib.loads(text))
+        uninterrupted, loader_cost = _uninterrupted_loader_state(root, DRIVER_RESUMED_STEPS,
+                                                                 config)
+    finally:
+        trainer.init_train_state = real_init
+        cls.get_call_text_encoder_fns = real_te
+    calls = [first, second]
+    adapter = safetensors_io.load_file(export / "adapter_model.safetensors")
+    factors = {k: v for k, v in adapter.items() if not k.endswith(".alpha")}
+    again = export_lora_keymap(loaded, *keymap)
+    same = set(again) == set(factors) and all(torch.equal(again[k], factors[k])
+                                              for k in factors)
+    fused = sum(int(".qkv." in k or ".linear1." in k) for k in factors)
+
+    per_forward = {k: shape["blocks"] if k == "flash_fwd" else 0 for k in shape["step"]}
+    eval_forwards = 9 * -(-DRIVER_EVAL_IMAGES // 2)
+    expected = [{k: v * first["steps"] + per_forward[k] * eval_forwards
+                 for k, v in shape["step"].items()},
+                {k: v * second["steps"] + per_forward[k] * DRIVER_SAMPLE_STEPS
+                 for k, v in shape["step"].items()}]
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+    evals = [r for r in recs if any(k.startswith("eval/") for k in r)]
+    quantiles = sorted(k for r in evals for k in r if "loss_quantile_" in k)
+    final = run_dir / f"global_step{DRIVER_RESUMED_STEPS}"
+    meta = json.loads((final / "client_state.json").read_text())
+    saved_step = torch.load(final / "state.pt", map_location="cpu", weights_only=True)["step"]
+    step_times = _driver_step_times(run_dir / "metrics.jsonl")
+    step_s = sum(step_times) / len(step_times)
+    example = Image.open(Path(config["output_dir"]) / "example.png")
+    n_lora = first["lora_tensors"]
+    emit(phase=f"driver-{family}", cell=f"driver-{family}", cache_only_s=cache_s, calls=calls,
+         expected_launches=expected, losses=losses, eval=evals, step_s=step_s,
+         step_times_s=step_times, samples_per_s=2 / step_s, final_step=saved_step,
+         loader_state=meta.get("custom_loader"), uninterrupted_loader_state=uninterrupted,
+         loader_cost=loader_cost, adapter_keys=len(adapter), adapter_factors=len(factors),
+         fused_factors=fused, reimported_bit_identical=same, example_png=list(example.size))
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
+    check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
+    check(len(quantiles) == 9, f"eval quantiles {quantiles}")
+    check(saved_step == DRIVER_RESUMED_STEPS and meta["step"] == DRIVER_RESUMED_STEPS,
+          f"step counter {saved_step}")
+    check(meta.get("custom_loader") == uninterrupted,
+          f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
+    check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
+    check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT)
+                                                  for n in c["lora_tensors_still"])
+              for c in calls), "LoRA factors did not all move")
+    keys = ADAPTER_KEYS[family]
+    check(len(adapter) == keys and len(factors) == 2 * keys // 3,
+          f"adapter keys {len(adapter)} ({len(factors)} factors), expected {keys}")
+    check(family == "sd3" or fused > 0, "no fused pair in the Chroma adapter")
+    check(same, "the adapter loaded through init_from_existing does not export to the file")
+    check(example.size == (512, 512), f"example.png is {example.size}")
+    for c, want in zip(calls, expected):
+        check(c["launches"] == want, f"driver-{family} launches {c['launches']}, expected {want}")
+    return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
+
+
+# the generic keymap export at full depth: lora_A, lora_B and alpha of each
+# pair. SD3-Medium: 23 blocks x 14 linears + the final block's 11 = 333
+# pairs. Chroma: a double block's 6 linears and fused img / txt qkv (8
+# pairs) x 19, a single block's linear2 and fused linear1 (2) x 38 = 228
+# pairs for its 418 LoRA linears (tests/test_torch_keymaps.py holds the
+# layout against the JAX export at tiny depth)
+ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2)}
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2911,7 +3493,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             beside = {shape: {k: timings[shape][name][k] for k in keys + extra
                               if k in timings[shape][name]}
                       for shape in ("wan_self", "flux") + tuple(c for c, _ in I2V_CASES)
-                      + tuple(c for c, _ in SDXL_KERNEL_CASES)}
+                      + tuple(c for c, _ in SDXL_KERNEL_CASES)
+                      + tuple(c[0] for c in SD3_CHROMA_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -2992,12 +3575,30 @@ def main():
     driver_sdxl_counts = phase_driver_sdxl()
     _free()
     emit(phase="sdxl-phases", seconds=time.perf_counter() - sdxl_t0)
+    sd3_t0 = time.perf_counter()
+    timings.update(phase_kernels_sd3_chroma())
+    phase_reference_sd3()
+    phase_reference_chroma()
+    sd3_counts, *_ = phase_slice_family("slice-sd3-lora", "sd3-medium-lora-1024",
+                                        build_sd3_slice)
+    _free()
+    chroma_counts, *_ = phase_slice_family("slice-chroma-lora", "chroma-lora-512",
+                                           build_chroma_slice)
+    _free()
+    driver_sd3_counts = phase_driver_family("sd3")
+    _free()
+    driver_chroma_counts = phase_driver_family("chroma", vae_dir)
+    _free()
+    emit(phase="sd3-chroma-phases", seconds=time.perf_counter() - sd3_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
             "launches_flux_lokr": lokr_counts, "launches_sample": sample_counts,
             "launches_optimizers": optimizer_counts, "launches_sdxl_lora": sdxl_lora_counts,
-            "launches_sdxl_fullft": sdxl_full_counts, "launches_driver_sdxl": driver_sdxl_counts}
+            "launches_sdxl_fullft": sdxl_full_counts, "launches_driver_sdxl": driver_sdxl_counts,
+            "launches_sd3_lora": sd3_counts, "launches_chroma_lora": chroma_counts,
+            "launches_driver_sd3": driver_sd3_counts,
+            "launches_driver_chroma": driver_chroma_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more))
     print(card)

@@ -1,10 +1,10 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux or Wan parameter tree as the JAX package builds it (a nested
-dict of numpy arrays, optionally under a top-level "params" key, with any
-flax partition boxes already removed) and returns the state_dict of the
-port's FluxTransformer or WanTransformer, so both packages compute the same
-function:
+Takes a Flux, Wan, SD3 or Chroma parameter tree as the JAX package builds
+it (a nested dict of numpy arrays, optionally under a top-level "params"
+key, with any flax partition boxes already removed) and returns the
+state_dict of the port's transformer of that family, so both packages
+compute the same function:
 
 - a Dense `kernel` [in, out] becomes `weight` [out, in]; the Conv3d
   `kernel` [kt, kh, kw, in, out] (Wan's patch embedding) becomes `weight`
@@ -18,8 +18,9 @@ function:
   (pre-quantized) becomes an int8 `weight` [out, in], an ml_dtypes
   float8_e4m3fn array a torch.float8_e4m3fn tensor;
 - the scanned block stacks carry a leading [L] axis, split into the
-  ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux)
-  or `blocks.{i}.*` (Wan).
+  ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux,
+  Chroma) or `blocks.{i}.*` (Wan, SD3); the other subtrees (SD3's
+  `final_block`, Chroma's `distilled_guidance_layer`) become dotted names.
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -68,10 +69,10 @@ def _leaf(path, arr) -> tuple:
 
 
 def jax_layout(name: str, ndim: int) -> Optional[tuple]:
-    """The permutation that lays the port's parameter `name` (a Flux or Wan
-    state_dict key, of rank ndim) out as the JAX package's leaf: the inverse
-    of the one jax_to_state_dict gives a `kernel`, which is what every
-    `weight` of these models comes from. None for the leaves that keep
+    """The permutation that lays the port's parameter `name` (a Flux, Wan,
+    SD3 or Chroma state_dict key, of rank ndim) out as the JAX package's
+    leaf: the inverse of the one jax_to_state_dict gives a `kernel`, which
+    is what every `weight` of these models comes from. None for the leaves that keep
     their layout."""
     if name.rsplit(".", 1)[-1] != "weight" or ndim not in _KERNEL_TO_WEIGHT:
         return None

@@ -49,6 +49,12 @@ class VAEConfig:
                                    use_quant_conv=True), **kw})
 
     @staticmethod
+    def sd3(**kw) -> "VAEConfig":
+        """The SD3 / SD3.5 VAE: 16 channels, no quant conv."""
+        return VAEConfig(**{**dict(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609,
+                                   use_quant_conv=False), **kw})
+
+    @staticmethod
     def sd(**kw) -> "VAEConfig":
         return VAEConfig(**{**dict(latent_channels=4, scaling_factor=0.18215, shift_factor=0.0,
                                    use_quant_conv=True), **kw})

@@ -6,7 +6,8 @@ with logit-normal t, 2x2 latent patchify, 3-axis image position ids, the
 guidance vector from config (prepare_inputs, forward, random init); the
 diffusers/BFL weight loading, the VAE and text-encoder functions of the
 caching phase (each builds its model at its first call), and the
-diffusers-lora adapter export and import. The noise and t come from a
+diffusers-lora adapter export and import, and the keymap whose inverse
+writes a fully fine-tuned model in the diffusers layout. The noise and t come from a
 torch.Generator, or are passed in as tensors (the tests feed the JAX
 package's draws). `sample` is the Euler flow sampler of `--test_sample`
 through the training forward.
@@ -62,18 +63,13 @@ def seeded_text_encoder_fns(t5_len: int, t5_dim: int, clip_dim: int):
     """Stand-in T5 and CLIP functions: each caption's embeddings are normal
     draws of numpy's generator seeded from the caption's hash (the JAX
     package's `_tiny` hook, the same values at the same sizes)."""
-    from ..data.bucketing import seed_from_hash
-
-    def draws(captions, shape):
-        return torch.from_numpy(np.stack([
-            np.random.default_rng(seed_from_hash(c)).standard_normal(shape).astype(np.float32)
-            for c in captions]))
+    from .text_encoders import seeded_draws
 
     def t5_fn(captions):
-        return {"t5_embed": draws(captions, (t5_len, t5_dim))}
+        return {"t5_embed": seeded_draws(captions, "", (t5_len, t5_dim))}
 
     def clip_fn(captions):
-        return {"clip_embed": draws(captions, (clip_dim,))}
+        return {"clip_embed": seeded_draws(captions, "", (clip_dim,))}
 
     return [t5_fn, clip_fn]
 
@@ -220,6 +216,29 @@ class FluxPipeline(BasePipeline):
                                  num_steps=num_steps, guidance_scale=guidance_scale,
                                  uncond_velocity_fn=uncond, shift=self.model_config.get("shift"),
                                  noise=noise, device=self.device)
+
+    # --- weight-key map -----------------------------------------------------
+
+    def _keymap_config(self):
+        return self.flux_config
+
+    def keymap(self):
+        """diffusers FluxTransformer2DModel keys as a KeyMap: it drives the
+        full fine-tuning export (BasePipeline.save_model, the diffusers
+        layout). The adapters keep the diffusers-lora functions below."""
+        from .flux_convert import (_DOUBLE_MAP, _DOUBLE_NORMS, _GUIDANCE, _SINGLE_MAP,
+                                   _SINGLE_NORMS, _TOP)
+        from .keymaps import BlockGroup, KeyMap
+
+        top = dict(_TOP, **(_GUIDANCE if self.flux_config.guidance_embeds else {}))
+        return KeyMap(
+            blocks=[BlockGroup("double_blocks", "transformer_blocks", "num_layers",
+                               linears=dict(_DOUBLE_MAP), norms=dict(_DOUBLE_NORMS)),
+                    BlockGroup("single_blocks", "single_transformer_blocks", "num_single_layers",
+                               linears=dict(_SINGLE_MAP), norms=dict(_SINGLE_NORMS))],
+            top_linears=top,
+            lora_prefix="transformer.",
+        )
 
     # --- pretrained weights -------------------------------------------------
 

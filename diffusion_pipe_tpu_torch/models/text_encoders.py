@@ -32,6 +32,19 @@ def cast_te_params_fp8(sd: Mapping[str, torch.Tensor],
             for k, v in sd.items()}
 
 
+def seeded_draws(captions: List[str], suffix: str, shape) -> torch.Tensor:
+    """[B, *shape] f32: each caption's normal draws from numpy's generator
+    seeded with the hash of caption + suffix, the JAX `_tiny` hooks' values
+    (the stand-ins of a text encoder under `_tiny`)."""
+    import numpy as np
+
+    from ..data.bucketing import seed_from_hash
+
+    return torch.from_numpy(np.stack([
+        np.random.default_rng(seed_from_hash(c + suffix)).standard_normal(shape).astype(np.float32)
+        for c in captions]))
+
+
 class HFTextEncoder:
     """Lazy wrapper around a transformers torch text encoder.
 
@@ -68,7 +81,9 @@ class HFTextEncoder:
         self._model = cls.from_pretrained(self.path, dtype=self.dtype).to(self.device).eval()
 
     @torch.no_grad()
-    def encode(self, captions: List[str]) -> torch.Tensor:
+    def encode(self, captions: List[str], return_mask: bool = False):
+        """The embeddings; with return_mask, (embeddings, the tokenizer's
+        attention mask [B, max_length] int64)."""
         self._load()
         tok = self._tokenizer(captions, padding="max_length", truncation=True,
                               max_length=self.max_length, return_tensors="pt")
@@ -76,4 +91,6 @@ class HFTextEncoder:
         mask = tok["attention_mask"].to(self.device)
         out = self._model(input_ids=ids, attention_mask=mask)
         emb = out.pooler_output if self.kind == "clip_pooled" else out.last_hidden_state
+        if return_mask:
+            return emb.float().cpu(), tok["attention_mask"]
         return emb.float().cpu()

@@ -19,7 +19,10 @@ same bits on two launches, with and without the query split, and K2 at the
 Flux-dev and Wan2.1 cross-attention shapes; K2 and K3 at the i2v image
 cross-attention (H 40, Skv 257 and 514). SDXL's cross-attention (B 4,
 H 20, Sq 256 against 77 CLIP tokens, D 64), with and without a padded
-batch element, K2 and K3 deterministic there. A batch element whose keys are
+batch element, K2 and K3 deterministic there. SD3's joint sequence at
+1024 px (4,429 keys, D 64, a ragged last tile) and Chroma's at 512 px (1,536
+keys, D 128, 77 and 300 of the 512 T5 keys valid), at 4 heads, K2 and K3
+deterministic there. A batch element whose keys are
 all masked gets O = 0, the mask value as its LSE and zero gradients, with
 and without the query split.
 
@@ -226,6 +229,57 @@ def test_sdxl_cross_shape_matches_plain(masked, cuda_device):
         assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item(), (err, plain_err)
     if masked:
         assert torch.all(dk[0, 40:] == 0) and torch.all(dv[0, 40:] == 0)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+# (B, S, H, D, valid text keys of each batch element or None): SD3's joint
+# sequence at 1024 px (77 CLIP + 256 T5 + 4,096 image tokens = 34 x 128 + 77
+# keys, a ragged last tile), and Chroma's at 512 px (512 T5 + 1,024 image
+# tokens) with 77 and 300 of the 512 T5 keys valid; fewer heads than the
+# models' 24
+SD3_CHROMA_CASES = {"sd3_1024": (1, 4429, 4, 64, None),
+                    "chroma_512_masked": (2, 1536, 4, 128, (77, 300))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SD3_CHROMA_CASES))
+def test_sd3_chroma_shapes_match_plain(case, cuda_device):
+    """K1-K3 at SD3's and Chroma's joint-attention shapes (bf16): the error
+    bound of test_kernels_match_plain_on_gpu; Chroma's masked T5 keys get
+    no dK / dV; K2 and K3 give the same bits twice."""
+    b, s, h, d, valid = SD3_CHROMA_CASES[case]
+    rng = np.random.default_rng(29)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
+                   .to(cuda_device, torch.bfloat16) for _ in range(4))
+    mask = None
+    if valid is not None:
+        mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
+        for i, n in enumerate(valid):
+            mask[i, n:512] = 0
+    scale = d ** -0.5
+
+    def plain(q, k, v, do):
+        o, lse = port_fa.flash_forward_plain(q, k, v, mask, scale)
+        di = port_fa.row_dot(do, o)
+        return (o, lse, port_fa.flash_bwd_dq_plain(q, k, v, mask, lse, di, do, scale),
+                *port_fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale))
+
+    refs = plain(q.float(), k.float(), v.float(), do.float())
+    plains = plain(q, k, v, do)
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, mask, scale)
+    di = port_fa.row_dot(do, o)
+    dq = port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)
+    dk, dv = port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
+    dq2 = port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale)
+    dk2, dv2 = port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale)
+    torch.cuda.synchronize()
+    for got, plain_out, ref in zip((o, lse, dq, dk, dv), plains, refs):
+        err = (got.float() - ref).abs().max().item()
+        plain_err = (plain_out.float() - ref).abs().max().item()
+        assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item(), (err, plain_err)
+    if valid is not None:
+        for i, n in enumerate(valid):
+            assert torch.all(dk[i, n:512] == 0) and torch.all(dv[i, n:512] == 0)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 

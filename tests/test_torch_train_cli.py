@@ -20,7 +20,14 @@ images as one-frame videos):
   steps, a resume to 3 against an uninterrupted 3-step run, and the kohya
   adapter export (510 keys, as the JAX export gives them); with full
   fine-tuning (three LR groups): 2 steps and the single-file export;
-- the options and families not ported yet raise NotImplementedError.
+- tiny SD3 and Chroma (their seeded VAEs and `_tiny` text draws, Chroma's
+  with a T5 mask) through the same cache -> 4 steps -> resume against a
+  straight run, and their adapters (the generic keymap export, with
+  alpha entries);
+- tiny Flux full fine-tuning writes model.safetensors in the diffusers
+  layout;
+- the options and families not ported yet raise NotImplementedError, and
+  so does a full fine-tuning export without a keymap.
 """
 
 import json
@@ -167,6 +174,54 @@ def _cache_train_resume(root, make_config, family, adapter_keys):
                    for k in sb)
 
 
+def _family_config(family):
+    def make(root, out):
+        path = _config(root, out)
+        with open(path) as f:
+            text = f.read().replace('type = "flux"', f'type = "{family}"')
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    return make
+
+
+def test_sd3_cache_train_eval_checkpoint_resume(root):
+    # the scanned block's 14 LoRA linears and the final block's 11: lora_A,
+    # lora_B and alpha each (the JAX export's 50 factors and 25 alphas)
+    _cache_train_resume(root, _family_config("sd3"), "sd3", (14 + 11) * 3)
+
+
+def test_chroma_cache_train_eval_checkpoint_resume(root):
+    # a double block's 6 linears and 2 fused qkv, a single block's linear2
+    # and fused linear1, in 2 + 2 blocks: lora_A, lora_B and alpha each
+    _cache_train_resume(root, _family_config("chroma"), "chroma", (2 * 8 + 2 * 2) * 3)
+
+
+def test_flux_full_fine_tuning_writes_the_diffusers_model(root):
+    """Full fine-tuning (no [adapter]) for 1 step: the epoch export is
+    model.safetensors in the diffusers layout, the trained weights."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+
+    cfg = _config(root, "flux_full")
+    with open(cfg) as f:
+        text = f.read().replace("[adapter]\ntype = \"lora\"\nrank = 4\n", "")
+    with open(cfg, "w") as f:
+        f.write(text.replace("epochs = 10", "epochs = 1"))
+    assert "[adapter]" not in text
+    assert train.main(["--config", cfg, "--device", "cpu"]) == 0
+    run = _run_dir(root, "flux_full")
+    model = safetensors_io.load_file(run / "epoch1" / "model.safetensors")
+    final = run / (run / "latest").read_text()
+    trained = torch.load(final / "state.pt", weights_only=True)["trainable"]
+    assert "transformer_blocks.0.attn.to_q.weight" in model
+    assert "single_transformer_blocks.1.proj_out.bias" in model
+    assert torch.equal(model["transformer_blocks.1.ff.net.2.weight"],
+                       trained["double_blocks.1.ff_out.weight"])
+    assert torch.equal(model["proj_out.weight"], trained["proj_out.weight"])
+    assert len(model) == len(trained)
+
+
 def _sdxl_config(root, out, full=False):
     path = _config(root, out, f"save_every_n_steps = {2 if full else 3}\n")
     with open(path) as f:
@@ -274,7 +329,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "sd3": ("", ('type = "flux"', 'type = "sd3"'), []),
+    "qwen_image": ("", ('type = "flux"', 'type = "qwen_image"'), []),
 }
 
 
@@ -292,12 +347,14 @@ def test_not_ported_yet_raises(root, case):
 
 
 def test_full_fine_tuning_export_raises(root):
-    from diffusion_pipe_tpu_torch.models import get_model_class
+    """A family with neither a keymap nor an export of its own."""
+    from diffusion_pipe_tpu_torch.models.base import BasePipeline
     from diffusion_pipe_tpu_torch.training.saver import Saver
 
-    cfg = {"save_every_n_epochs": 1, "model": {"type": "flux", "dtype": "float32", "_tiny": True}}
-    pipe = get_model_class("flux")(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    cfg = {"save_every_n_epochs": 1, "model": {"type": "none"}}
+    pipe = BasePipeline(cfg, device="cpu")
+    pipe.model = torch.nn.Linear(2, 2)
+    with pytest.raises(NotImplementedError, match="fully fine-tuned model"):
         Saver(cfg, root / "fullft", pipe).save_model("step1", None)
 
 

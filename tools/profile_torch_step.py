@@ -8,6 +8,8 @@
     python3 tools/profile_torch_step.py --slice wan-lora  # wan-1.3b-t2v-lora-attn
     python3 tools/profile_torch_step.py --slice sdxl-lora # sdxl-lora-512
     python3 tools/profile_torch_step.py --slice sdxl-fullft  # sdxl-fullft
+    python3 tools/profile_torch_step.py --slice sd3-lora  # sd3-medium-lora-1024
+    python3 tools/profile_torch_step.py --slice chroma-lora  # chroma-lora-512
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -19,7 +21,10 @@ fine-tuning in bf16, adamw with stochastic rounding, per-block
 checkpointing, one 81-frame 512 px clip; with chip_smoke.WAN_LORA_CONFIG
 bench.py's Wan row: LoRA r32, adamw8bit, "attn"; or chip_smoke.build_sdxl_slice:
 SDXL at full size, LoRA r16 with adamw8bit at batch 4 of 512 px, or full
-fine-tuning with adamw at batch 1), builds the kernels if needed, runs
+fine-tuning with adamw at batch 1; or chip_smoke.build_sd3_slice: SD3-Medium,
+LoRA r32, adamw8bit, per-block checkpointing, batch 2 at 1024 px; or
+chip_smoke.build_chroma_slice: Chroma, LoRA r32, adamw8bit, "attn", batch 2
+at 512 px with 512 masked T5 tokens), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -119,7 +124,8 @@ def forward_matmul_flops(pipeline, batch, gen):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora",
-                                        "sdxl-lora", "sdxl-fullft"),
+                                        "sdxl-lora", "sdxl-fullft", "sd3-lora",
+                                        "chroma-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -140,6 +146,10 @@ def main(argv=None):
         "sdxl-lora": ("sdxl-lora-512", chip_smoke.SDXL_LORA_CONFIG, chip_smoke.build_sdxl_slice),
         "sdxl-fullft": ("sdxl-fullft", chip_smoke.SDXL_FULLFT_CONFIG,
                         lambda cfg: chip_smoke.build_sdxl_slice(cfg, batch_size=1)),
+        "sd3-lora": ("sd3-medium-lora-1024", chip_smoke.SD3_LORA_CONFIG,
+                     chip_smoke.build_sd3_slice),
+        "chroma-lora": ("chroma-lora-512", chip_smoke.CHROMA_LORA_CONFIG,
+                        chip_smoke.build_chroma_slice),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing

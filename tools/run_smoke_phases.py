@@ -1,0 +1,53 @@
+#!/usr/bin/env python3
+"""Runs some of chip_smoke.py's phases on one GPU, after building the kernels.
+
+    python3 tools/run_smoke_phases.py kernels-sd3-chroma reference-sd3 ...
+
+Phases: kernels-sd3-chroma, reference-sd3, reference-chroma, slice-sd3-lora,
+slice-chroma-lora, driver-sd3, driver-chroma (with the vae phase first,
+whose Flux VAE Chroma's driver reads). Each prints its JSON lines as in the
+whole smoke; a failed check exits non-zero.
+"""
+
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main(argv):
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        print("run_smoke_phases: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phases = {
+        "kernels-sd3-chroma": cs.phase_kernels_sd3_chroma,
+        "reference-sd3": cs.phase_reference_sd3,
+        "reference-chroma": cs.phase_reference_chroma,
+        "slice-sd3-lora": lambda: cs.phase_slice_family(
+            "slice-sd3-lora", "sd3-medium-lora-1024", cs.build_sd3_slice),
+        "slice-chroma-lora": lambda: cs.phase_slice_family(
+            "slice-chroma-lora", "chroma-lora-512", cs.build_chroma_slice),
+        "driver-sd3": lambda: cs.phase_driver_family("sd3"),
+        "driver-chroma": lambda: cs.phase_driver_family("chroma", cs.phase_vae()),
+    }
+    unknown = [p for p in argv if p not in phases]
+    if unknown:
+        print(f"run_smoke_phases: unknown phases {unknown}", file=sys.stderr)
+        return 2
+    cs.emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=cs.nvidia_smi_line())
+    cs.phase_build()
+    for name in argv:
+        phases[name]()
+        cs._free()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
