@@ -165,13 +165,14 @@ Phases, each printing one JSON line (or more):
                      (example.png at 512 px; its forwards counted in the
                      launches) and decode the cache with --dump_dataset
                      (one 512 px PNG a training image).
-13. slice-wan-policies -- (run last) bench.py's Wan row with LoRA dropout
+13. slice-wan-policies -- (run last) bench.py's Wan row at 10 of its 30
+                     blocks with LoRA dropout
                      0.1 under true, "attn", "dots", "offload_attn" and
                      "unsloth": the same batch, noise, t and masks give
                      true's loss and LoRA gradients (relative L2 1e-3; bit
                      equality reported); per policy two timed steps, peak
                      device memory, pinned host bytes, K1 launches a step
-                     (120 / 60) and the products run a step ("dots" and
+                     (40 / 20) and the products run a step ("dots" and
                      "unsloth": the forward's alone).
     optimizers    -- Wan2.1-1.3B t2v at full width, 4 of 30 blocks, full
                      fine-tuning in bf16 with stochastic rounding: three
@@ -248,6 +249,46 @@ Phases, each printing one JSON line (or more):
                      epoch export: exported again, the same tensors bit for
                      bit (Chroma's fused pairs included).
 
+16. kernels-qwen  -- (run last) K1-K3 at Qwen-Image's joint sequence with
+                     its text padding as the key mask (B 2 x 4,608 keys =
+                     512 text, 77 / 300 valid, + 4,096 image at 1024 px;
+                     B 1 x 8,704 with the edit's control image), D 128, H
+                     24, checked on six heads against the plain versions,
+                     K2 / K3 deterministic, timed beside the valid keys'
+                     bound, the plain versions and SDPA under the same
+                     mask; H1 / H2 bit for bit and timed at ff_in [8,192 x
+                     3,072 / 12,288].
+    reference-qwen -- two Qwen-Image blocks at head dim 128 with a text key
+                     mask, bf16 on the card against f32 on the CPU.
+    slice-qwen-image-lora -- cell qwen-image-lora-1024: Qwen-Image at its
+                     published size (60 blocks, 20.4 B) from a seed as
+                     examples/qwen_image.toml trains it (fp8 storage
+                     pre-quantized to int8, int8_matmul "fwd_bwd", LoRA r32
+                     on the 840 block linears, adamw8bit lr 2e-5, clip 1.0,
+                     `true`), batch 2 at 1024 px with 512 text rows (77 and
+                     300 valid): one warm-up, three timed steps; finite
+                     losses, LoRA moved (the last block's text tail gets no
+                     gradient; a bf16 lora_a may round back at lr 2e-5),
+                     int8 unchanged, 120 / 60 / 60 flash and 2,397 H1 and
+                     H2 launches a step.
+    slice-qwen-image-edit-lora -- cell qwen-image-edit-lora-1024-4-blocks:
+                     the same at 4 blocks with control latents (8,704
+                     keys), the output cut to the target's 4,096 rows.
+    qwen25vl       -- Qwen2.5-VL-7B's text tower (28 layers, 3,584 wide) and
+                     vision tower (32 layers, 1,280 wide) from a seed, bf16:
+                     the t2i text function on 2 templated prompts of 546
+                     ids, the vision tower on a 336 px image, the whole edit
+                     text function once; the first layer against f32 on the
+                     CPU.
+    driver-qwen    -- examples/qwen_image.toml's settings through train.main
+                     at full size and 512 px (micro batch 1, GAS 4): 8 + 2
+                     seeded PNGs, a seeded Wan 2.1 VAE in diffusers'
+                     AutoencoderKLQwenImage layout, seeded text with its
+                     mask, --cache_only, 3 steps with the evals, a resume to
+                     5 with --test_sample, a re-import of the epoch export
+                     through init_from_existing, bit for bit; the 2,520
+                     adapter keys and the launches.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -305,8 +346,12 @@ def check(cond, msg):
         raise CheckFailed(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**record):
-    print(json.dumps(record), flush=True)
+    """One JSON line, with the seconds since the smoke started (at_s)."""
+    print(json.dumps({**record, "at_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def cuda_ms(fn, iters=20):
@@ -790,8 +835,8 @@ def _h1_timing(iq, case, m, k, prescale, gen):
     return rec
 
 
-def _h2_timing(iq, gen):
-    m, n = INT8_H2_SHAPE
+def _h2_timing(iq, gen, shape=INT8_H2_SHAPE, case="ff_in"):
+    m, n = shape
     y = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device="cuda",
                       dtype=torch.int32)
     rs = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3
@@ -811,7 +856,7 @@ def _h2_timing(iq, gen):
                library_ms=None, bound_ms=t, bound_by=by, bytes=nbytes, flops=flops,
                max_abs_err=(got.float() - want.float()).abs().max().item())
     rec["bound_share"] = t / rec["ms"]
-    emit(phase="int8-kernels", kernel="rescale_i32", case="ff_in", shape=[m, n],
+    emit(phase="int8-kernels", kernel="rescale_i32", case=case, shape=[m, n],
          bit_equal=equal, **rec)
     check(equal, "H2 differs from its plain version")
     return rec
@@ -1483,7 +1528,7 @@ def phase_driver(vae_dir, fp8_step_s):
     return total
 
 
-def _uninterrupted_loader_state(root, steps, config=None, batch_size=2):
+def _uninterrupted_loader_state(root, steps, config=None, batch_size=2, gas=1):
     """The loader position after `steps` pulls of a fresh loader over the
     cached dataset (no training): an uninterrupted run's. Also the host
     time of a pull (cache reads and collation) and of the batch's copy to
@@ -1502,8 +1547,8 @@ def _uninterrupted_loader_state(root, steps, config=None, batch_size=2):
     manager = DatasetManager(pipeline)
     manager.register(ds)
     manager.cache()  # complete: reads the metadata and cache indexes only
-    ds.post_init(0, 1, normalize_batch_size_map(batch_size), 1, full_global=True)
-    loader = PipelineDataLoader(ds, 1)
+    ds.post_init(0, 1, normalize_batch_size_map(batch_size), gas, full_global=True)
+    loader = PipelineDataLoader(ds, gas)
     pull_s, copy_s = [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -1791,10 +1836,15 @@ def phase_umt5():
             if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
     del enc, out
     _free()
-    small = UMT5Encoder(small_cfg).cuda()
+    # built on the meta device: every weight is loaded (an initialisation
+    # of the 1.05 B-entry embedding on the CPU took most of the phase)
+    with torch.device("meta"):
+        small = UMT5Encoder(small_cfg)
+        ref = UMT5Encoder(UMT5Config.xxl(num_layers=2, dtype=torch.float32,
+                                         param_dtype=torch.float32))
+    small = small.to_empty(device="cuda")
     small.load_state_dict(keep)
-    ref = UMT5Encoder(UMT5Config.xxl(num_layers=2, dtype=torch.float32,
-                                     param_dtype=torch.float32))
+    ref = ref.to_empty(device="cpu")
     ref.load_state_dict({k: v.float().cpu() for k, v in keep.items()})
     del keep
     with torch.no_grad():
@@ -2127,8 +2177,12 @@ LOKR_CONFIG = {  # flux-dev-lokr-512-fp8-int8: bench.py's Flux row with a LoKr a
     "adapter": {"type": "lokr", "rank": 16, "alpha": 16, "decompose_factor": -1,
                 "rank_dropout": 0.1},
 }
-WAN_POLICY_CONFIG = {  # bench.py's Wan row with LoRA dropout 0.1
-    **WAN_LORA_CONFIG, "adapter": {**WAN_LORA_CONFIG["adapter"], "dropout": 0.1}}
+# bench.py's Wan row with LoRA dropout 0.1, at 10 of its 30 blocks (the
+# smoke's time: each policy's bits against true's hold block by block)
+POLICY_DEPTH = 10
+WAN_POLICY_CONFIG = {
+    **WAN_LORA_CONFIG, "model": {**WAN_LORA_CONFIG["model"], "num_layers": POLICY_DEPTH},
+    "adapter": {**WAN_LORA_CONFIG["adapter"], "dropout": 0.1}}
 POLICIES = ("full", "attn", "dots", "offload_attn", "unsloth")
 POLICY_TIMED_STEPS = 2
 
@@ -2141,16 +2195,17 @@ def _meminfo_bytes(key):
 
 
 def phase_slice_wan_policies(cfg=WAN_POLICY_CONFIG, device="cuda", **slice_kw):
-    """bench.py's Wan row (Wan2.1-1.3B t2v, 21,504 tokens, LoRA r32,
-    adamw8bit) with LoRA dropout 0.1, on one model under each checkpointing
-    policy in turn (the spec is read at each forward). Per policy, on the
-    same batch, noise, t and dropout masks (KeepMasks of one seed): the
-    loss and the 600 LoRA gradients of one forward and backward against
+    """bench.py's Wan row (Wan2.1-1.3B t2v at POLICY_DEPTH blocks, 21,504
+    tokens, LoRA r32, adamw8bit) with LoRA dropout 0.1, on one model under
+    each checkpointing policy in turn (the spec is read at each forward).
+    Per policy, on the same batch, noise, t and dropout masks (KeepMasks of
+    one seed): the loss and the LoRA gradients (20 a block) of one forward
+    and backward against
     true's (bit equality reported, relative L2 within 1e-3 required), then
     POLICY_TIMED_STEPS timed steps: step time, peak device memory, the
     most bytes held in pinned host memory at once (and, for the phase, the
     pinned slabs' bytes), K1 launches a step
-    (120 under true, "dots" and "unsloth"; 60 under "attn" and
+    (4 a block under true, "dots" and "unsloth"; 2 under "attn" and
     "offload_attn") and the products run a step: under "dots" and
     "unsloth" those of the forward alone (no GEMM again in the recompute),
     counted against a forward without gradients."""
@@ -2758,6 +2813,7 @@ type = "sdxl"
 diffusers_path = "{model}"
 dtype = "bfloat16"
 _random_te = true
+_random_init = true
 
 [adapter]
 type = "lora"
@@ -2960,14 +3016,17 @@ def _small_run(model, inputs, target, dev):
     out = model(**{k: v.to(dev) if torch.is_tensor(v) else v for k, v in inputs.items()})
     loss = torch.mean((out.float() - target.to(dev)) ** 2)
     loss.backward()
+    # (a factor whose output the loss does not read has no gradient: the
+    # text tail of Qwen-Image's last block)
     return (out.float().cpu(), loss.item(),
-            {n: p.grad.float().cpu() for n, p in model.named_parameters() if p.requires_grad})
+            {n: p.grad.float().cpu() for n, p in model.named_parameters()
+             if p.requires_grad and p.grad is not None})
 
 
-def _reference_family(phase, build, inputs, target, device):
+def _reference_family(phase, build, inputs, target, device, blocks=None):
     """A narrow model in bf16 on the card against the same weights in f32
     on the CPU (LoRA B nonzero): output, loss and LoRA gradients; K1-K3
-    once a block."""
+    once a block (`blocks`, else SD3's and Chroma's count)."""
     from diffusion_pipe_tpu_torch.models.layers import init_module_weights
 
     cpu = build(torch.float32, "cpu")
@@ -2986,8 +3045,9 @@ def _reference_family(phase, build, inputs, target, device):
     out_err = _rel(out, ref_out)
     grad_err, worst = _compare_grads(grads, ref_grads)
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
-    blocks = len(gpu.blocks) + 1 if hasattr(gpu, "blocks") else (len(gpu.double_blocks)
-                                                                 + len(gpu.single_blocks))
+    if blocks is None:
+        blocks = len(gpu.blocks) + 1 if hasattr(gpu, "blocks") else (len(gpu.double_blocks)
+                                                                     + len(gpu.single_blocks))
     emit(phase=phase, out_rel_l2=out_err, loss_rel=loss_err, lora_grads_rel_l2=grad_err,
          worst_lora_tensor_rel_l2=worst, tensors=len(grads), launches=counts)
     check(torch.device(device).type != "cuda" or all(c == blocks for c in counts.values()),
@@ -3139,19 +3199,26 @@ def _flash_per_step(blocks, remat):
 
 
 def _model_blocks(pipeline):
-    """(attention blocks, model config) of an SD3 or Chroma pipeline."""
+    """(attention blocks, model config) of an SD3, Chroma or Qwen-Image
+    pipeline."""
     if hasattr(pipeline, "sd3_config"):
         return pipeline.sd3_config.num_layers, pipeline.sd3_config
+    if hasattr(pipeline, "qi_config"):
+        return pipeline.qi_config.num_layers, pipeline.qi_config
     cfg = pipeline.chroma_config
     return cfg.num_layers + cfg.num_single_layers, cfg
 
 
-def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda"):
-    """An SD3 or Chroma LoRA cell: one warm-up step, then `timed_steps`
-    timed with the counters set to 0 just before: finite losses, every LoRA
-    tensor moved, the base weights unchanged, K1-K3 launches a step as the
-    depth and checkpointing give them. Returns (launches, samples/s,
-    peak)."""
+def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda",
+                       expected_fn=None, no_gradient=NO_GRADIENT, after=None, may_stay=()):
+    """An SD3, Chroma or Qwen-Image LoRA cell: one warm-up step, then
+    `timed_steps` timed with the counters set to 0 just before: finite
+    losses, every LoRA tensor moved (but those named in no_gradient, and
+    those whose names end in one of may_stay), the
+    base weights unchanged (with int8_matmul: every block linear int8 with
+    real scales), the launches a step (expected_fn(pipeline), else K1-K3
+    as the depth and checkpointing give them). after(pipeline, batch, gen)
+    adds its checks and fields. Returns (launches, samples/s, peak)."""
     on_cuda = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     pipeline, state, step, batch, gen = build()
@@ -3181,7 +3248,9 @@ def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda
     del start
     frozen_same = torch.equal(_fingerprint(frozen), frozen0)
     blocks, mc = _model_blocks(pipeline)
-    expected = _flash_per_step(blocks, mc.remat)
+    expected = expected_fn(pipeline) if expected_fn else _flash_per_step(blocks, mc.remat)
+    linears, int8_real, _ = _int8_weights(pipeline.model)
+    extra = after(pipeline, batch, gen) if after else {}
     emit(phase=phase, cell=cell, params=sum(p.numel() for p in pipeline.model.parameters()),
          blocks=blocks, hidden=mc.hidden_size, remat=mc.remat,
          lora_params=sum(p.numel() for p in trainable.values()), lora_tensors=len(trainable),
@@ -3190,11 +3259,15 @@ def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda
          samples_per_s=batch_size / step_s, losses=losses,
          grad_norms=[m["grad_norm"].item() for m in metrics], peak_memory_bytes=peak,
          launches=counts, launches_per_step=per_step, expected_per_step=expected,
-         lora_tensors_moved=moved, frozen_unchanged=frozen_same)
+         lora_tensors_moved=moved, lora_tensors_still=still, frozen_unchanged=frozen_same,
+         block_linears=linears,
+         int8_block_linears=int8_real, **extra)
     check(all(math.isfinite(x) for x in [warm_loss, *losses]), f"non-finite loss: {losses}")
-    check(all(n.startswith(NO_GRADIENT) for n in still),
+    check(all(n.startswith(no_gradient) or n.endswith(may_stay) for n in still),
           f"{len(still)} LoRA tensors did not move: {still[:5]}")
     check(frozen_same, "frozen weights changed")
+    check(not mc.int8_matmul or int8_real == linears,
+          f"{linears - int8_real} of {linears} block linears lack an int8 weight with real scales")
     check(not on_cuda or per_step == expected,
           f"launches per step {per_step}, expected {expected}")
     return counts, batch_size / step_s, peak
@@ -3448,6 +3521,573 @@ def phase_driver_family(family, vae_dir=None):
 ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2)}
 
 
+# --- slice 11: Qwen-Image and Qwen-Image-Edit ----------------------------------
+
+# K1-K3 at Qwen-Image's joint sequence (bf16, D 128, 24 heads): 512 text rows,
+# of which 77 and 300 are valid (the key mask), then the 4,096 image tokens
+# of 1024 px (B 2), or 8,192 with the control image of an edit (B 1).
+# (case, (B, S, H), D, masked keys of each batch element, checked heads)
+QWEN_KERNEL_CASES = (
+    ("qwen_1024_masked", (2, 4608, 24), 128, (slice(77, 512), slice(300, 512)), slice(0, 6)),
+    ("qwen_edit_8704_masked", (1, 8704, 24), 128, (slice(77, 512),), slice(0, 6)),
+)
+QWEN_TXT = 512
+QWEN_VALID = (77, 300)  # valid text rows of each example's 512 in the Qwen cells
+# H1 / H2 at Qwen-Image's ff_in (3,072 -> 12,288): the image MLP's rows, the
+# 4,096 image tokens of each of the batch's 2 examples at 1024 px
+QWEN_FF_IN_ROWS = 2 * 4096
+QWEN_INT8_H1_CASES = {"forward_ff_in": (QWEN_FF_IN_ROWS, 3072, False),
+                      "dgrad_ff_in": (QWEN_FF_IN_ROWS, 12288, True)}
+
+
+def phase_kernels_qwen():
+    """K1-K3 at Qwen-Image's masked joint shapes against their plain
+    versions (six heads as strided views), K2 / K3 deterministic on both,
+    each timed beside its bound over the valid keys, its plain version and
+    SDPA's forward and backward under the same boolean mask; H1 and H2 bit
+    for bit and timed at ff_in's shape. Returns ({case: K1-K3 timing},
+    {kernel: H1 / H2 timing})."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+    from diffusion_pipe_tpu_torch.ops import int8_quant as iq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errors, timings, splits = {}, {}, {}
+    for case, (b, s, h), d, masked, heads in QWEN_KERNEL_CASES:
+        errors[case] = _check_attention(fa, case, b, s, s, h, d, masked, gen, heads=heads)
+        _free()
+        splits[case] = _check_bwd_deterministic(fa, case, b, s, s, h, d, gen, masked=masked)
+        _free()
+    for case, (b, s, h), d, masked, _ in QWEN_KERNEL_CASES:
+        timing, sdpa_bwd_ms = _time_attention(fa, b, s, s, h, d, gen, masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[case][k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels-qwen", case=f"timing_{case}", q_shape=[b, s, h, d], kv_len=s,
+             masked=True, valid_keys=[s - (m.stop - m.start) for m in masked],
+             timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[case] = timing
+        _free()
+    h1 = {case: _h1_timing(iq, f"qwen_{case}", *shape, gen)
+          for case, shape in QWEN_INT8_H1_CASES.items()}
+    h2 = _h2_timing(iq, gen, shape=(QWEN_FF_IN_ROWS, 12288), case="qwen_ff_in")
+    _free()
+    emit(phase="kernels-qwen", k3_query_splits=splits)
+    return timings, {"quant_rows": h1, "rescale_i32": h2}
+
+
+def phase_reference_qwen(device="cuda"):
+    """Qwen-Image with 2 blocks at the published head dim 128, 2 heads, a
+    64-wide text input: 64 image tokens (an 8 x 8 packed grid, diffusers'
+    centred RoPE ids) and 40 text rows of which 25 are valid (the key
+    mask), 104 keys; bf16 on the card against f32 on the CPU."""
+    from diffusion_pipe_tpu_torch.models.qwen_image import (QwenImageConfig,
+                                                            QwenImageTransformer, qwen_rope_ids)
+
+    def build(dtype, dev):
+        cfg = QwenImageConfig(num_layers=2, num_attention_heads=2, joint_attention_dim=64,
+                              dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0,
+                              lora_dtype=dtype)
+        with torch.device(dev):
+            return QwenImageTransformer(cfg)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn((1, 64, 64), generator=gen)
+    txt = torch.randn((1, 40, 64), generator=gen)
+    mask = torch.zeros((1, 40), dtype=torch.int32)
+    mask[:, :25] = 1
+    target = torch.randn((1, 64, 64), generator=gen)
+    img_ids, txt_ids = qwen_rope_ids([(8, 8)], 40)
+
+    def inputs(dtype):
+        return dict(hidden_states=x.to(dtype), encoder_hidden_states=txt.to(dtype),
+                    timestep=torch.tensor([0.4]), img_ids=img_ids, txt_ids=txt_ids,
+                    txt_mask=mask)
+
+    _reference_family("reference-qwen", build, inputs, target, device, blocks=2)
+
+
+QWEN_LORA_CONFIG = {  # qwen-image-lora-1024: examples/qwen_image.toml's trainer
+    "save_every_n_epochs": 1,
+    "model": {"type": "qwen_image", "dtype": "bfloat16", "transformer_dtype": "float8",
+              "int8_matmul": "fwd_bwd", "timestep_sample_method": "logit_normal"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 2e-5, "betas": [0.9, 0.99], "weight_decay": 0.01},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+QWEN_EDIT_DEPTH = 4  # blocks of the full-width qwen-image-edit cell
+QWEN_EDIT_CONFIG = {**QWEN_LORA_CONFIG, "model": {
+    **QWEN_LORA_CONFIG["model"], "type": "qwen_image_edit", "num_layers": QWEN_EDIT_DEPTH}}
+QWEN_TIMED_STEPS = 3
+# the last block's text stream ends nowhere: its text MLP and output
+# projection get no gradient, its text queries a zero one, so their LoRA B
+# stays at its zero init (and A with it)
+QWEN_TEXT_TAIL = ("attn_add_q", "attn_to_add_out", "ff_context_in", "ff_context_out")
+# the example's bf16 factors at lr 2e-5: adamw's first steps move a lora_a
+# entry (about 0.04) by about the lr, under half its bf16 spacing (2.4e-4),
+# so a lora_a may round back to itself; every lora_b (from zero) moves
+QWEN_MAY_STAY = (".lora_a",)
+
+
+def _qwen_no_gradient(pipeline):
+    last = pipeline.qi_config.num_layers - 1
+    return tuple(f"blocks.{last}.{m}." for m in QWEN_TEXT_TAIL)
+
+
+def build_qwen_slice(cfg=QWEN_LORA_CONFIG, device="cuda", latent_hw=128, txt_len=QWEN_TXT,
+                     valid=QWEN_VALID):
+    """Qwen-Image (or -Edit) at the config's size; a batch of latents (and
+    control latents for an edit) with text rows [txt_len, 3584] of which
+    `valid` of each example are unmasked (zero rows after)."""
+    def make_batch(pipeline, gen):
+        qc = pipeline.qi_config
+        b = len(valid)
+        mask = torch.zeros((b, txt_len), dtype=torch.int32, device=device)
+        for i, n in enumerate(valid):
+            mask[i, :n] = 1
+        emb = torch.randn((b, txt_len, qc.joint_attention_dim), generator=gen, device=device)
+        batch = {"latents": torch.randn((b, 16, latent_hw, latent_hw), generator=gen,
+                                        device=device),
+                 "prompt_embeds": (emb * mask[..., None]).to(qc.dtype),
+                 "prompt_embeds_mask": mask}
+        if pipeline.edit:
+            batch["control_latents"] = torch.randn(batch["latents"].shape, generator=gen,
+                                                   device=device)
+        return batch
+
+    return _build_family_slice(cfg["model"]["type"], cfg, device, make_batch)
+
+
+def _qwen_expected(pipeline):
+    """Launches a training step of a Qwen-Image LoRA cell: K1 once a block
+    (twice under `true`: the forward and its recompute), K2 and K3 once; H1
+    and H2 once an int8 block linear for the forward, again for the
+    recompute, and once more for its dgrad, which autograd skips where the
+    input needs no gradient (the modulation linears, fed by the frozen
+    timestep embedder) and where no gradient arrives (the last block's
+    text tail but its queries)."""
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+
+    qc = pipeline.qi_config
+    int8 = [n for n, m in pipeline.model.named_modules()
+            if isinstance(m, LoraDense) and m.kernel_scale is not None]
+    no_dgrad = sum(int(n.endswith(MODULATION)) for n in int8) + len(QWEN_TEXT_TAIL) - 1
+    dgrads = len(int8) - no_dgrad if qc.int8_matmul == "fwd_bwd" else 0
+    launches = len(int8) * (2 if qc.remat else 1) + dgrads
+    return {"flash_fwd": qc.num_layers * (2 if qc.remat == "full" else 1),
+            "flash_bwd_dq": qc.num_layers, "flash_bwd_dkv": qc.num_layers, "sr_add": 0,
+            "quant_rows": launches, "rescale_i32": launches}
+
+
+def phase_slice_qwen(edit=False):
+    """qwen-image-lora-1024 (60 blocks, 20.4 B) or, with edit, the 4-block
+    qwen-image-edit-lora-1024-4-blocks cell (8,704 keys; the output cut to
+    the target's 4,096 rows): phase_slice_family with the Qwen launches
+    and the last block's text tail allowed to stay still."""
+    cfg = QWEN_EDIT_CONFIG if edit else QWEN_LORA_CONFIG
+
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        shape = list(out.shape)
+        check(shape == list(target.shape) == [len(QWEN_VALID), 4096, 64],
+              f"output {shape}, target {list(target.shape)}")
+        return dict(sequence=inputs["hidden_states"].shape[1] + QWEN_TXT, output_shape=shape)
+
+    name = "qwen-image-edit-lora-1024-4-blocks" if edit else "qwen-image-lora-1024"
+    counts, rate, peak = phase_slice_family(
+        "slice-qwen-image-edit-lora" if edit else "slice-qwen-image-lora", name,
+        lambda: build_qwen_slice(cfg), timed_steps=QWEN_TIMED_STEPS,
+        expected_fn=_qwen_expected,
+        no_gradient=tuple(f"blocks.{(QWEN_EDIT_DEPTH if edit else 60) - 1}.{m}."
+                          for m in QWEN_TEXT_TAIL),
+        after=after, may_stay=QWEN_MAY_STAY)
+    return counts
+
+
+QWEN_TOKENIZER_WORDS = ("a", "seeded", "picture", "number", "0", "1")
+
+
+def _qwen_tokenizer():
+    """A synthetic Qwen2-style tokenizer in memory: word-level over the
+    chat templates' words and a few caption words, the special tokens
+    after them, <|endoftext|> the padding. No tokenizer file exists on the
+    card's machine; this stands in for Qwen2.5-VL's."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    try:
+        from transformers import PreTrainedTokenizerFast
+    except ImportError:  # transformers 5 names it TokenizersBackend
+        from transformers import TokenizersBackend as PreTrainedTokenizerFast
+    from diffusion_pipe_tpu_torch.models.qwen_image import EDIT_TEMPLATE, T2I_TEMPLATE
+
+    words = sorted(set((T2I_TEMPLATE + EDIT_TEMPLATE).split()) | set(QWEN_TOKENIZER_WORDS))
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(["<unk>"] + words)},
+                                     unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    return PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="<unk>", pad_token="<|endoftext|>",
+        additional_special_tokens=["<|im_start|>", "<|im_end|>", "<|vision_start|>",
+                                   "<|vision_end|>", "<|image_pad|>"])
+
+
+def phase_qwen25vl():
+    """Qwen2.5-VL-7B's text tower at its published width and depth (28
+    layers, 3,584 wide, 28 / 4 heads, ffn 18,944) and its vision tower (32
+    layers, 1,280 wide, windowed) from a seed, bf16: the t2i text function
+    (LLMTextEncoder: the chat template, 546 ids, the first 34 rows
+    dropped) on 2 captions, timed; the vision tower on a 336 px control
+    image (576 patches, 144 merged tokens), timed; the whole edit text
+    function once (the image's tokens spliced at <|image_pad|>, multimodal
+    RoPE ids, 64 rows dropped). The weights are the seeded modules, handed
+    to the encoders in place of a checkpoint; a synthetic tokenizer stands
+    in for Qwen's. Checks: finite outputs of the expected shapes, the
+    masks' valid counts, and the first layer at full width bf16 on the
+    card against f32 on the CPU (relative L2 3e-2)."""
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pipe_tpu_torch.models.llm_encoders import (CausalLM, CausalLMConfig,
+                                                              LLMTextEncoder)
+    from diffusion_pipe_tpu_torch.models.qwen_image import (T2I_DROP, T2I_TEMPLATE,
+                                                            QwenEditTextEncoder)
+    from diffusion_pipe_tpu_torch.models.vision_encoders import (QwenVLVisionConfig,
+                                                                 QwenVLVisionTower,
+                                                                 image_to_qwen_patches)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = CausalLMConfig.qwen25_vl_7b()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        lm = CausalLM(cfg)
+    lm.init_weights(gen)
+    lm = lm.eval().requires_grad_(False)
+    vcfg = QwenVLVisionConfig(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    with torch.device("cuda"):
+        tower = QwenVLVisionTower(vcfg)
+    tower.init_weights(gen)
+    tower = tower.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokenizer = _qwen_tokenizer()
+    caps = ["a seeded picture, number 0", "a seeded picture " + "number 1 " * 40]
+
+    t2i = LLMTextEncoder("", max_length=QWEN_TXT, template=T2I_TEMPLATE, crop_start=T2I_DROP,
+                         dtype=torch.bfloat16, device="cuda")
+    t2i.model, t2i.tokenizer = lm, tokenizer
+    h, mask = t2i.encode(caps)
+    encode_ms = cuda_ms(lambda: t2i.encode(caps), iters=3)
+    n_ids = len(tokenizer(T2I_TEMPLATE.format(caps[1]))["input_ids"])
+
+    img = (np.random.default_rng(SEED).uniform(-1, 1, (3, 336, 336))).astype(np.float32)
+    patches, grid = image_to_qwen_patches(img)
+    pixels = torch.from_numpy(patches).cuda()
+    with torch.no_grad():
+        vis = tower(pixels, (grid,))
+        vision_ms = cuda_ms(lambda: tower(pixels, (grid,)), iters=3)
+
+    root = _fresh_dir(SMOKE_DIR / "qwen25vl")
+    png = root / "control.png"
+    Image.fromarray(((img.transpose(1, 2, 0) + 1) * 127.5).astype(np.uint8)).save(png)
+    edit = QwenEditTextEncoder("", "", QWEN_TXT, 336, torch.bfloat16, "cuda")
+    edit.lm, edit.tower, edit.tokenizer = lm, tower, tokenizer
+    edit.image_token_id = tokenizer.convert_tokens_to_ids("<|image_pad|>")
+    edit.grid, edit.n_img = grid, grid[1] * grid[2] // 4
+    t0 = time.perf_counter()
+    out = edit(caps, [png, png])
+    torch.cuda.synchronize()
+    edit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    # the first layer at full width: bf16 on the card, f32 on the CPU
+    one = dataclasses.replace(cfg, num_layers=1, vocab=1)
+    sd = {k: v for k, v in lm.state_dict().items()
+          if k.startswith("layers.0.") or k == "final_norm"}
+    emb = lm.token_embedding(torch.randint(0, cfg.vocab, (1, 128), generator=gen,
+                                           device="cuda"))
+    with torch.device("cuda"):
+        gpu1 = CausalLM(one)
+    gpu1.load_state_dict(sd, strict=False)
+    cpu1 = CausalLM(dataclasses.replace(one, dtype=torch.float32, param_dtype=torch.float32))
+    cpu1.load_state_dict({k: v.float().cpu() for k, v in sd.items()}, strict=False)
+    with torch.no_grad():
+        got = gpu1(input_embeds=emb)[0].float().cpu()
+        want = cpu1(input_embeds=emb.float().cpu())[0]
+    layer_err = _rel_l2(got, want)
+    emit(phase="qwen25vl", params=sum(p.numel() for p in lm.parameters()),
+         vision_params=sum(p.numel() for p in tower.parameters()), init_s=init_s,
+         prompt_ids=h.shape[1] + T2I_DROP, template_ids=n_ids, t2i_shape=list(h.shape),
+         t2i_valid=mask.sum(1).tolist(), encode_ms=encode_ms, vision_tokens=list(vis.shape),
+         vision_ms=vision_ms, edit_shape=list(out["prompt_embeds"].shape),
+         edit_valid=out["prompt_embeds_mask"].sum(1).tolist(), edit_s=edit_s,
+         peak_memory_bytes=peak, first_layer_rel_l2=layer_err)
+    check(list(h.shape) == [2, QWEN_TXT, 3584] and bool(torch.isfinite(h).all()),
+          f"t2i embeddings {list(h.shape)}")
+    check(list(vis.shape) == [144, 3584] and bool(torch.isfinite(vis).all()),
+          f"vision tokens {list(vis.shape)}")
+    emb_out = out["prompt_embeds"]
+    check(list(emb_out.shape) == [2, QWEN_TXT + 144, 3584] and bool(torch.isfinite(emb_out).all()),
+          f"edit embeddings {list(emb_out.shape)}")
+    check(0 < int(mask[0].sum()) < int(mask[1].sum()), f"t2i masks {mask.sum(1).tolist()}")
+    check(layer_err < 3e-2, f"the first layer off the f32 CPU one: {layer_err}")
+    del lm, tower, gpu1, t2i, edit
+
+
+QWEN_DRIVER_TOML = """# examples/qwen_image.toml's settings through the driver, at 512 px
+output_dir = "{root}/{out}"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 1000
+micro_batch_size_per_gpu = 1
+pipeline_stages = 1
+gradient_accumulation_steps = 4
+gradient_clipping = 1.0
+eval_every_n_epochs = 1
+eval_before_first_step = {eval_first}
+eval_micro_batch_size_per_gpu = 1
+eval_gradient_accumulation_steps = 1
+save_every_n_epochs = 1
+checkpoint_every_n_minutes = 120
+activation_checkpointing = true
+save_dtype = "bfloat16"
+caching_batch_size = 8
+steps_per_print = 1
+sample_steps = {sample_steps}
+
+[model]
+type = "qwen_image"
+diffusers_path = "{model}"
+dtype = "bfloat16"
+transformer_dtype = "float8"
+int8_matmul = "fwd_bwd"
+timestep_sample_method = "logit_normal"
+_random_init = true
+
+[adapter]
+type = "lora"
+rank = 32
+dtype = "bfloat16"
+{init}
+[optimizer]
+type = "adamw8bit"
+lr = 2e-5
+betas = [0.9, 0.99]
+weight_decay = 0.01
+"""
+QWEN_GAS = 4
+QWEN_ADAPTER_KEYS = 3 * 60 * 14  # lora_A, lora_B and alpha of the 840 block linears
+
+
+def _qwen_text_stand_in():
+    """Seeded text rows [512, 3584] with the first min(len(caption) + 1,
+    512) valid and the mask: the `_tiny` hook's rule at full size."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    def fn(caps):
+        emb = seeded_draws(caps, "qwen", (QWEN_TXT, 3584))
+        mask = torch.zeros((len(caps), QWEN_TXT), dtype=torch.int32)
+        for i, c in enumerate(caps):
+            mask[i, :min(len(c) + 1, QWEN_TXT)] = 1
+        return {"prompt_embeds": emb * mask[..., None], "prompt_embeds_mask": mask}
+
+    return [fn]
+
+
+def _write_qwen_vae(folder):
+    """A seeded full-width Wan 2.1 VAE in diffusers' AutoencoderKLQwenImage
+    layout: what <diffusers_path>/vae of a Qwen-Image folder holds."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.wan_vae import WanVAEConfig, WanVideoVAE
+    from diffusion_pipe_tpu_torch.models.wan_vae_convert import (diffusers_key_map,
+                                                                 wan_vae_state_dict)
+
+    folder.mkdir(parents=True)
+    cfg = WanVAEConfig.wan21()
+    vae = WanVideoVAE(cfg)
+    vae.init_weights(torch.Generator().manual_seed(SEED))
+    names = diffusers_key_map(cfg)
+    safetensors_io.save_file({names[k]: v.to(torch.bfloat16).contiguous()
+                              for k, v in wan_vae_state_dict(vae).items()},
+                             folder / "diffusion_pytorch_model.safetensors")
+    return folder
+
+
+def phase_driver_qwen():
+    """examples/qwen_image.toml's settings (fp8 storage pre-quantized to
+    int8, int8_matmul "fwd_bwd", LoRA r32, adamw8bit, `true`
+    checkpointing, micro batch 1 and GAS 4, eval every epoch) at full width
+    and depth through train.main at 512 px: 8 seeded PNGs and 2 for eval, a
+    diffusers folder holding a seeded Wan 2.1 VAE in the
+    AutoencoderKLQwenImage layout (the transformer from random init: the
+    `_random_init` hook) and the seeded text stand-in with its mask;
+    --cache_only, 3 steps with the evals, a resume to 5 with --test_sample,
+    then a third call whose adapter.init_from_existing loads the epoch
+    export: exported again, the same tensors bit for bit. Checks as
+    driver-sd3, the 2,520 adapter keys, the launches (each call's
+    pre-quantization, GAS 4 micro-steps a step, 9 x 2 eval forwards an
+    eval, the sample's forwards). Returns the launches of the two training
+    calls."""
+    import tomllib
+
+    from PIL import Image
+
+    from diffusion_pipe_tpu_torch import safetensors_io, train
+    from diffusion_pipe_tpu_torch.config import set_config_defaults
+    from diffusion_pipe_tpu_torch.models.keymaps import export_lora_keymap
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+    from diffusion_pipe_tpu_torch.models.qwen_image import QwenImagePipeline
+    from diffusion_pipe_tpu_torch.training import trainer
+
+    root = _fresh_dir(SMOKE_DIR / "driver_qwen")
+    model_dir = root / "model"
+    _write_qwen_vae(model_dir / "vae")
+    _write_images(root / "train", DRIVER_IMAGES, SEED)
+    _write_images(root / "eval", DRIVER_EVAL_IMAGES, SEED + 1)
+    for name, folder in (("dataset", "train"), ("eval", "eval")):
+        (root / f"{name}.toml").write_text(
+            f'resolutions = [512]\n[[directory]]\npath = "{root}/{folder}"\n')
+    text = QWEN_DRIVER_TOML.format(root=root, out="out", model=model_dir, eval_first="true",
+                                   sample_steps=DRIVER_SAMPLE_STEPS, init="")
+    cfg_path = root / "qwen_image_lora.toml"
+    cfg_path.write_text(text)
+    argv = ["--config", str(cfg_path)]
+
+    captured = []
+    real_init = trainer.init_train_state
+    real_te = QwenImagePipeline.get_call_text_encoder_fns
+
+    def init_and_keep(pipeline, *a, **kw):
+        state = real_init(pipeline, *a, **kw)
+        int8 = [p for p in pipeline.model.parameters() if p.dtype == torch.int8]
+        captured.append((pipeline, state, _fingerprint(int8),
+                         {n: p.detach().cpu().clone() for n, p in state.trainable.items()}))
+        return state
+
+    def run(argv_, extra, steps, lora_before=None):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        check(train.main(argv_ + extra) == 0, f"train.main {extra} failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        pipeline, state, int8_print, lora0 = captured.pop()
+        lora0 = lora_before or lora0
+        int8 = [p for p in pipeline.model.parameters() if p.dtype == torch.int8]
+        out = dict(steps=steps, wall_s=wall_s, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   int8_weights=len(int8),
+                   int8_unchanged=bool(torch.equal(_fingerprint(int8), int8_print)),
+                   lora_tensors=len(state.trainable),
+                   lora_tensors_still=[n for n, p in state.trainable.items()
+                                       if torch.equal(p.cpu(), lora0[n])])
+        shape = dict(step=_qwen_expected(pipeline), blocks=pipeline.qi_config.num_layers,
+                     linears=sum(int(isinstance(m, LoraDense) and m.kernel_scale is not None)
+                                 for m in pipeline.model.modules()),
+                     no_gradient=_qwen_no_gradient(pipeline))
+        del pipeline, state, int8
+        _free()
+        return out, shape
+
+    trainer.init_train_state = init_and_keep
+    QwenImagePipeline.get_call_text_encoder_fns = lambda self: _qwen_text_stand_in()
+    try:
+        t0 = time.perf_counter()
+        check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
+        cache_s = time.perf_counter() - t0
+        _free()
+        first, shape = run(argv, ["--max_steps", str(DRIVER_STEPS)], DRIVER_STEPS)
+        run_dir = next((root / "out").iterdir())
+        at_first = torch.load(run_dir / f"global_step{DRIVER_STEPS}" / "state.pt",
+                              map_location="cpu", weights_only=True)["trainable"]
+        second, _ = run(argv, ["--resume_from_checkpoint", "--max_steps",
+                               str(DRIVER_RESUMED_STEPS), "--test_sample", SAMPLE_PROMPT],
+                        DRIVER_RESUMED_STEPS - DRIVER_STEPS, at_first)
+        del at_first
+        export = run_dir / "epoch1"
+        reimport_path = root / "qwen_image_reimport.toml"
+        reimport_path.write_text(QWEN_DRIVER_TOML.format(
+            root=root, out="reimport", model=model_dir, eval_first="false",
+            sample_steps=DRIVER_SAMPLE_STEPS, init=f'init_from_existing = "{export}"\n'))
+        loaded, keymap = {}, []
+
+        def init_and_copy(pipeline, *a, **kw):
+            state = init_and_keep(pipeline, *a, **kw)
+            loaded.update({n: p.detach().cpu().clone() for n, p in state.trainable.items()})
+            keymap.extend((pipeline.keymap(), pipeline._keymap_config()))
+            return state
+
+        trainer.init_train_state = init_and_copy
+        run(["--config", str(reimport_path)], ["--max_steps", "1"], 1)
+        config = set_config_defaults(tomllib.loads(text))
+        uninterrupted, loader_cost = _uninterrupted_loader_state(
+            root, DRIVER_RESUMED_STEPS, config, batch_size=1, gas=QWEN_GAS)
+    finally:
+        trainer.init_train_state = real_init
+        QwenImagePipeline.get_call_text_encoder_fns = real_te
+    calls = [first, second]
+    adapter = safetensors_io.load_file(export / "adapter_model.safetensors")
+    factors = {k: v for k, v in adapter.items() if not k.endswith(".alpha")}
+    again = export_lora_keymap(loaded, *keymap)
+    same = set(again) == set(factors) and all(torch.equal(again[k], factors[k])
+                                              for k in factors)
+
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+    evals = [r for r in recs if "eval/eval/loss" in r]
+    quantiles = sorted(k for r in evals[:1] for k in r if "loss_quantile_" in k)
+    # each call: H1 once a frozen block weight at pre-quantization; GAS
+    # micro-steps a step; 9 quantiles x the eval batches (micro batch 1) a
+    # forward each per eval (before step 1, at each epoch's end); the
+    # second call the sample's forwards
+    per_forward = {"flash_fwd": shape["blocks"], "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                   "sr_add": 0, "quant_rows": shape["linears"], "rescale_i32": shape["linears"]}
+    prequant = {k: shape["linears"] if k == "quant_rows" else 0 for k in per_forward}
+    evals_per_call = [sum(int(r["step"] <= DRIVER_STEPS) for r in evals),
+                      sum(int(r["step"] > DRIVER_STEPS) for r in evals)]
+    forwards = [9 * DRIVER_EVAL_IMAGES * evals_per_call[0],
+                9 * DRIVER_EVAL_IMAGES * evals_per_call[1] + DRIVER_SAMPLE_STEPS]
+    expected = [{k: prequant[k] + QWEN_GAS * v * c["steps"] + per_forward[k] * n
+                 for k, v in shape["step"].items()} for c, n in zip(calls, forwards)]
+    final = run_dir / f"global_step{DRIVER_RESUMED_STEPS}"
+    meta = json.loads((final / "client_state.json").read_text())
+    saved_step = torch.load(final / "state.pt", map_location="cpu", weights_only=True)["step"]
+    step_times = _driver_step_times(run_dir / "metrics.jsonl")
+    step_s = sum(step_times) / len(step_times)
+    example = Image.open(Path(config["output_dir"]) / "example.png")
+    n_lora = first["lora_tensors"]
+    emit(phase="driver-qwen", cell="driver-qwen-image", cache_only_s=cache_s, calls=calls,
+         expected_launches=expected, evals_per_call=evals_per_call, losses=losses, eval=evals,
+         step_s=step_s, step_times_s=step_times, samples_per_s=QWEN_GAS / step_s,
+         final_step=saved_step, loader_state=meta.get("custom_loader"),
+         uninterrupted_loader_state=uninterrupted, loader_cost=loader_cost,
+         adapter_keys=len(adapter), adapter_factors=len(factors),
+         reimported_bit_identical=same, example_png=list(example.size))
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
+    check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
+    check(len(quantiles) == 9 and evals_per_call[0] >= 1, f"evals {evals_per_call}")
+    check(saved_step == DRIVER_RESUMED_STEPS and meta["step"] == DRIVER_RESUMED_STEPS,
+          f"step counter {saved_step}")
+    check(meta.get("custom_loader") == uninterrupted,
+          f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
+    check(all(c["int8_unchanged"] and c["int8_weights"] == 840 for c in calls),
+          "int8 weights changed")
+    check(all(c["lora_tensors"] == n_lora and all(n.startswith(shape["no_gradient"])
+                                                  or n.endswith(QWEN_MAY_STAY)
+                                                  for n in c["lora_tensors_still"])
+              for c in calls), "LoRA factors did not all move")
+    check(len(adapter) == QWEN_ADAPTER_KEYS and len(factors) == 2 * QWEN_ADAPTER_KEYS // 3,
+          f"adapter keys {len(adapter)} ({len(factors)} factors), expected {QWEN_ADAPTER_KEYS}")
+    check(same, "the adapter loaded through init_from_existing does not export to the file")
+    check(example.size == (512, 512), f"example.png is {example.size}")
+    for c, want in zip(calls, expected):
+        check(c["launches"] == want, f"driver-qwen launches {c['launches']}, expected {want}")
+    return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3456,7 +4096,7 @@ def nvidia_smi_line():
 
 
 def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                 driver_counts, ptxas, more_counts):
+                 driver_counts, ptxas, more_counts, qwen_int8_timing):
     """One entry per kernel. K1-K4 at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
@@ -3471,9 +4111,15 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     registers, spills and wgmma serialization of their bf16, D = 128
     build. more_counts: {key: launches of another Wan path} (the LoRA,
     driver-wan, i2v and ti2v cells), added to each entry under its key;
-    K1-K3 also carry their numbers at the i2v / flf2v image cross shapes."""
+    K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
+    and those of SDXL, SD3, Chroma and Qwen-Image; H1 and H2 theirs at
+    Qwen-Image's ff_in (qwen_int8_timing)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd", "sdpa_bwd_ms")
+
+    def pick(timing):
+        return {k: timing[k] for k in keys + ("bound_share",)}
+
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         launches = wan_counts[name]
@@ -3483,18 +4129,21 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             beside = {"f32_u": {k: sr_timing["f32_u"][k] for k in keys}}
         elif name == "quant_rows":
             main = int8_timing[name]["forward_ff_in"]
-            beside = {"dgrad_ff_in": {k: int8_timing[name]["dgrad_ff_in"][k]
-                                      for k in keys + ("bound_share",)}}
+            beside = {"dgrad_ff_in": pick(int8_timing[name]["dgrad_ff_in"]),
+                      "qwen_forward_ff_in": pick(qwen_int8_timing[name]["forward_ff_in"]),
+                      "qwen_dgrad_ff_in": pick(qwen_int8_timing[name]["dgrad_ff_in"])}
             launches = fp8_counts[name]
         elif name == "rescale_i32":
-            main, beside, launches = int8_timing[name], {}, fp8_counts[name]
+            main, launches = int8_timing[name], fp8_counts[name]
+            beside = {"qwen_ff_in": pick(qwen_int8_timing[name])}
         else:
             main = timings["wan_cross"][name]
             beside = {shape: {k: timings[shape][name][k] for k in keys + extra
                               if k in timings[shape][name]}
                       for shape in ("wan_self", "flux") + tuple(c for c, _ in I2V_CASES)
                       + tuple(c for c, _ in SDXL_KERNEL_CASES)
-                      + tuple(c[0] for c in SD3_CHROMA_KERNEL_CASES)}
+                      + tuple(c[0] for c in SD3_CHROMA_KERNEL_CASES)
+                      + tuple(c[0] for c in QWEN_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -3590,6 +4239,19 @@ def main():
     driver_chroma_counts = phase_driver_family("chroma", vae_dir)
     _free()
     emit(phase="sd3-chroma-phases", seconds=time.perf_counter() - sd3_t0)
+    qwen_t0 = time.perf_counter()
+    qwen_timings, qwen_int8 = phase_kernels_qwen()
+    timings.update(qwen_timings)
+    phase_reference_qwen()
+    qwen_counts = phase_slice_qwen()
+    _free()
+    qwen_edit_counts = phase_slice_qwen(edit=True)
+    _free()
+    phase_qwen25vl()
+    _free()
+    driver_qwen_counts = phase_driver_qwen()
+    _free()
+    emit(phase="qwen-phases", seconds=time.perf_counter() - qwen_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -3598,9 +4260,11 @@ def main():
             "launches_sdxl_fullft": sdxl_full_counts, "launches_driver_sdxl": driver_sdxl_counts,
             "launches_sd3_lora": sd3_counts, "launches_chroma_lora": chroma_counts,
             "launches_driver_sd3": driver_sd3_counts,
-            "launches_driver_chroma": driver_chroma_counts}
+            "launches_driver_chroma": driver_chroma_counts,
+            "launches_qwen_image_lora": qwen_counts, "launches_qwen_image_edit": qwen_edit_counts,
+            "launches_driver_qwen": driver_qwen_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                       driver_counts, ptxas, more))
+                       driver_counts, ptxas, more, qwen_int8))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -375,8 +375,13 @@ class SizeBucketDataset:
 
     def __init__(self, records: List[Record], directory: DirectoryDataset,
                  size_bucket: Tuple[int, int, int], cache_root: Path,
-                 include_captions: bool = False, resolution: int = 0):
+                 include_captions: bool = False, resolution: int = 0,
+                 cache_tags: Tuple[Optional[str], Optional[str]] = (None, None)):
         self.include_captions = include_captions
+        # (latent, text) encoder tags of the pipeline: a cache written by
+        # other encoders under the same folder (the JAX package's) gets
+        # another fingerprint and is rebuilt; None keeps the shared one
+        self.latent_tag, self.text_tag = cache_tags
         self.resolution = resolution  # originating training resolution
         self.size_bucket = tuple(int(x) for x in size_bucket)
         self.directory = directory
@@ -403,10 +408,17 @@ class SizeBucketDataset:
         return len(self.iteration_order) * self.directory.num_repeats
 
     def fingerprint(self) -> str:
-        return _config_fingerprint(
-            [self.size_bucket, [r.key() for r in self.records],
-             self.directory.num_repeats]
-        )
+        parts = [self.size_bucket, [r.key() for r in self.records], self.directory.num_repeats]
+        controls = [r.control_path for r in self.records]
+        if any(c is not None for c in controls):
+            # the control images' latents are cached with the targets': a
+            # control_path added or changed rebuilds the cache (the JAX
+            # package's fingerprint leaves it out)
+            parts.append([str(c) for c in controls])
+        return _config_fingerprint(parts)
+
+    def _tagged(self, parts: list, tag: Optional[str]) -> str:
+        return _config_fingerprint(parts if tag is None else parts + [tag])
 
     def cache_latents(self, vae_fn, regenerate=False, caching_batch_size=1):
         preprocessor = PreprocessMediaFile(
@@ -443,7 +455,9 @@ class SizeBucketDataset:
 
         self.latent_cache = map_and_cache(
             self.records, map_fn, self.cache_dir / "latents",
-            self.fingerprint(), batch_size=caching_batch_size,
+            self.fingerprint() if self.latent_tag is None
+            else self._tagged([self.fingerprint()], self.latent_tag),
+            batch_size=caching_batch_size,
             regenerate=regenerate,
         )
 
@@ -484,7 +498,7 @@ class SizeBucketDataset:
 
         cache = map_and_cache(
             rows, map_fn, self.cache_dir / f"text_embeddings_{te_idx}",
-            _config_fingerprint([self.fingerprint(), rows, te_idx]),
+            self._tagged([self.fingerprint(), rows, te_idx], self.text_tag),
             batch_size=caching_batch_size, regenerate=regenerate,
         )
         if len(self.te_caches) <= te_idx:
@@ -625,11 +639,13 @@ class Dataset:
             include_captions = getattr(
                 self.pipeline, "pass_captions_to_batch", False
             )
+            cache_tags = (getattr(self.pipeline, "latent_cache_tag", None),
+                          getattr(self.pipeline, "text_cache_tag", None))
             for (sb, res), records in sorted(groups.items()):
                 self.buckets_by_size[sb].append(
                     SizeBucketDataset(records, d, sb, cache_root,
                                       include_captions=include_captions,
-                                      resolution=res)
+                                      resolution=res, cache_tags=cache_tags)
                 )
         return self.buckets_by_size
 

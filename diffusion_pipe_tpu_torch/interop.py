@@ -1,7 +1,7 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux, Wan, SD3 or Chroma parameter tree as the JAX package builds
-it (a nested dict of numpy arrays, optionally under a top-level "params"
+Takes a Flux, Wan, SD3, Chroma or Qwen-Image parameter tree as the JAX
+package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
 compute the same function:
@@ -19,8 +19,8 @@ compute the same function:
   float8_e4m3fn array a torch.float8_e4m3fn tensor;
 - the scanned block stacks carry a leading [L] axis, split into the
   ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux,
-  Chroma) or `blocks.{i}.*` (Wan, SD3); the other subtrees (SD3's
-  `final_block`, Chroma's `distilled_guidance_layer`) become dotted names.
+  Chroma) or `blocks.{i}.*` (Wan, SD3, Qwen-Image); the other subtrees
+  (SD3's `final_block`, Chroma's `distilled_guidance_layer`) become dotted names.
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -29,7 +29,9 @@ sdxl_unet.py, clip_text.py; for the towers it is the counterpart of the
 JAX sdxl_convert.flax_hf_to_torch_sd): a Conv `kernel` [..., in, out] of
 any rank becomes torch's `weight` [out, in, ...], a Dense `kernel` is
 transposed, an Embed `embedding` and a norm `scale` become `weight`, and
-the unrolled `block_{i}` modules become the ModuleList entries `blocks.{i}`.
+the unrolled `block_{i}` / `layer_{i}` modules become the ModuleList
+entries `blocks.{i}` / `layers.{i}` (also the LLM text towers and the
+Qwen2.5-VL vision tower, models/llm_encoders.py, vision_encoders.py).
 
 Only numpy and torch are used here.
 """
@@ -141,7 +143,7 @@ def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, torch.Tenso
 
 
 _CONV_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
-_BLOCK = re.compile(r"^block_(\d+)$")
+_BLOCK = re.compile(r"^(block|layer)_(\d+)$")
 
 
 def tree_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -157,6 +159,6 @@ def tree_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name, arr = "weight", np.transpose(arr, _CONV_TO_TORCH[arr.ndim])
         elif name in ("embedding", "scale"):
             name = "weight"
-        parts = [_BLOCK.sub(r"blocks.\1", p) for p in path[:-1]]
+        parts = [_BLOCK.sub(r"\1s.\2", p) for p in path[:-1]]
         out[".".join(parts + [name])] = _to_tensor(np.ascontiguousarray(arr))
     return out

@@ -74,6 +74,9 @@ def seeded_text_encoder_fns(t5_len: int, t5_dim: int, clip_dim: int):
     return [t5_fn, clip_fn]
 
 
+FLUX_LAYOUT_KEYS = ("num_layers", "num_single_layers")
+
+
 @register_model("flux", "flex", "flux-kontext")
 class FluxPipeline(BasePipeline):
     name = "flux"
@@ -91,7 +94,11 @@ class FluxPipeline(BasePipeline):
         with torch.device("meta"):
             self.model = FluxTransformer(self.flux_config)
 
-    def _build_flux_config(self) -> FluxConfig:
+    def _build_flux_config(self, layout: Optional[Dict[str, int]] = None) -> FluxConfig:
+        """Flux-dev's layout (19 double, 38 single blocks), or the block
+        counts of [model] (num_layers, num_single_layers), or `layout`
+        (what load_weights read from the checkpoint: Flex and Kontext
+        variants have other counts)."""
         mc = self.model_config
         dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
         kwargs: Dict[str, Any] = dict(
@@ -102,6 +109,8 @@ class FluxPipeline(BasePipeline):
             **block_kernel_kwargs(mc),
         )
         kwargs.update(adapter_kwargs(self.config, mc.get("dtype", "bfloat16")))
+        kwargs.update({k: int(mc[k]) for k in FLUX_LAYOUT_KEYS if mc.get(k) is not None})
+        kwargs.update(layout or {})
         if mc.get("_tiny", False):  # test hook
             return FluxConfig.tiny(**kwargs)
         return FluxConfig(**kwargs)
@@ -246,8 +255,11 @@ class FluxPipeline(BasePipeline):
         """The pretrained transformer as a state dict of the port's names:
         model.transformer_path (a safetensors file or folder), else
         model.diffusers_path/transformer; diffusers or BFL keys, with
-        model.merge_adapters fused in first."""
+        model.merge_adapters fused in first. The model is rebuilt on the
+        checkpoint's block counts (checked against [model]'s); a key
+        missing or left over raises KeyError naming it."""
         from .flux_convert import convert_bfl_flux, convert_diffusers_flux
+        from .keymaps import count_blocks, layout_override
         from .weights import load_safetensors_dir, merge_adapters_into_state_dict
 
         mc = self.model_config
@@ -256,7 +268,16 @@ class FluxPipeline(BasePipeline):
             path = str(Path(mc["diffusers_path"]) / "transformer")
         sd = merge_adapters_into_state_dict(load_safetensors_dir(path),
                                             mc.get("merge_adapters", []))
-        if any(k.startswith("double_blocks.") for k in sd):
+        bfl = any(k.startswith("double_blocks.") for k in sd)
+        prefixes = ("double_blocks", "single_blocks") if bfl else (
+            "transformer_blocks", "single_transformer_blocks")
+        layout = layout_override(mc, {k: count_blocks(sd, p)
+                                      for k, p in zip(FLUX_LAYOUT_KEYS, prefixes)})
+        if any(getattr(self.flux_config, k) != v for k, v in layout.items()):
+            self.flux_config = self._build_flux_config(layout)
+            with torch.device("meta"):
+                self.model = FluxTransformer(self.flux_config)
+        if bfl:
             return convert_bfl_flux(sd, self.flux_config)
         return convert_diffusers_flux(sd, self.flux_config)
 

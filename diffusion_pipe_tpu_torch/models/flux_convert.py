@@ -85,7 +85,11 @@ def convert_diffusers_flux(sd: Mapping[str, torch.Tensor],
                            config: FluxConfig) -> Dict[str, torch.Tensor]:
     """A diffusers FluxTransformer2DModel state dict -> the port's state
     dict (pretrained tensors only: the LoRA factors and int8 scales keep
-    their initialisation when it is loaded)."""
+    their initialisation when it is loaded). A key missing or left over
+    raises KeyError naming it."""
+    from .weights import TrackedDict
+
+    sd = TrackedDict(sd, "Flux checkpoint")
     out: Dict[str, torch.Tensor] = {}
 
     def linear(ours, theirs):
@@ -101,6 +105,7 @@ def convert_diffusers_flux(sd: Mapping[str, torch.Tensor],
             linear(f"{ours_p}.{ours}", f"{theirs_p}.{theirs}")
         for ours, theirs in norm_map.items():
             out[f"{ours_p}.{ours}.scale"] = sd[f"{theirs_p}.{theirs}.weight"]
+    sd.check_all_read()
     return out
 
 
@@ -155,7 +160,11 @@ def convert_bfl_flux(sd: Mapping[str, torch.Tensor],
     double-block qkv splits into to_q/k/v (and add_*), the single-block
     linear1 into qkv and proj_mlp, the final adaLN's (shift, scale) halves
     swap into diffusers' (scale, shift), the embedders are renamed, then
-    convert_diffusers_flux applies."""
+    convert_diffusers_flux applies. A BFL key left over raises KeyError
+    naming it (a missing one, in its diffusers name)."""
+    from .weights import TrackedDict
+
+    sd = TrackedDict(sd, "Flux (BFL) checkpoint")
     d: Dict[str, torch.Tensor] = {}
     h = config.hidden_size
 
@@ -226,4 +235,5 @@ def convert_bfl_flux(sd: Mapping[str, torch.Tensor],
         mlp = sd[f"{bp}.linear1.weight"].shape[0] - 3 * h
         split(f"{bp}.linear1", ["attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"], dp,
               [h, h, h, mlp])
+    sd.check_all_read()
     return convert_diffusers_flux(d, config)

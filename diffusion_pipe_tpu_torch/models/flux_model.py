@@ -8,9 +8,12 @@ blocks live in nn.ModuleLists (the JAX package scans a stacked [L] axis;
 interop.py splits it). With `remat` set, each block runs under
 torch.utils.checkpoint, so its forward is recomputed in the backward:
 attention kernel included under "full", the flash forward's saved O and
-LSE under "attn". The block linears (14 a double block, 6 a single block)
-take base_kernel_dtype (fp8 storage) and int8_matmul; the embedders, norms
-and head keep param_dtype, as in the JAX package. Block swap, prefetch and
+LSE under "attn". The timestep embedding goes raw to every block and to
+the output norm, each of which applies SiLU once before its modulation
+linear, as diffusers and BFL do (the JAX module applies it twice). The
+block linears (14 a double block, 6 a single block) take
+base_kernel_dtype (fp8 storage) and int8_matmul; the embedders, norms and
+head keep param_dtype, as in the JAX package. Block swap, prefetch and
 sequence sharding are not ported yet.
 """
 
@@ -248,7 +251,9 @@ class FluxTransformer(nn.Module):
         cfg = self.cfg
         img = self.x_embedder(hidden_states)
         txt = self.context_embedder(encoder_hidden_states)
-        temb = F.silu(self.time_text_embed(timestep, guidance, pooled_projections))
+        # the raw sum of the embedders: each block and the output norm apply
+        # SiLU once before their modulation linears (diffusers, BFL)
+        temb = self.time_text_embed(timestep, guidance, pooled_projections)
         ids = torch.cat([txt_ids, img_ids], dim=0)
         rope_cos, rope_sin = rope_frequencies(ids, cfg.axes_dims_rope, cfg.rope_theta)
 

@@ -48,7 +48,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from .weights import dequantize_comfy_fp8, load_safetensors_dir, merge_adapters_into_state_dict
+from .weights import (TrackedDict, dequantize_comfy_fp8, load_safetensors_dir,
+                      merge_adapters_into_state_dict)
 
 
 @dataclasses.dataclass
@@ -139,6 +140,25 @@ def split_passthrough(sd: Mapping[str, Any], km: KeyMap):
     return main, keep
 
 
+def count_blocks(sd: Mapping[str, Any], prefix: str) -> int:
+    """How many `{prefix}.N.` blocks a (prefix-stripped) checkpoint holds,
+    0 for none; indices that are not 0..n-1 raise KeyError."""
+    idx = {int(m.group(1)) for k in sd
+           for m in [re.match(re.escape(prefix) + r"\.(\d+)\.", k)] if m}
+    if idx != set(range(len(idx))):
+        raise KeyError(f"{prefix} indices are not 0..{len(idx) - 1}: {sorted(idx)[:8]}")
+    return len(idx)
+
+
+def layout_override(model_config, layout: Dict[str, Any]) -> Dict[str, Any]:
+    """`layout` (what a checkpoint holds) after checking it against the
+    same fields set in [model]: a disagreement raises KeyError."""
+    for key, val in layout.items():
+        if model_config.get(key) is not None and model_config[key] != val:
+            raise KeyError(f"model.{key} = {model_config[key]!r} but the checkpoint holds {val!r}")
+    return layout
+
+
 def _resolve_count(count, config) -> int:
     return getattr(config, count) if isinstance(count, str) else int(count)
 
@@ -188,8 +208,10 @@ def keymap_to_state_dict(sd: Mapping[str, torch.Tensor], km: KeyMap,
                          config) -> Dict[str, torch.Tensor]:
     """A torch-layout checkpoint -> the port's state dict (see module
     docstring): what interop.jax_to_state_dict makes of the JAX
-    keymap_to_flax."""
-    sd = strip_known_prefixes(sd, km)
+    keymap_to_flax. A key the map needs and sd lacks, or a key of sd
+    that it does not take (outside km.passthrough_patterns), raises
+    KeyError naming them."""
+    sd = TrackedDict(strip_known_prefixes(sd, km))
     out: Dict[str, torch.Tensor] = {}
     for ours, theirs in km.top_linears.items():
         _linear_in(out, _dotted(ours), sd, theirs)
@@ -223,6 +245,7 @@ def keymap_to_state_dict(sd: Mapping[str, torch.Tensor], km: KeyMap,
                 out[dst + _dotted(ours)] = sd[src + theirs]
             for theirs, entries in bg.fused.items():
                 _fused_in(out, dst, sd, src + theirs, entries)
+    sd.check_all_read(km.passthrough_patterns)
     return out
 
 

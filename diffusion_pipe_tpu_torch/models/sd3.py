@@ -20,9 +20,9 @@ draws at the JAX `_tiny` hook's sizes.
 Weights: keymap() maps diffusers SD3Transformer2DModel keys
 (transformer_blocks.{n-1} is final_block, pos_embed.proj is the patch
 linear, LoRA under `transformer.`) and drives load_weights, the adapter
-export and import and the full fine-tuning export. "sd3.5" builds
-SD3-Medium's layout (24 blocks, no qk_norm), as the JAX pipeline does: no
-layer count or qk_norm is read from the config.
+export and import and the full fine-tuning export. The layout (blocks,
+heads, qk_norm, the position table's side) comes from the checkpoint at
+load, or from [model]; the JAX pipeline always builds SD3-Medium's.
 """
 
 from __future__ import annotations
@@ -90,9 +90,38 @@ def merge_prompt(batch, device):
     return torch.cat([clip, t5], dim=-2), pooled.to(device, torch.float32)
 
 
+SD3_LAYOUT_KEYS = ("num_layers", "num_attention_heads", "qk_norm", "pos_embed_max_size")
+
+
+def sd3_checkpoint_layout(sd, passthrough, head_dim: int = 64) -> Dict[str, Any]:
+    """The layout of a (prefix-stripped) diffusers SD3 / SD3.5 checkpoint:
+    its block count, heads (the width over the head dim, 64 in the
+    family), qk_norm (norm_q weights present) and the position table's side (from
+    pos_embed.pos_embed, kept in `passthrough`, when the file has it).
+    SD3.5 Medium's second self-attention (attn2, MMDiT-X) is not built by
+    either package: NotImplementedError names its keys."""
+    from .keymaps import count_blocks
+
+    attn2 = sorted(k for k in sd if ".attn2." in k)
+    if attn2:
+        raise NotImplementedError(f"SD3.5 MMDiT-X blocks (attn2) are not ported: "
+                                  f"{len(attn2)} keys, e.g. {attn2[:4]}")
+    layout = dict(num_layers=count_blocks(sd, "transformer_blocks"),
+                  num_attention_heads=sd["context_embedder.weight"].shape[0] // head_dim,
+                  qk_norm="transformer_blocks.0.attn.norm_q.weight" in sd)
+    table = passthrough.get("pos_embed.pos_embed")
+    if table is not None:
+        layout["pos_embed_max_size"] = int(round(table.shape[1] ** 0.5))
+    return layout
+
+
 @register_model("sd3", "sd3.5")
 class SD3Pipeline(BasePipeline):
     name = "sd3"
+    # the text cache's encoder tag: the port's CLIP functions give the
+    # projected pooled output without the tokenizer's mask, the JAX
+    # package's the unprojected one with it, under the same cache folder
+    text_cache_tag = "clip-projected-pooled-unmasked"
 
     def __init__(self, config: Dict[str, Any], device=None):
         super().__init__(config, device)
@@ -103,12 +132,19 @@ class SD3Pipeline(BasePipeline):
         with torch.device("meta"):
             self.model = SD3Transformer(self.sd3_config)
 
-    def _build_config(self) -> SD3Config:
+    def _build_config(self, layout: Optional[Dict[str, Any]] = None) -> SD3Config:
+        """SD3-Medium's layout (24 blocks, 24 heads, no qk_norm, a 192 x
+        192 position table), or [model]'s num_layers, num_attention_heads,
+        qk_norm and pos_embed_max_size, or `layout` (what load_weights read
+        from the checkpoint: SD3.5 Large has 38 blocks, 38 heads and
+        qk_norm)."""
         mc = self.model_config
         dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
         kwargs: Dict[str, Any] = dict(dtype=dtype, param_dtype=dtype, remat=remat_spec(self.config),
                                       **block_kernel_kwargs(mc))
         kwargs.update(adapter_kwargs(self.config, mc.get("dtype", "bfloat16")))
+        kwargs.update({k: mc[k] for k in SD3_LAYOUT_KEYS if mc.get(k) is not None})
+        kwargs.update(layout or {})
         if mc.get("_tiny", False):
             return SD3Config.tiny(**kwargs)
         return SD3Config(**kwargs)
@@ -316,12 +352,24 @@ class SD3Pipeline(BasePipeline):
             patch_linear_shapes={"pos_embed_proj": (cfg.in_channels, cfg.patch_size,
                                                     cfg.patch_size)},
             lora_prefix="transformer.",
+            # the fixed position table: the port computes it
+            passthrough_patterns=(r"^pos_embed\.pos_embed$",),
         )
 
     def load_weights(self) -> Dict[str, torch.Tensor]:
         """The pretrained transformer (model.ckpt_path, transformer_path,
         single_file_path or diffusers_path/transformer; model.merge_adapters
-        fused in) as a state dict of the port's names."""
-        from .keymaps import keymap_to_state_dict, load_sd_for_pipeline
+        fused in) as a state dict of the port's names. The model is rebuilt
+        on the checkpoint's layout (sd3_checkpoint_layout, checked against
+        [model]'s); a key missing or left over raises KeyError naming it."""
+        from .keymaps import keymap_to_state_dict, layout_override, load_sd_for_pipeline
 
-        return keymap_to_state_dict(load_sd_for_pipeline(self), self.keymap(), self.sd3_config)
+        sd = load_sd_for_pipeline(self)
+        layout = layout_override(self.model_config,
+                                 sd3_checkpoint_layout(sd, getattr(self, "_passthrough_sd", {}),
+                                                       self.sd3_config.attention_head_dim))
+        if any(getattr(self.sd3_config, k) != v for k, v in layout.items()):
+            self.sd3_config = self._build_config(layout)
+            with torch.device("meta"):
+                self.model = SD3Transformer(self.sd3_config)
+        return keymap_to_state_dict(sd, self.keymap(), self.sd3_config)

@@ -8,8 +8,10 @@ shift) and has no output path. Inputs: latents [B, C, H, W], t * 1000,
 prompt embeddings [B, S, 4096] (CLIP rows then T5 rows) and the pooled
 CLIP-L + CLIP-G vector [B, 2048].
 
-silu(temb) goes to every block, which applies its own silu before the
-modulation linears, as the JAX module does. The blocks live in an
+The raw temb goes to every block and to the output norm, each of which
+applies SiLU once before its modulation linear, as diffusers'
+AdaLayerNormZero / AdaLayerNormContinuous do (the JAX module applies it
+twice). The blocks live in an
 nn.ModuleList `blocks` (the JAX package's scanned stack) plus
 `final_block`; with `remat` set each of them runs under remat_call. The
 block linears take the adapter, base_kernel_dtype (fp8 storage) and
@@ -227,7 +229,6 @@ class SD3Transformer(nn.Module):
 
         temb = self.timestep_embedder(timestep.float())
         temb = temb + self.text_embedder(pooled_projections.to(cfg.dtype))
-        temb = F.silu(temb)
         txt = self.context_embedder(encoder_hidden_states.to(cfg.dtype))
 
         for block in self.blocks:

@@ -100,8 +100,11 @@ def _unet_name_pairs(cfg: SDXLConfig):
 def convert_diffusers_sdxl_unet(sd: Mapping[str, torch.Tensor],
                                 cfg: SDXLConfig) -> Dict[str, torch.Tensor]:
     """A diffusers SDXL UNet state dict -> SDXLUNet's (pretrained tensors
-    only: adapter factors keep their initialisation when it is loaded)."""
-    return {ours: sd[theirs] for ours, theirs in _unet_name_pairs(cfg)}
+    only: adapter factors keep their initialisation when it is loaded). A
+    key missing or left over raises KeyError naming it."""
+    from .weights import take
+
+    return take(sd, _unet_name_pairs(cfg), "SDXL UNet checkpoint")
 
 
 def export_sdxl_unet_diffusers(unet_sd: Mapping[str, torch.Tensor],

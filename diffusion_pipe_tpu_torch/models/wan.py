@@ -562,9 +562,12 @@ def convert_wan_weights(sd: Mapping[str, torch.Tensor], cfg: WanConfig) -> Dict[
     """An official Wan checkpoint (blocks.N.* keys; a ComfyUI
     `diffusion_model.` prefix stripped) -> the port's state dict
     (pretrained tensors only: LoRA factors and int8 scales keep their
-    initialisation when it is loaded)."""
+    initialisation when it is loaded). A key missing or left over raises
+    KeyError naming it."""
+    from .weights import take
+
     sd = {k.removeprefix("diffusion_model."): v for k, v in sd.items()}
-    return {ours: sd[theirs] for ours, theirs in _name_pairs(cfg)}
+    return take(sd, _name_pairs(cfg), "Wan checkpoint")
 
 
 def export_wan_model(state_dict: Mapping[str, torch.Tensor],

@@ -7,9 +7,11 @@ checkpoint layout (an encoder with nn.Sequential `downsamples` / `middle` /
 construction loops. torch's [out, in, ...] layouts carry over as they are;
 an RMS norm's gamma [C, 1, 1(, 1)] flattens to [C] and a 1x1 Conv2d of the
 bottleneck attention becomes a Linear. `vae.` / `model.` prefixes are
-stripped. wan_vae_state_dict is the inverse (the reference layout of a
-port model's weights), which the tests and chip_smoke.py use to write a
-checkpoint.
+stripped. diffusers' AutoencoderKLWan / AutoencoderKLQwenImage layout
+(Qwen-Image's `vae/` folder) is renamed onto the reference layout first
+(diffusers_key_map). wan_vae_state_dict is the inverse (the reference
+layout of a port model's weights), which the tests and chip_smoke.py use
+to write a checkpoint.
 """
 
 from __future__ import annotations
@@ -97,6 +99,72 @@ def _layout(cfg: WanVAEConfig) -> Iterator[Tuple[str, str, str]]:
 
 _CONVERTERS = {"conv": _conv3d, "res": _res_block, "attn": _attn_block, "rms": _rms}
 
+# diffusers' AutoencoderKLWan / AutoencoderKLQwenImage (Qwen-Image's VAE):
+# the same modules under other names. Leaves of each kind, reference ->
+# diffusers, and the fixed module prefixes.
+_DIFFUSERS_LEAVES = {
+    "conv": (("weight", "weight"), ("bias", "bias")),
+    "rms": (("gamma", "gamma"),),
+    "attn": tuple((f"{m}.{leaf}", f"{m}.{leaf}") for m, leaf in (
+        ("norm", "gamma"), ("to_qkv", "weight"), ("to_qkv", "bias"), ("proj", "weight"),
+        ("proj", "bias"))),
+    "res": (("residual.0.gamma", "norm1.gamma"), ("residual.2.weight", "conv1.weight"),
+            ("residual.2.bias", "conv1.bias"), ("residual.3.gamma", "norm2.gamma"),
+            ("residual.6.weight", "conv2.weight"), ("residual.6.bias", "conv2.bias"),
+            ("shortcut.weight", "conv_shortcut.weight"), ("shortcut.bias", "conv_shortcut.bias")),
+}
+_DIFFUSERS_FIXED = {"conv1": "quant_conv", "conv2": "post_quant_conv"}
+for _part in ("encoder", "decoder"):
+    _DIFFUSERS_FIXED.update({
+        f"{_part}.conv1": f"{_part}.conv_in", f"{_part}.head.0": f"{_part}.norm_out",
+        f"{_part}.head.2": f"{_part}.conv_out",
+        f"{_part}.middle.0": f"{_part}.mid_block.resnets.0",
+        f"{_part}.middle.1": f"{_part}.mid_block.attentions.0",
+        f"{_part}.middle.2": f"{_part}.mid_block.resnets.1"})
+
+
+def diffusers_key_map(cfg: WanVAEConfig) -> Dict[str, str]:
+    """reference key -> diffusers key of every tensor of a Wan 2.1 VAE of
+    `cfg`: the encoder's flat `downsamples.N` are `down_blocks.N`, the
+    decoder's flat `upsamples.N` split into `up_blocks.i.resnets.j` and
+    `up_blocks.i.upsamplers.0`, a residual block's Sequential indices
+    become norm1 / conv1 / norm2 / conv2 / conv_shortcut."""
+    import re
+
+    up, seq = {}, 0
+    for i in range(len(cfg.dim_mult)):
+        for j in range(cfg.num_res_blocks + 1):
+            up[seq], seq = f"decoder.up_blocks.{i}.resnets.{j}", seq + 1
+        if i != len(cfg.dim_mult) - 1:
+            up[seq], seq = f"decoder.up_blocks.{i}.upsamplers.0", seq + 1
+
+    def prefix(theirs: str) -> str:
+        if theirs in _DIFFUSERS_FIXED:
+            return _DIFFUSERS_FIXED[theirs]
+        m = re.match(r"encoder\.downsamples\.(\d+)(.*)$", theirs)
+        if m:
+            return f"encoder.down_blocks.{m[1]}{m[2]}"
+        m = re.match(r"decoder\.upsamples\.(\d+)(.*)$", theirs)
+        return f"{up[int(m[1])]}{m[2]}"
+
+    return {f"{theirs}.{a}": f"{prefix(theirs)}.{b}"
+            for kind, theirs, _ in _layout(cfg) for a, b in _DIFFUSERS_LEAVES[kind]}
+
+
+def from_diffusers_layout(sd: Mapping[str, torch.Tensor],
+                          cfg: WanVAEConfig) -> Dict[str, torch.Tensor]:
+    """A diffusers-layout Wan 2.1 / Qwen-Image VAE state dict in the
+    reference layout (a key outside the map raises KeyError)."""
+    inv = {d: r for r, d in diffusers_key_map(cfg).items()}
+    extra = [k for k in sd if k not in inv]
+    if extra:
+        raise KeyError(f"VAE keys outside the diffusers Wan layout: {extra[:5]}")
+    return {inv[k]: v for k, v in sd.items()}
+
+
+def is_diffusers_layout(sd: Mapping[str, torch.Tensor]) -> bool:
+    return any(k.startswith(("encoder.conv_in.", "encoder.down_blocks.")) for k in sd)
+
 
 def convert_layout(sd: Mapping[str, torch.Tensor], layout) -> Dict[str, torch.Tensor]:
     """A reference-layout state dict -> the port's, along `layout`."""
@@ -160,9 +228,13 @@ def load_vae_checkpoint(cls, cfg, state_dict: Mapping[str, torch.Tensor], device
 
 def load_wan_vae(path, dtype: torch.dtype = torch.float32, device=None) -> WanVideoVAE:
     """The Wan 2.1 VAE from a .pth / .pt / .bin or safetensors checkpoint,
-    in `dtype` on `device` (default the CPU), frozen."""
+    or a folder of safetensors (a diffusers `vae/` folder), in the
+    reference or the diffusers layout, in `dtype` on `device` (default the
+    CPU), frozen."""
     from .weights import load_state_dict_any
 
     cfg = WanVAEConfig.wan21(dtype=dtype)
-    return load_vae_checkpoint(WanVideoVAE, cfg,
-                               convert_wan_vae(load_state_dict_any(Path(path)), cfg), device)
+    sd = load_state_dict_any(Path(path))
+    if is_diffusers_layout(sd):
+        sd = from_diffusers_layout(sd, cfg)
+    return load_vae_checkpoint(WanVideoVAE, cfg, convert_wan_vae(sd, cfg), device)

@@ -10,13 +10,56 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Dict
+import re
+from typing import Dict, Mapping, Sequence
 
 import torch
 
 from .. import safetensors_io
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+class TrackedDict(dict):
+    """A checkpoint's tensors that record which keys a converter reads: a
+    key it lacks raises KeyError naming it, and check_all_read raises,
+    naming them, on the keys no read took (outside the `passthrough`
+    regexes), so that a checkpoint of another layout does not load by
+    halves. Membership tests do not count as reads."""
+
+    def __init__(self, sd: Mapping[str, torch.Tensor], what: str = "checkpoint"):
+        super().__init__(sd)
+        self.what, self.read = what, set()
+
+    def __getitem__(self, key):
+        if not dict.__contains__(self, key):
+            raise KeyError(f"{self.what} lacks {key!r}")
+        self.read.add(key)
+        return dict.__getitem__(self, key)
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def check_all_read(self, passthrough: Sequence[str] = ()) -> None:
+        left = sorted(k for k in self if k not in self.read
+                      and not any(re.search(p, k) for p in passthrough))
+        if left:
+            raise KeyError(f"{self.what}: {len(left)} keys that the model does not take, "
+                           f"e.g. {left[:8]}")
+
+
+def take(sd: Mapping[str, torch.Tensor], pairs,
+         what: str = "checkpoint") -> Dict[str, torch.Tensor]:
+    """{ours: sd[theirs]} over (ours, theirs) pairs, raising KeyError that
+    names every missing key and every key of sd left over."""
+    pairs = list(pairs)
+    missing = [theirs for _, theirs in pairs if theirs not in sd]
+    if missing:
+        raise KeyError(f"{what} lacks {len(missing)} keys, e.g. {missing[:8]}")
+    tracked = TrackedDict(sd, what)
+    out = {ours: tracked[theirs] for ours, theirs in pairs}
+    tracked.check_all_read()
+    return out
 
 
 def load_safetensors_dir(path) -> Dict[str, torch.Tensor]:

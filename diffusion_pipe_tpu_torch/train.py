@@ -27,8 +27,8 @@ output_dir/example.png before training.
 
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
-optimizer (A10), and families other than Flux, Wan, SDXL, SD3 and Chroma
-(A9).
+optimizer (A10), and families other than Flux, Wan, SDXL, SD3, Chroma and
+Qwen-Image (A9).
 """
 
 from __future__ import annotations
@@ -79,15 +79,39 @@ def _check_ported(config, args):
     from .models import get_model_class
     from .models.chroma import ChromaPipeline
     from .models.flux import FluxPipeline
+    from .models.qwen_image import QwenImagePipeline
     from .models.sd3 import SD3Pipeline
     from .models.sdxl import SDXLPipeline
     from .models.wan import WanPipeline
 
-    trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline)
+    trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
+               QwenImagePipeline)
     if get_model_class(config["model"]["type"]) not in trained:
         raise NotImplementedError(
-            f"the driver trains the Flux, Wan, SDXL, SD3 and Chroma families so far; "
+            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma and Qwen-Image families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
+
+
+# [model] keys that name the transformer's checkpoint (diffusers_path: its
+# transformer/ or unet/ folder)
+CHECKPOINT_KEYS = ("ckpt_path", "transformer_path", "single_file_path", "unet_path",
+                   "checkpoint_path", "diffusers_path")
+
+
+def pretrained_weights(pipeline):
+    """The pipeline's pretrained weights (load_weights), or None for random
+    init when [model] names no checkpoint at all (or sets the `_random_init`
+    test hook, for runs whose diffusers folder holds only the VAE and
+    tokenizer). A named checkpoint that fails to load raises: a wrong path,
+    a missing key or one the model does not take."""
+    mc = pipeline.model_config
+    named = [k for k in CHECKPOINT_KEYS if mc.get(k)]
+    if not named or mc.get("_random_init", False):
+        print("no checkpoint in [model]: training from random init")
+        return None
+    state_dict = pipeline.load_weights()
+    print(f"loaded pretrained weights (model.{named[0]})")
+    return state_dict
 
 
 def _to_png(image: torch.Tensor, path: Path) -> None:
@@ -229,12 +253,7 @@ def main(argv=None):
     lr_scales = {} if "force_constant_lr" in config else pipeline.lr_scale_map(base_lr)
     optimizer = get_optimizer(config, lr_scales=lr_scales)
 
-    try:
-        state_dict = pipeline.load_weights()
-        print("loaded pretrained weights")
-    except (NotImplementedError, KeyError, FileNotFoundError) as e:
-        print(f"WARNING: training from random init ({e!r})")
-        state_dict = None
+    state_dict = pretrained_weights(pipeline)
     if init_from_existing := config.get("adapter", {}).get("init_from_existing"):
         state_dict = {**(state_dict or {}), **pipeline.load_adapter(init_from_existing)}
         print(f"initialized adapter from {init_from_existing}")

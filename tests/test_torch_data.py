@@ -7,7 +7,9 @@ package's on the same inputs.
   iterated for two epochs by each package: the same bucket groups (keys
   and record order), and the same batches in the same order, bit for bit;
 - the cache: a record written by either package reads in the other, item
-  for item and bit for bit, metadata included; the native reader
+  for item and bit for bit, metadata included; a pipeline's encoder tag
+  (the port's SD3 text functions, which differ from the JAX ones) gives
+  its cache a fingerprint of its own, so the JAX package's is rebuilt; the native reader
   (native/cache_reader.cpp, built into build/native/) gives the bytes of
   the Python reader.
 """
@@ -192,3 +194,44 @@ def test_native_reader_equals_python_reader(tmp_path):
             assert torch.equal(a[k], b[k])
             np.testing.assert_array_equal(a[k].numpy(), rec[k])
     c.close()
+
+
+class _CountingStub(_Stub):
+    """The port's stub with the pipeline's cache tags, counting encoder
+    calls."""
+
+    def __init__(self, name, text_tag):
+        super().__init__(name, True)
+        self.text_cache_tag, self.calls = text_tag, {"vae": 0, "text": 0}
+
+    def get_call_vae_fn(self):
+        fn = super().get_call_vae_fn()
+        return lambda pixels: (self.calls.__setitem__("vae", self.calls["vae"] + 1), fn(pixels))[1]
+
+    def get_call_text_encoder_fns(self):
+        (fn,) = super().get_call_text_encoder_fns()
+        return [lambda caps: (self.calls.__setitem__("text", self.calls["text"] + 1), fn(caps))[1]]
+
+
+@pytest.mark.parametrize("family", ["sd3", "flux"])
+def test_jax_sd3_text_cache_is_rebuilt(tmp_path, media_dir, family):
+    """A cache the JAX package wrote under <dataset>/cache/<family>: the
+    port's SD3 pipeline, whose CLIP functions differ from the JAX ones,
+    tags its text cache (SD3Pipeline.text_cache_tag) and rebuilds it; its
+    latents, and every cache of Flux (no tag), are read as written."""
+    import shutil
+
+    from diffusion_pipe_tpu_torch.models.flux import FluxPipeline
+    from diffusion_pipe_tpu_torch.models.sd3 import SD3Pipeline
+
+    root = tmp_path / "media"
+    shutil.copytree(media_dir, root, ignore=shutil.ignore_patterns("cache"))
+    _run(JaxDataset, JaxManager, JaxLoader, _Stub(family, False), root)
+    tag = {"sd3": SD3Pipeline, "flux": FluxPipeline}[family].__dict__.get("text_cache_tag")
+    assert (tag is not None) == (family == "sd3")
+    port = _CountingStub(family, tag)
+    _run(PortDataset, PortManager, PortLoader, port, root)
+    assert port.calls["vae"] == 0 and (port.calls["text"] > 0) == (family == "sd3")
+    again = _CountingStub(family, tag)
+    _run(PortDataset, PortManager, PortLoader, again, root)
+    assert again.calls == {"vae": 0, "text": 0}

@@ -1,7 +1,7 @@
 """The port's models/keymaps.py against the JAX package's, on the same
 tensors.
 
-For tiny Flux, SD3 (qk_norm off and on) and Chroma: a torch-layout
+For tiny Flux, SD3 (qk_norm off and on), Chroma and Qwen-Image: a torch-layout
 checkpoint made by the JAX keymap_from_flax from seeded numpy weights
 (tests/torch_port_helpers.py) loads through the port's
 keymap_to_state_dict to exactly interop.jax_to_state_dict(keymap_to_flax(
@@ -10,12 +10,18 @@ gives exactly the JAX keymap_from_flax's tensors. A synthetic KeyMap
 holds every other kind of entry (raw tensors, sized and equal fused
 splits inside and outside blocks, stacks, a Conv3d, a patch linear,
 `.scale` norms, an index offset, passthrough tensors) to the same two
-gates. The adapter exports (LoRA and LoKr, SD3 and Chroma) equal the JAX
+gates. The adapter exports (LoRA and LoKr, SD3 and Chroma; Qwen-Image's
+LoRA under `diffusion_model.`) equal the JAX
 export_lora_keymap's keys and bits, and also hold the LoKr factors that
 the JAX export drops (a fused entry's, and SD3's final block's, which is
 a top-level linear there); every exported factor comes back through the
 import bit for bit, fused pairs included. Flux's full fine-tuning export
 equals the JAX save_model's file, and each package loads the other's.
+
+The layout comes from the checkpoint: a Flux file with other block
+counts, and an SD3.5-layout file (3 blocks, qk_norm, another position
+table), against the JAX SD3Config of that layout; SD3.5 Medium's attn2
+blocks raise.
 
 Defect of the JAX package held here: its fused LoRA pairs, of rank n * r,
 are written with the trained alpha, so a loader scaling by alpha / rank
@@ -46,7 +52,7 @@ from diffusion_pipe_tpu_torch.models.weights import merge_adapters_into_state_di
 from torch_port_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import random_params
 
-CASES = ["flux", "sd3", "sd3_qk_norm", "chroma"]
+CASES = ["flux", "sd3", "sd3_qk_norm", "chroma", "qwen_image"]
 
 
 def _config(family, adapter=None):
@@ -61,7 +67,7 @@ def _config(family, adapter=None):
 def _pipelines(case, adapter=None):
     """(JAX pipeline, port pipeline) of a case; SD3's qk_norm set on both
     (neither pipeline reads it from the config)."""
-    family = case.split("_")[0]
+    family = "sd3" if case == "sd3_qk_norm" else case
     cfg = _config(family, adapter)
     jp = jax_model_class(family)(cfg)
     tp = get_model_class(family)(cfg, device="cpu")
@@ -202,7 +208,8 @@ def _trainable(jp, seed):
 
 
 @pytest.mark.parametrize("case,adapter", [("sd3", "lora"), ("chroma", "lora"),
-                                          ("sd3", "lokr"), ("chroma", "lokr")])
+                                          ("sd3", "lokr"), ("chroma", "lokr"),
+                                          ("qwen_image", "lora")])
 def test_adapter_export_matches_jax_and_round_trips(case, adapter, tmp_path):
     """The port's export of the same factors: the JAX export's keys and bits,
     and the LoKr factors that the JAX export drops (a fused entry's, out
@@ -303,3 +310,87 @@ def test_flux_save_model_matches_jax_and_loads_across(tmp_path):
     _assert_same(tp.load_weights(), jax_to_state_dict(params))
     jp.model_config["transformer_path"] = str(tmp_path / "port" / "model.safetensors")
     _assert_same(jax_to_state_dict(jp.load_weights()), jax_to_state_dict(params))
+
+
+@pytest.mark.parametrize("case", ["from_checkpoint", "model_config_disagrees"])
+def test_flux_block_counts_come_from_the_checkpoint(tmp_path, case):
+    """A diffusers Flux checkpoint with 3 double and 1 single block (as Flex
+    or another variant has other counts): load_weights rebuilds the tiny
+    model (2 + 2) on those counts and every tensor lands; a [model]
+    num_layers that disagrees with the file raises."""
+    src = get_model_class("flux")(dict(_config("flux"), model=dict(
+        _config("flux")["model"], num_layers=3, num_single_layers=1)), device="cpu")
+    src.init_params(torch.Generator().manual_seed(0))
+    src.save_model(tmp_path, src.model)
+    mc = dict(_config("flux")["model"], transformer_path=str(tmp_path / "model.safetensors"))
+    if case == "model_config_disagrees":
+        mc["num_layers"] = 2
+    tp = get_model_class("flux")(dict(_config("flux"), model=mc), device="cpu")
+    assert (tp.flux_config.num_layers, tp.flux_config.num_single_layers) == (2, 2)
+    if case == "model_config_disagrees":
+        with pytest.raises(KeyError, match="model.num_layers = 2 but the checkpoint holds 3"):
+            tp.load_weights()
+        return
+    sd = tp.load_weights()
+    assert (tp.flux_config.num_layers, tp.flux_config.num_single_layers) == (3, 1)
+    tp.init_params(torch.Generator().manual_seed(1))
+    tp.model.load_state_dict(sd, strict=False)
+    _assert_same(tp.model.state_dict(), src.model.state_dict())
+
+
+@pytest.fixture(scope="module")
+def sd35_checkpoint():
+    """A tiny SD3.5-layout checkpoint from the JAX SD3Config(num_layers=3,
+    qk_norm=True, pos_embed_max_size=24) through the JAX keymap_from_flax,
+    with diffusers' position-table buffer; the JAX pipeline and weights."""
+    from diffusion_pipe_tpu.models.sd3_model import SD3Transformer as JaxSD3
+    from diffusion_pipe_tpu_torch.models.sd3_model import sincos_2d_pos_embed
+
+    jp = jax_model_class("sd3")(_config("sd3"))
+    jp.sd3_config = dataclasses.replace(jp.sd3_config, num_layers=3, qk_norm=True,
+                                        pos_embed_max_size=24)
+    jp.model = JaxSD3(jp.sd3_config)
+    params = random_params(jp, seed=7)
+    ckpt = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in jkm.keymap_from_flax(
+        _np(params), jp.keymap(), jp._keymap_config()).items()}
+    hidden = jp.sd3_config.hidden_size
+    ckpt["pos_embed.pos_embed"] = torch.from_numpy(sincos_2d_pos_embed(hidden, 24, 8))[None]
+    return jp, params, ckpt
+
+
+@pytest.mark.parametrize("case", ["sd35_layout", "attn2"])
+def test_sd3_layout_comes_from_the_checkpoint(tmp_path, sd35_checkpoint, case):
+    """The tiny SD3 pipeline (2 blocks, no qk_norm, a 32-wide table) reads
+    the checkpoint's 3 blocks, qk_norm and 24-wide table, and computes
+    what the JAX SD3Config(num_layers=3, qk_norm=True) does (its submodules
+    composed with one SiLU, torch_port_helpers.sd3_one_silu) within 1e-4;
+    an SD3.5 Medium-style attn2 block raises, naming its keys."""
+    from torch_port_helpers import sd3_one_silu
+
+    jp, params, ckpt = sd35_checkpoint
+    if case == "attn2":
+        ckpt = {**ckpt, "transformer_blocks.0.attn2.to_q.weight": torch.zeros(64, 64)}
+    safetensors_io.save_file(ckpt, tmp_path / "sd35.safetensors")
+    tp = get_model_class("sd3")(dict(_config("sd3"), model=dict(
+        _config("sd3")["model"], transformer_path=str(tmp_path / "sd35.safetensors"))),
+        device="cpu")
+    assert (tp.sd3_config.num_layers, tp.sd3_config.qk_norm) == (2, False)
+    if case == "attn2":
+        with pytest.raises(NotImplementedError, match=r"attn2.*transformer_blocks\.0\.attn2"):
+            tp.load_weights()
+        return
+    sd = tp.load_weights()
+    c = tp.sd3_config
+    assert (c.num_layers, c.num_attention_heads, c.qk_norm, c.pos_embed_max_size) == (
+        3, 4, True, 24)
+    tp.init_params(torch.Generator().manual_seed(0))
+    tp.model.load_state_dict(sd, strict=False)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 8, 8)).astype(np.float32)
+    t = np.array([300.0, 700.0], np.float32)
+    txt = rng.standard_normal((2, 12, 64)).astype(np.float32)
+    pooled = rng.standard_normal((2, 32)).astype(np.float32)
+    want = jax.jit(lambda p, *a: sd3_one_silu(jp.model, p, *a))(params, x, t, txt, pooled)
+    with torch.no_grad():
+        got = tp.model(*(torch.from_numpy(a) for a in (x, t, txt, pooled)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)

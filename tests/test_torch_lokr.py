@@ -28,6 +28,8 @@
   their largest magnitude (f32 through the blocks, summed in another
   order); the sampler builds no graph and no block runs under checkpoint
   (nothing recorded), even under "attn".
+The JAX Flux pipeline runs its model with SiLU applied once to the
+timestep embedding, as the port does (torch_port_helpers.one_silu).
 """
 
 import functools
@@ -55,8 +57,8 @@ from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import (JAX_FAST_COMPILE, draw_noise_and_t, random_params,
-                                tiny_batch)
+from torch_port_helpers import (JAX_FAST_COMPILE, draw_noise_and_t, one_silu,
+                                random_params, tiny_batch)
 
 LOKR = {"type": "lokr", "rank": 4, "alpha": 4, "decompose_factor": -1, "rank_dropout": 0.0}
 KEY = jax.random.PRNGKey(4)
@@ -221,6 +223,8 @@ def lokr_side(request):
     family = request.param
     cfg = _configs()[family]
     jpipe = jax_model_class(family)(cfg)
+    if family == "flux":
+        one_silu(jpipe)
     params = random_params(jpipe, seed=5)
     trainable, frozen = partition_params(params, jax_lora)
     batch = _batch(family)

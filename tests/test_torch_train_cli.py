@@ -24,8 +24,13 @@ images as one-frame videos):
   with a T5 mask) through the same cache -> 4 steps -> resume against a
   straight run, and their adapters (the generic keymap export, with
   alpha entries);
+- tiny Qwen-Image the same way (its seeded Wan 2.1 VAE, the `_tiny` text
+  draws with their mask); tiny Qwen-Image-Edit trains on a control_path
+  dataset, the control latents in every training batch;
 - tiny Flux full fine-tuning writes model.safetensors in the diffusers
   layout;
+- a [model] checkpoint path that does not load (a wrong path, a missing
+  key, a key the model does not take) stops the driver;
 - the options and families not ported yet raise NotImplementedError, and
   so does a full fine-tuning export without a keymap.
 """
@@ -192,6 +197,86 @@ def test_sd3_cache_train_eval_checkpoint_resume(root):
     _cache_train_resume(root, _family_config("sd3"), "sd3", (14 + 11) * 3)
 
 
+def test_qwen_image_cache_train_eval_checkpoint_resume(root):
+    # 2 blocks x 14 LoRA linears: lora_A, lora_B and alpha each
+    _cache_train_resume(root, _family_config("qwen_image"), "qwen_image", 2 * 14 * 3)
+
+
+def test_qwen_image_edit_trains_on_control_images(root):
+    """qwen_image_edit with a control_path dataset: the control images'
+    latents are cached beside the targets' and ride in the batch, the
+    text function receives the control files; 2 steps and the export."""
+    import shutil
+
+    ctrl = root / "edit_control"
+    if not ctrl.exists():
+        shutil.copytree(root / "train", ctrl)
+    (root / "edit_dataset.toml").write_text(
+        'resolutions = [64]\nenable_ar_bucket = true\nnum_ar_buckets = 3\n'
+        f'[[directory]]\npath = "{root}/train"\ncontrol_path = "{ctrl}"\n')
+    cfg = _family_config("qwen_image_edit")(root, "qwen_edit")
+    with open(cfg) as f:
+        text = f.read().replace(f"{root}/dataset.toml", f"{root}/edit_dataset.toml")
+    with open(cfg, "w") as f:
+        f.write(text.replace("eval_every_n_steps = 2", "eval_every_n_steps = 100"))
+    from diffusion_pipe_tpu_torch.models import qwen_image
+
+    seen = []
+    real = qwen_image.QwenImagePipeline.prepare_inputs
+
+    def spy(self, batch, *a, **kw):  # the eval set has no control images
+        if "control_latents" in batch:
+            seen.append(batch["control_latents"].shape == batch["latents"].shape)
+        return real(self, batch, *a, **kw)
+
+    qwen_image.QwenImagePipeline.prepare_inputs = spy
+    try:
+        assert train.main(["--config", cfg, "--device", "cpu", "--max_steps", "2"]) == 0
+    finally:
+        qwen_image.QwenImagePipeline.prepare_inputs = real
+    assert len(seen) == 2 and all(seen)
+    run = _run_dir(root, "qwen_edit")
+    assert [r["step"] for r in _records(run) if "train/loss" in r] == [1, 2]
+
+
+@pytest.mark.parametrize("case", ["wrong_path", "truncated", "extra_key"])
+def test_a_named_checkpoint_loads_or_raises(root, case):
+    """A [model] checkpoint path that does not load stops the driver: a
+    mistyped path, a file missing a key, a file with a key the model does
+    not take. Random init is only for a [model] that names no checkpoint."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.config import load_config
+    from diffusion_pipe_tpu_torch.models import get_model_class
+
+    ckpt = root / "flux_ckpt" / "model.safetensors"
+    if not ckpt.exists():
+        pipe = get_model_class("flux")(load_config(_config(root, "ckpt_src")), device="cpu")
+        pipe.init_params(torch.Generator().manual_seed(0))
+        pipe.save_model(ckpt.parent, pipe.model)
+    sd = safetensors_io.load_file(ckpt)
+    path, error = root / f"ckpt_{case}.safetensors", KeyError
+    if case == "wrong_path":
+        path, error = root / "no_such_checkpoint", FileNotFoundError
+    elif case == "truncated":
+        sd.pop("single_transformer_blocks.1.proj_out.weight")
+        match = "single_transformer_blocks.1.proj_out.weight"
+    else:
+        sd["transformer_blocks.0.attn.to_q2.weight"] = sd["proj_out.weight"]
+        match = r"1 keys that the model does not take.*to_q2"
+    if case != "wrong_path":
+        safetensors_io.save_file(sd, path)
+    else:
+        match = "no safetensors found"
+    cfg = _config(root, f"load_{case}")
+    with open(cfg) as f:
+        text = f.read().replace("_tiny = true", f'_tiny = true\ntransformer_path = "{path}"')
+    with open(cfg, "w") as f:
+        f.write(text)
+    with pytest.raises(error, match=match):
+        train.main(["--config", cfg, "--device", "cpu", "--max_steps", "1"])
+    assert not (root / f"load_{case}").exists() or not any((root / f"load_{case}").rglob("*.pt"))
+
+
 def test_chroma_cache_train_eval_checkpoint_resume(root):
     # a double block's 6 linears and 2 fused qkv, a single block's linear2
     # and fused linear1, in 2 + 2 blocks: lora_A, lora_B and alpha each
@@ -329,7 +414,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "qwen_image": ("", ('type = "flux"', 'type = "qwen_image"'), []),
+    "auraflow": ("", ('type = "flux"', 'type = "auraflow"'), []),
 }
 
 

@@ -2,7 +2,9 @@
 
 Tiny Flux (f32, LoRA rank 4), the same initial weights (seeded numpy draws
 on the JAX structure, LoRA B zero as at init, through interop.py), batch and
-per-step noise/t (the JAX draws, handed to the port). The clip
+per-step noise/t (the JAX draws, handed to the port); the JAX trainer runs
+the Flux model with SiLU applied once to the timestep embedding, as the
+port does (torch_port_helpers.one_silu). The clip
 threshold 0.05 sits below the grad norm (~0.3-0.6), so the clip scale is
 active on every step.
 
@@ -42,8 +44,8 @@ from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
 from diffusion_pipe_tpu_torch.training.train_state import lora_predicate
 from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 from torch_port_helpers import one_torch_thread  # noqa: F401
-from torch_port_helpers import (JAX_FAST_COMPILE, draw_noise_and_t, random_params, tiny_batch,
-                                tiny_flux_config)
+from torch_port_helpers import (JAX_FAST_COMPILE, draw_noise_and_t, one_silu, random_params,
+                                tiny_batch, tiny_flux_config)
 
 
 CONFIG = tiny_flux_config(
@@ -53,7 +55,7 @@ STEPS = 3
 
 def test_three_adamw8bit_steps_match_jax():
     batch = tiny_batch(12)
-    jpipe = jax_model_class("flux")(CONFIG)
+    jpipe = one_silu(jax_model_class("flux")(CONFIG))
     params = random_params(jpipe, seed=6)
     jopt = jax_get_optimizer(CONFIG)
     trainable, frozen = partition_params(params, jax_lora)

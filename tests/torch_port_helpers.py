@@ -152,3 +152,150 @@ def jax_initial_state(params, predicate):
         frozen = _prequantize(frozen)
     sd = jax_to_state_dict(jax.tree.map(np.asarray, merge_params(trainable, frozen)))
     return trainable, frozen, sd
+
+
+# --- one-SiLU oracles ---------------------------------------------------------
+# The JAX FluxTransformer and SD3Transformer apply SiLU to the timestep
+# embedding before their blocks, which apply it again (diffusers, BFL and
+# ComfyUI apply it once). The port applies it once, so its reference is the
+# JAX package's own submodules composed that way: each applied with flax on
+# its slice of the same parameters, the raw embedding into the blocks and
+# silu(temb) into the output norm.
+
+
+def flux_one_silu(model, params, hidden_states, encoder_hidden_states, pooled_projections,
+                  timestep, img_ids, txt_ids, guidance=None, txt_mask=None, img_seq_len=None):
+    """The JAX FluxTransformer `model`'s function with SiLU applied once."""
+    from diffusion_pipe_tpu.models.layers import (layer_norm_no_affine, modulate,
+                                                  rope_frequencies)
+
+    cfg = model.config
+
+    def sub(name, *args):
+        return model.apply(params, *args, method=lambda m, *a: getattr(m, name)(*a))
+
+    img = sub("x_embedder", hidden_states)
+    txt = sub("context_embedder", encoder_hidden_states)
+    temb = model.apply(params, timestep, guidance, pooled_projections,
+                       method=type(model).time_text_embed)
+    rope_cos, rope_sin = rope_frequencies(jnp.concatenate([txt_ids, img_ids], axis=0),
+                                          cfg.axes_dims_rope, cfg.rope_theta)
+    rope_cos, rope_sin = rope_cos.astype(jnp.float32), rope_sin.astype(jnp.float32)
+    assert cfg.double_split[1] == 0 and cfg.single_split[1] == 0, "no swap split here"
+    (img, txt), _ = sub("double_blocks", (img, txt), temb, rope_cos, rope_sin, txt_mask)
+    x = jnp.concatenate([txt, img], axis=1)
+    kv_mask = None
+    if txt_mask is not None:
+        kv_mask = jnp.concatenate([txt_mask.astype(jnp.int32),
+                                   jnp.ones(img.shape[:2], jnp.int32)], axis=1)
+    x, _ = sub("single_blocks", x, temb, rope_cos, rope_sin, kv_mask)
+    out = x[:, txt.shape[1]:]
+    if img_seq_len is not None:
+        out = out[:, :img_seq_len]
+    scale, shift = jnp.split(sub("norm_out_linear", jax.nn.silu(temb)), 2, axis=-1)
+    return sub("proj_out", modulate(layer_norm_no_affine(out), shift, scale))
+
+
+def sd3_one_silu(model, params, hidden_states, timestep, encoder_hidden_states,
+                 pooled_projections):
+    """The JAX SD3Transformer `model`'s function with SiLU applied once."""
+    from diffusion_pipe_tpu.models.layers import (LoraDense, PixArtAlphaTextProjection,
+                                                  TimestepEmbedder, layer_norm_no_affine,
+                                                  modulate)
+    from diffusion_pipe_tpu.models.sd3_model import SD3JointBlock, sincos_2d_pos_embed
+
+    cfg = model.config
+    p = params["params"]
+    dim, ps = cfg.hidden_size, cfg.patch_size
+    dd = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype)
+    b, c, h, w = hidden_states.shape
+    gh, gw = h // ps, w // ps
+    x = jnp.transpose(hidden_states, (0, 2, 3, 1)).astype(cfg.dtype)
+    x = x.reshape(b, gh, ps, gw, ps, c).transpose(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, -1)
+    img = LoraDense(dim, **dd).apply({"params": p["pos_embed_proj"]}, x)
+    m = cfg.pos_embed_max_size
+    table = sincos_2d_pos_embed(dim, m, cfg.sample_size // ps).reshape(m, m, dim)
+    top, left = (m - gh) // 2, (m - gw) // 2
+    img = img + jnp.asarray(table[top:top + gh, left:left + gw].reshape(1, gh * gw, dim)
+                            ).astype(img.dtype)
+    temb = TimestepEmbedder(dim, **dd).apply({"params": p["timestep_embedder"]},
+                                             timestep.astype(jnp.float32))
+    temb = temb + PixArtAlphaTextProjection(dim, **dd).apply(
+        {"params": p["text_embedder"]}, pooled_projections.astype(cfg.dtype))
+    txt = LoraDense(dim, **dd).apply({"params": p["context_embedder"]},
+                                     encoder_hidden_states.astype(cfg.dtype))
+    blocks = nn.scan(SD3JointBlock, variable_axes={"params": 0}, split_rngs={"params": True},
+                     in_axes=nn.broadcast, length=cfg.num_layers - 1)(cfg)
+    (img, txt), _ = blocks.apply({"params": p["blocks"]}, (img, txt), temb)
+    (img, _), _ = SD3JointBlock(cfg, context_pre_only=True).apply(
+        {"params": p["final_block"]}, (img, txt), temb)
+    mod = LoraDense(2 * dim, **dd).apply({"params": p["norm_out_linear"]}, jax.nn.silu(temb))
+    scale, shift = jnp.split(mod, 2, axis=-1)
+    img = modulate(layer_norm_no_affine(img), shift, scale)
+    out = LoraDense(ps * ps * cfg.out_channels, **dd).apply({"params": p["proj_out"]}, img)
+    out = out.reshape(b, gh, gw, ps, ps, cfg.out_channels).transpose(0, 5, 1, 3, 2, 4)
+    return out.reshape(b, cfg.out_channels, h, w)
+
+
+def one_silu(jpipe):
+    """The JAX Flux or SD3 pipeline `jpipe` with its forward (which the JAX
+    trainer, loss and sampler call) replaced by the one-SiLU composition."""
+    fn = {"FluxTransformer": flux_one_silu, "SD3Transformer": sd3_one_silu}[
+        type(jpipe.model).__name__]
+    jpipe.forward = lambda params, model_inputs: fn(jpipe.model, params, **model_inputs)
+    return jpipe
+
+
+QWEN_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|vision_start|>",
+                 "<|vision_end|>", "<|image_pad|>")
+
+
+def write_qwen_tokenizer(folder, words):
+    """A synthetic Qwen2-style tokenizer in `folder`: word-level over
+    whitespace-split `words` (unknown words to <unk>), the chat template's
+    special tokens after them, <|endoftext|> the padding. Returns the
+    token -> id map."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {w: i for i, w in enumerate(["<unk>"] + list(words))}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>",
+                                   pad_token="<|endoftext|>",
+                                   additional_special_tokens=list(QWEN_SPECIALS[1:]))
+    fast.save_pretrained(str(folder))
+    return fast.get_vocab()
+
+
+def qwen_one_silu(model, params, hidden_states, encoder_hidden_states, timestep, img_ids,
+                  txt_ids, txt_mask=None, img_seq_len=None):
+    """The JAX QwenImageTransformer `model`'s submodules composed with SiLU
+    applied once to temb and the RoPE tables of the given (port) ids: the
+    JAX module builds Flux's uncentred ids itself."""
+    from diffusion_pipe_tpu.models.flux_model import FluxDoubleBlock
+    from diffusion_pipe_tpu.models.layers import (LoraDense, RMSNorm, TimestepEmbedder,
+                                                  layer_norm_no_affine, modulate,
+                                                  rope_frequencies)
+
+    cfg = model.config
+    p = params["params"]
+    dim = cfg.hidden_size
+    dd = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype)
+    img = LoraDense(dim, **dd).apply({"params": p["img_in"]}, hidden_states.astype(cfg.dtype))
+    txt = RMSNorm(dtype=cfg.dtype, param_dtype=cfg.param_dtype).apply(
+        {"params": p["txt_norm"]}, encoder_hidden_states.astype(cfg.dtype))
+    txt = LoraDense(dim, **dd).apply({"params": p["txt_in"]}, txt)
+    temb = TimestepEmbedder(dim, **dd).apply({"params": p["time_text_embed"]},
+                                             timestep.astype(jnp.float32) * 1000.0)
+    rope_cos, rope_sin = rope_frequencies(jnp.concatenate([txt_ids, img_ids], axis=0),
+                                          tuple(cfg.axes_dims_rope), cfg.rope_theta)
+    blocks = nn.scan(FluxDoubleBlock, variable_axes={"params": 0}, split_rngs={"params": True},
+                     in_axes=nn.broadcast, length=cfg.num_layers)(cfg.to_flux_config())
+    (img, _), _ = blocks.apply({"params": p["blocks"]}, (img, txt), temb, rope_cos, rope_sin,
+                               txt_mask)
+    out = img if img_seq_len is None else img[:, :img_seq_len]
+    mod = LoraDense(2 * dim, **dd).apply({"params": p["norm_out_linear"]}, jax.nn.silu(temb))
+    scale, shift = jnp.split(mod, 2, axis=-1)
+    return LoraDense(cfg.out_channels, **dd).apply(
+        {"params": p["proj_out"]}, modulate(layer_norm_no_affine(out), shift, scale))

@@ -10,6 +10,7 @@
     python3 tools/profile_torch_step.py --slice sdxl-fullft  # sdxl-fullft
     python3 tools/profile_torch_step.py --slice sd3-lora  # sd3-medium-lora-1024
     python3 tools/profile_torch_step.py --slice chroma-lora  # chroma-lora-512
+    python3 tools/profile_torch_step.py --slice qwen-lora  # qwen-image-lora-1024
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -24,7 +25,10 @@ SDXL at full size, LoRA r16 with adamw8bit at batch 4 of 512 px, or full
 fine-tuning with adamw at batch 1; or chip_smoke.build_sd3_slice: SD3-Medium,
 LoRA r32, adamw8bit, per-block checkpointing, batch 2 at 1024 px; or
 chip_smoke.build_chroma_slice: Chroma, LoRA r32, adamw8bit, "attn", batch 2
-at 512 px with 512 masked T5 tokens), builds the kernels if needed, runs
+at 512 px with 512 masked T5 tokens; or chip_smoke.build_qwen_slice:
+Qwen-Image at full size as examples/qwen_image.toml trains it, fp8
+weights pre-quantized to int8, int8_matmul "fwd_bwd", LoRA r32, adamw8bit,
+`true`, batch 2 at 1024 px with 512 masked text rows), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -125,7 +129,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora",
                                         "sdxl-lora", "sdxl-fullft", "sd3-lora",
-                                        "chroma-lora"),
+                                        "chroma-lora", "qwen-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -150,6 +154,8 @@ def main(argv=None):
                      chip_smoke.build_sd3_slice),
         "chroma-lora": ("chroma-lora-512", chip_smoke.CHROMA_LORA_CONFIG,
                         chip_smoke.build_chroma_slice),
+        "qwen-lora": ("qwen-image-lora-1024", chip_smoke.QWEN_LORA_CONFIG,
+                      chip_smoke.build_qwen_slice),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing

@@ -5,7 +5,8 @@
 
 Phases: kernels-sd3-chroma, reference-sd3, reference-chroma, slice-sd3-lora,
 slice-chroma-lora, driver-sd3, driver-chroma (with the vae phase first,
-whose Flux VAE Chroma's driver reads). Each prints its JSON lines as in the
+whose Flux VAE Chroma's driver reads), kernels-qwen, reference-qwen,
+slice-qwen-image-lora, slice-qwen-image-edit-lora, qwen25vl, driver-qwen. Each prints its JSON lines as in the
 whole smoke; a failed check exits non-zero.
 """
 
@@ -36,6 +37,12 @@ def main(argv):
             "slice-chroma-lora", "chroma-lora-512", cs.build_chroma_slice),
         "driver-sd3": lambda: cs.phase_driver_family("sd3"),
         "driver-chroma": lambda: cs.phase_driver_family("chroma", cs.phase_vae()),
+        "kernels-qwen": cs.phase_kernels_qwen,
+        "reference-qwen": cs.phase_reference_qwen,
+        "slice-qwen-image-lora": cs.phase_slice_qwen,
+        "slice-qwen-image-edit-lora": lambda: cs.phase_slice_qwen(edit=True),
+        "qwen25vl": cs.phase_qwen25vl,
+        "driver-qwen": cs.phase_driver_qwen,
     }
     unknown = [p for p in argv if p not in phases]
     if unknown:
