@@ -289,6 +289,52 @@ Phases, each printing one JSON line (or more):
                      through init_from_existing, bit for bit; the 2,520
                      adapter keys and the launches.
 
+17. kernels-flux2-auraflow -- (run last) the ptxas registers and spills of
+                     the head-dim-256 kernels (csrc/flash_d256.cu; no spill
+                     allowed); K1-K3 at FLUX.2 [dev]'s joint sequence (B 1 x
+                     4,608 keys, 48 heads of 128; the edit's 8,704), checked
+                     on six heads, and at AuraFlow's (B 2 x 4,360 keys, 12
+                     heads of 256, unmasked and with 200 / 60 of the 256 T5
+                     rows valid) against the plain versions, K2 / K3
+                     deterministic, a batch element with every key masked
+                     at D 256 on both K3 paths, timed beside the bound, the
+                     plain versions and SDPA; H1 / H2 bit for bit and timed
+                     at the single block's linear1 [4,608 x 6,144 / 55,296].
+    reference-flux2-published / -jax, reference-auraflow -- 1 + 1 blocks at
+                     the real head dims (128, 256), bf16 on the card
+                     against f32 on the CPU; FLUX.2 in its published layout
+                     and in the JAX module's.
+    slice-flux2-lora -- cell flux2-dev-lora-1024-fp8-int8: FLUX.2 [dev] at
+                     its published size (8 + 48 blocks, 6,144 wide, SwiGLU
+                     ratio 3, 31.4 B) from a seed, the block weights built
+                     in fp8 and pre-quantized to int8 one at a time,
+                     int8_matmul "fwd_bwd", LoRA r32 (bf16) on the 160
+                     block linears, adamw8bit, clip 1.0, `true`, batch 1 at
+                     1024 px (4,096 image + 512 text tokens, unmasked,
+                     guidance 1.0): one warm-up, two timed steps; 112 / 56 /
+                     56 flash and 478 H1 and H2 launches a step.
+    slice-flux2-edit-lora -- cell flux2-dev-edit-lora-1024-4-blocks: the same
+                     at 2 + 2 blocks with control latents (8,704 keys), the
+                     output cut to the target's 4,096 rows.
+    slice-auraflow-lora -- cell auraflow-v0.3-lora-1024: AuraFlow v0.3 at its
+                     published size (4 + 32 blocks, 12 heads of 256, 6.8 B)
+                     as examples/auraflow.toml trains it (fp8 storage, LoRA
+                     r32, adamw8bit, `true`), batch 2 at 1024 px with 256
+                     T5 rows: 4,360 keys at D 256; 72 / 36 / 36 a step.
+    mistral3       -- Mistral-Small-3.1's language model (24 B, bf16) from a
+                     seed: FLUX.2's text function (layers 10, 20, 30 stacked
+                     per token) on 1 x 512 ids, timed; a narrow 32-layer
+                     copy against f32 on the CPU.
+    pile-t5        -- AuraFlow's text function on a T5 encoder at
+                     Pile-T5-XL's size, 2 x 256 ids, bf16 against f32.
+    driver-flux2 / driver-auraflow -- each family through train.main at full
+                     width and cut depth (2 + 2 / 1 + 2 blocks, fp8
+                     storage) at 512 px, with a seeded VAE (FLUX.2's with
+                     its batch-norm statistics; SDXL's) and seeded text in
+                     the published layouts, as driver-sd3: 3 steps with the
+                     eval, a resume to 5 with --test_sample, the adapter
+                     re-imported bit for bit.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -810,7 +856,14 @@ INT8_LINEAR_SHAPES = {"ff_in": (2048, 3072, 12288), "single_proj_out": (3072, 15
                       "norm1_linear": (2, 3072, 18432)}
 
 
-def _h1_timing(iq, case, m, k, prescale, gen):
+def _device_ms(fn, kernel, queued):
+    """(ms, kernels traced): torch.profiler's device time of `kernel`
+    (kernel_device_ms) or, with queued, queued_ms's time of the calls (late
+    in the smoke the profiler has dropped most of a trace's kernels)."""
+    return (queued_ms(fn), None) if queued else kernel_device_ms(fn, kernel)
+
+
+def _h1_timing(iq, case, m, k, prescale, gen, queued=False):
     x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     col = torch.rand(k, generator=gen, device="cuda") * 1e-2 if prescale else None
     got8, got_s = iq.quant_rows_cuda(x, col)
@@ -823,7 +876,7 @@ def _h1_timing(iq, case, m, k, prescale, gen):
     nbytes = 2 * m * k + (4 * k if prescale else 0) + m * k + 4 * m
     flops = (6 if prescale else 5) * m * k
     t, by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    ms, seen = kernel_device_ms(lambda: iq.quant_rows_cuda(x, col), "quant_rows_kernel")
+    ms, seen = _device_ms(lambda: iq.quant_rows_cuda(x, col), "quant_rows_kernel", queued)
     rec = dict(ms=ms, kernels_traced=seen,
                launch_ms=cuda_ms(lambda: iq.quant_rows_cuda(x, col)),
                plain_ms=cuda_ms(lambda: iq.quant_rows_plain(x, col), 5), library_ms=None,
@@ -835,7 +888,7 @@ def _h1_timing(iq, case, m, k, prescale, gen):
     return rec
 
 
-def _h2_timing(iq, gen, shape=INT8_H2_SHAPE, case="ff_in"):
+def _h2_timing(iq, gen, shape=INT8_H2_SHAPE, case="ff_in", queued=False):
     m, n = shape
     y = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen, device="cuda",
                       dtype=torch.int32)
@@ -848,8 +901,8 @@ def _h2_timing(iq, gen, shape=INT8_H2_SHAPE, case="ff_in"):
     nbytes = 4 * m * n + 2 * m * n + 4 * m + 4 * n  # int32 in, bf16 out, the scales
     flops = 3 * m * n  # convert and two multiplies an element
     t, by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    ms, seen = kernel_device_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16),
-                                "rescale_kernel")
+    ms, seen = _device_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16),
+                          "rescale_kernel", queued)
     rec = dict(ms=ms, kernels_traced=seen,
                launch_ms=cuda_ms(lambda: iq.rescale_i32_cuda(y, rs, cs, torch.bfloat16)),
                plain_ms=cuda_ms(lambda: iq.rescale_i32_plain(y, rs, cs, torch.bfloat16), 5),
@@ -3199,12 +3252,16 @@ def _flash_per_step(blocks, remat):
 
 
 def _model_blocks(pipeline):
-    """(attention blocks, model config) of an SD3, Chroma or Qwen-Image
-    pipeline."""
+    """(attention blocks, model config) of an SD3, Chroma, Qwen-Image,
+    FLUX.2 or AuraFlow pipeline."""
     if hasattr(pipeline, "sd3_config"):
         return pipeline.sd3_config.num_layers, pipeline.sd3_config
     if hasattr(pipeline, "qi_config"):
         return pipeline.qi_config.num_layers, pipeline.qi_config
+    for attr in ("f2_config", "af_config"):
+        if hasattr(pipeline, attr):
+            cfg = getattr(pipeline, attr)
+            return cfg.num_layers + cfg.num_single_layers, cfg
     cfg = pipeline.chroma_config
     return cfg.num_layers + cfg.num_single_layers, cfg
 
@@ -3349,9 +3406,14 @@ def _write_sd3_vae(folder):
 def phase_driver_family(family, vae_dir=None):
     """SD3 (sd3-medium-lora-1024's settings at 512 px: LoRA r32, adamw8bit,
     full checkpointing) or Chroma (chroma-lora-512's: "attn") at full width
-    and depth through train.main: 8 seeded 512 px PNGs and 2 for eval, a
-    seeded VAE (SD3's 16-channel one written here; Chroma: the vae phase's
-    Flux VAE) and seeded text stand-ins (Chroma's with its T5 mask),
+    and depth, or FLUX.2 (2 + 2 blocks, fp8 storage) or AuraFlow (1 + 2
+    blocks, fp8 storage) at full width and cut depth, through train.main:
+    8 seeded 512 px PNGs and 2 for eval, a
+    seeded VAE (SD3's 16-channel one, FLUX.2's 32-channel one with its
+    batch-norm statistics, AuraFlow's SDXL one, written here; Chroma: the
+    vae phase's Flux VAE) and seeded text stand-ins in the published
+    layouts (Chroma's with its T5 mask; FLUX.2's three stacked Mistral-3
+    layers, 15,360 wide; Pile-T5's 2,048),
     --cache_only, 3 steps with the eval, a resume to 5 with --test_sample.
     Then a third call with adapter.init_from_existing naming the epoch
     export: the factors it loads, exported again, give the file's tensors
@@ -3373,6 +3435,12 @@ def phase_driver_family(family, vae_dir=None):
     if family == "sd3":
         vae_dir = _write_sd3_vae(root / "vae")
         toml, stand_ins = SD3_DRIVER_TOML, _sd3_text_stand_ins
+    elif family == "flux2":
+        vae_dir = _write_flux2_vae(root / "vae")
+        toml, stand_ins = FLUX2_DRIVER_TOML, _flux2_text_stand_in
+    elif family == "auraflow":
+        vae_dir = _write_sdxl_vae(root / "vae")
+        toml, stand_ins = AURAFLOW_DRIVER_TOML, _auraflow_text_stand_in
     else:
         toml, stand_ins = CHROMA_DRIVER_TOML, _chroma_text_stand_in
     _write_images(root / "train", DRIVER_IMAGES, SEED)
@@ -3498,13 +3566,14 @@ def phase_driver_family(family, vae_dir=None):
     check(meta.get("custom_loader") == uninterrupted,
           f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
     check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
-    check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT)
+    may_stay = NEW_MAY_STAY if family in ("flux2", "auraflow") else ("none",)
+    check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT) or n.endswith(may_stay)
                                                   for n in c["lora_tensors_still"])
               for c in calls), "LoRA factors did not all move")
     keys = ADAPTER_KEYS[family]
     check(len(adapter) == keys and len(factors) == 2 * keys // 3,
           f"adapter keys {len(adapter)} ({len(factors)} factors), expected {keys}")
-    check(family == "sd3" or fused > 0, "no fused pair in the Chroma adapter")
+    check(family != "chroma" or fused > 0, "no fused pair in the Chroma adapter")
     check(same, "the adapter loaded through init_from_existing does not export to the file")
     check(example.size == (512, 512), f"example.png is {example.size}")
     for c, want in zip(calls, expected):
@@ -3518,7 +3587,11 @@ def phase_driver_family(family, vae_dir=None):
 # pairs) x 19, a single block's linear2 and fused linear1 (2) x 38 = 228
 # pairs for its 418 LoRA linears (tests/test_torch_keymaps.py holds the
 # layout against the JAX export at tiny depth)
-ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2)}
+ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2),
+                # the driver cells' cut depths: FLUX.2 2 double blocks of 8
+                # linears and 2 single of 2; AuraFlow 1 joint of 16 and 2
+                # single of 8
+                "flux2": 3 * (2 * 8 + 2 * 2), "auraflow": 3 * (1 * 16 + 2 * 8)}
 
 
 # --- slice 11: Qwen-Image and Qwen-Image-Edit ----------------------------------
@@ -3713,22 +3786,30 @@ def _qwen_tokenizer():
     chat templates' words and a few caption words, the special tokens
     after them, <|endoftext|> the padding. No tokenizer file exists on the
     card's machine; this stands in for Qwen2.5-VL's."""
+    from diffusion_pipe_tpu_torch.models.qwen_image import EDIT_TEMPLATE, T2I_TEMPLATE
+
+    return _word_tokenizer(
+        set((T2I_TEMPLATE + EDIT_TEMPLATE).split()) | set(QWEN_TOKENIZER_WORDS),
+        pad="<|endoftext|>", specials=["<|im_start|>", "<|im_end|>", "<|vision_start|>",
+                                       "<|vision_end|>", "<|image_pad|>"])
+
+
+def _word_tokenizer(words, pad="<pad>", eos=None, specials=()):
+    """A word-level tokenizer in memory over `words` ("<unk>" first), `pad`,
+    `eos` and `specials` added after them as special tokens (no tokenizer
+    file exists on the card's machine)."""
     from tokenizers import Tokenizer, models, pre_tokenizers
 
     try:
         from transformers import PreTrainedTokenizerFast
     except ImportError:  # transformers 5 names it TokenizersBackend
         from transformers import TokenizersBackend as PreTrainedTokenizerFast
-    from diffusion_pipe_tpu_torch.models.qwen_image import EDIT_TEMPLATE, T2I_TEMPLATE
-
-    words = sorted(set((T2I_TEMPLATE + EDIT_TEMPLATE).split()) | set(QWEN_TOKENIZER_WORDS))
-    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(["<unk>"] + words)},
-                                     unk_token="<unk>"))
+    vocab = ["<unk>"] + sorted(set(words))
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(vocab)}, unk_token="<unk>"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
-    return PreTrainedTokenizerFast(
-        tokenizer_object=tok, unk_token="<unk>", pad_token="<|endoftext|>",
-        additional_special_tokens=["<|im_start|>", "<|im_end|>", "<|vision_start|>",
-                                   "<|vision_end|>", "<|image_pad|>"])
+    kw = {} if eos is None else {"eos_token": eos}
+    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", pad_token=pad,
+                                   additional_special_tokens=list(specials), **kw)
 
 
 def phase_qwen25vl():
@@ -4088,6 +4169,479 @@ def phase_driver_qwen():
     return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
 
 
+# --- slice 12: FLUX.2 [dev] and AuraFlow v0.3 -----------------------------------
+
+# K1-K3 at FLUX.2 [dev]'s joint sequence (B 1, 512 text + 4,096 image tokens
+# at 1024 px, unmasked, 48 heads of 128; the edit's 8,704 with the reference
+# image) and AuraFlow's (B 2, 8 registers + 256 T5 rows + 4,096 image tokens,
+# 12 heads of 256; also with 200 and 60 of the 256 T5 rows valid, the key
+# mask the kernels take though the port's AuraFlow passes none).
+# (case, (B, S, H), D, masked keys of each batch element, checked heads,
+#  plain version timed)
+FLUX2_AURAFLOW_KERNEL_CASES = (
+    ("flux2_4608", (1, 4608, 48), 128, False, slice(0, 6), True),
+    ("flux2_edit_8704", (1, 8704, 48), 128, False, slice(0, 6), False),
+    ("auraflow_4360_d256", (2, 4360, 12), 256, False, None, True),
+    ("auraflow_4360_d256_masked", (2, 4360, 12), 256, (slice(208, 264), slice(68, 264)), None,
+     True),
+)
+# H1 / H2 at FLUX.2's widest linear, the single block's linear1 (6,144 ->
+# 3 x 6,144 + 2 x 18,432 = 55,296) over the 4,608 joint rows of 1024 px
+FLUX2_ROWS = 4608
+FLUX2_INT8_H1_CASES = {"forward_linear1": (FLUX2_ROWS, 6144, False),
+                       "dgrad_linear1": (FLUX2_ROWS, 55296, True)}
+FLUX2_H2_SHAPE = (FLUX2_ROWS, 55296)
+
+
+def d256_ptxas(ptxas):
+    """The bf16 instances of the D 256 kernels (csrc/flash_d256.cu), by the
+    wrapper whose head-dim-256 calls they serve."""
+    out = {}
+    for mangled, rec in ptxas.get("flash_d256", {}).items():
+        if "nv_bfloat16" not in mangled:
+            continue
+        for name, tag in (("flash_fwd", "flash_fwd_d256"), ("flash_bwd_dq", "flash_bwd_dq_d256"),
+                          ("flash_bwd_dkv", "flash_bwd_dkv_d256")):
+            if tag in mangled:
+                out[name] = rec
+    return out
+
+
+def phase_kernels_flux2_auraflow(ptxas):
+    """K1-K3 at FLUX.2's and AuraFlow's joint shapes against their plain
+    versions (FLUX.2: six of the 48 heads as strided views), K2 / K3
+    deterministic on each, a batch element with every key masked at D 256
+    (on K3's split path and without it), each timed beside its bound, its
+    plain version (but at the edit's 8,704 keys, whose f32 logits take 14.5
+    GB a tensor) and SDPA's forward and backward; the ptxas registers and
+    spills of the D 256 builds (no spill allowed); H1 / H2 bit for bit and
+    timed at linear1's shape by queued_ms (this late in the smoke
+    torch.profiler drops kernels from its traces). Returns ({case: K1-K3
+    timing}, {kernel: H1 / H2 timing}, D 256 ptxas)."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+    from diffusion_pipe_tpu_torch.ops import int8_quant as iq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d256 = d256_ptxas(ptxas)
+    emit(phase="kernels-flux2-auraflow", ptxas_bf16_d256=d256)
+    check(set(d256) == set(FLASH) and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                                          for r in d256.values()),
+          f"the D 256 kernels' ptxas records {d256}")
+    errors, timings, splits = {}, {}, {}
+    for case, (b, s, h), d, masked, heads, _ in FLUX2_AURAFLOW_KERNEL_CASES:
+        errors[case] = _check_attention(fa, case, b, s, s, h, d, masked, gen, heads=heads)
+        _free()
+        splits[case] = _check_bwd_deterministic(fa, case, b, s, s, h, d, gen, masked=masked)
+        _free()
+    check(_check_all_masked(fa, "auraflow_d256", 2, 4360, 4360, 12, 256, gen) == 1,
+          "AuraFlow's shape took K3's query split")
+    check(_check_all_masked(fa, "short_kv_d256", 2, 4096, 128, 2, 256, gen) > 1,
+          "a short key sequence at D 256 did not take K3's query split")
+    _free()
+    for case, (b, s, h), d, masked, _, with_plain in FLUX2_AURAFLOW_KERNEL_CASES:
+        timing, sdpa_bwd_ms = _time_attention(fa, b, s, s, h, d, gen, with_plain=with_plain,
+                                              masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[case][k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels-flux2-auraflow", case=f"timing_{case}", q_shape=[b, s, h, d],
+             kv_len=s, masked=bool(masked), timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[case] = timing
+        _free()
+    h1 = {case: _h1_timing(iq, f"flux2_{case}", *shape, gen, queued=True)
+          for case, shape in FLUX2_INT8_H1_CASES.items()}
+    h2 = _h2_timing(iq, gen, shape=FLUX2_H2_SHAPE, case="flux2_linear1", queued=True)
+    _free()
+    emit(phase="kernels-flux2-auraflow", k3_query_splits=splits)
+    return timings, {"quant_rows": h1, "rescale_i32": h2}, d256
+
+
+def phase_reference_flux2(device="cuda"):
+    """FLUX.2 with 1 + 1 blocks at the published head dim 128, 2 heads, a
+    64-wide text input, in the published layout (SwiGLU, no biases, 4 RoPE
+    axes at theta 2,000) and in the JAX layout (GELU, biases, txt_norm, 3
+    axes): 64 image tokens (an 8 x 8 packed grid) and 40 text rows, 104
+    keys, bf16 on the card against f32 on the CPU."""
+    from diffusion_pipe_tpu_torch.models.flux2 import (JAX_LAYOUT, Flux2Config,
+                                                       Flux2Transformer, flux2_latent_ids)
+
+    for layout in ("published", "jax"):
+        over = dict(JAX_LAYOUT, text_dim=64) if layout == "jax" else {}
+
+        def build(dtype, dev, over=over):
+            cfg = Flux2Config(**{**dict(hidden_size=256, num_layers=1, num_single_layers=1,
+                                        text_dim=64, dtype=dtype, param_dtype=dtype,
+                                        lora_rank=4, lora_alpha=4.0, lora_dtype=dtype), **over})
+            with torch.device(dev):
+                return Flux2Transformer(cfg)
+
+        n_axes = len(over.get("axes_dims_rope", (0,) * 4))
+        gen = torch.Generator().manual_seed(SEED + 5)
+        x = torch.randn((1, 64, 128), generator=gen)
+        txt = torch.randn((1, 40, 64), generator=gen)
+        target = torch.randn((1, 64, 128), generator=gen)
+        ids = flux2_latent_ids(8, 8, 0, n_axes)
+
+        def inputs(dtype):
+            return dict(hidden_states=x.to(dtype), encoder_hidden_states=txt.to(dtype),
+                        timestep=torch.tensor([0.4]), img_ids=ids,
+                        guidance=torch.tensor([1.0]))
+
+        _reference_family(f"reference-flux2-{layout}", build, inputs, target, device, blocks=2)
+
+
+def phase_reference_auraflow(device="cuda"):
+    """AuraFlow with 1 + 1 blocks at the published head dim 256, 2 heads
+    (512 wide), a 64-wide text input: 64 patches of a 16 x 16 latent, 8
+    registers and 24 text rows, 96 keys; bf16 on the card against f32 on
+    the CPU."""
+    from diffusion_pipe_tpu_torch.models.auraflow import AuraFlowConfig, AuraFlowTransformer
+
+    def build(dtype, dev):
+        cfg = AuraFlowConfig(hidden_size=512, num_attention_heads=2, joint_attention_dim=64,
+                             num_layers=1, num_single_layers=1, pos_embed_max_size=256,
+                             dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0,
+                             lora_dtype=dtype)
+        with torch.device(dev):
+            return AuraFlowTransformer(cfg)
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    lat = torch.randn((1, 4, 16, 16), generator=gen)
+    txt = torch.randn((1, 24, 64), generator=gen)
+    target = torch.randn((1, 4, 16, 16), generator=gen)
+
+    def inputs(dtype):
+        return dict(latents=lat.to(dtype), encoder_hidden_states=txt.to(dtype),
+                    timestep=torch.tensor([0.4]))
+
+    _reference_family("reference-auraflow", build, inputs, target, device, blocks=2)
+
+
+FLUX2_LORA_CONFIG = {  # flux2-dev-lora-1024-fp8-int8
+    "save_every_n_epochs": 1,
+    "model": {"type": "flux2", "dtype": "bfloat16", "transformer_dtype": "float8",
+              "int8_matmul": "fwd_bwd", "timestep_sample_method": "logit_normal"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.01},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+FLUX2_EDIT_CONFIG = {**FLUX2_LORA_CONFIG, "model": {  # flux2-dev-edit-lora-1024-4-blocks
+    **FLUX2_LORA_CONFIG["model"], "num_layers": 2, "num_single_layers": 2}}
+AURAFLOW_LORA_CONFIG = {  # auraflow-v0.3-lora-1024: examples/auraflow.toml's trainer
+    "save_every_n_epochs": 2,
+    "model": {"type": "auraflow", "dtype": "bfloat16", "transformer_dtype": "float8",
+              "max_sequence_length": 256, "timestep_sample_method": "logit_normal"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+FLUX2_TXT, AURAFLOW_TXT = 512, 256
+NEW_TIMED_STEPS = 2
+# bf16 factors: a lora_a entry may round back to itself in a few steps
+NEW_MAY_STAY = (".lora_a",)
+
+
+def build_flux2_slice(cfg=FLUX2_LORA_CONFIG, device="cuda", latent_hw=128, txt_len=FLUX2_TXT,
+                      edit=False):
+    """FLUX.2 at the config's size (the published layout, the block weights
+    built in fp8 and pre-quantized to int8 one at a time by init_train_state:
+    the model never exists in bf16); a batch of one 1024 px latent (and its
+    control latents for an edit) with txt_len unmasked text rows."""
+    def make_batch(pipeline, gen):
+        c = pipeline.f2_config
+        batch = {"latents": torch.randn((1, c.latent_channels, latent_hw, latent_hw),
+                                        generator=gen, device=device),
+                 "text_embeds_0": torch.randn((1, txt_len, c.text_dim), generator=gen,
+                                              device=device).to(c.dtype)}
+        if edit:
+            batch["control_latents"] = torch.randn(batch["latents"].shape, generator=gen,
+                                                   device=device)
+        return batch
+
+    return _build_family_slice("flux2", cfg, device, make_batch)
+
+
+def build_auraflow_slice(cfg=AURAFLOW_LORA_CONFIG, device="cuda", latent_hw=128,
+                         txt_len=AURAFLOW_TXT, batch_size=2):
+    """AuraFlow v0.3 at the config's size; a batch of 1024 px latents with
+    txt_len Pile-T5 rows (8 registers go before them: 4,360 keys)."""
+    def make_batch(pipeline, gen):
+        c = pipeline.af_config
+        return {"latents": torch.randn((batch_size, c.in_channels, latent_hw, latent_hw),
+                                       generator=gen, device=device),
+                "prompt_embeds": torch.randn((batch_size, txt_len, c.joint_attention_dim),
+                                             generator=gen, device=device).to(c.dtype)}
+
+    return _build_family_slice("auraflow", cfg, device, make_batch)
+
+
+def _new_family_expected(pipeline):
+    """Launches a training step of a FLUX.2 or AuraFlow LoRA cell: K1 once
+    a block (twice under `true`), K2 and K3 once; with int8_matmul H1 and
+    H2 once an int8 block linear for the forward, again for the recompute,
+    and once more for its dgrad, which autograd skips where the input needs
+    no gradient: the first double block's two qkv linears, fed by the
+    frozen embedders."""
+    from diffusion_pipe_tpu_torch.models.layers import LoraDense
+
+    blocks, c = _model_blocks(pipeline)
+    int8 = [n for n, m in pipeline.model.named_modules()
+            if isinstance(m, LoraDense) and m.kernel_scale is not None]
+    dgrads = (len(int8) - sum(int(n.startswith("double_blocks.0.") and n.endswith("_attn_qkv"))
+                              for n in int8)) if c.int8_matmul == "fwd_bwd" else 0
+    launches = len(int8) * (2 if c.remat else 1) + dgrads
+    return {"flash_fwd": blocks * (2 if c.remat == "full" else 1), "flash_bwd_dq": blocks,
+            "flash_bwd_dkv": blocks, "sr_add": 0, "quant_rows": launches,
+            "rescale_i32": launches}
+
+
+def phase_slice_flux2(edit=False):
+    """flux2-dev-lora-1024-fp8-int8 (8 + 48 blocks, 31.4 B) or, with edit,
+    flux2-dev-edit-lora-1024-4-blocks (2 + 2 blocks, control latents: 8,704
+    keys, the output cut to the target's 4,096 rows)."""
+    cfg = FLUX2_EDIT_CONFIG if edit else FLUX2_LORA_CONFIG
+
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        shape = list(out.shape)
+        check(shape == list(target.shape) == [1, 4096, 128],
+              f"output {shape}, target {list(target.shape)}")
+        return dict(sequence=inputs["hidden_states"].shape[1] + FLUX2_TXT, output_shape=shape,
+                    gated_mlp=pipeline.f2_config.mlp_gated)
+
+    name = "flux2-dev-edit-lora-1024-4-blocks" if edit else "flux2-dev-lora-1024-fp8-int8"
+    counts, _, _ = phase_slice_family(
+        "slice-flux2-edit-lora" if edit else "slice-flux2-lora", name,
+        lambda: build_flux2_slice(cfg, edit=edit), timed_steps=NEW_TIMED_STEPS,
+        expected_fn=_new_family_expected, no_gradient=("none",), after=after,
+        may_stay=NEW_MAY_STAY)
+    return counts
+
+
+def phase_slice_auraflow():
+    """auraflow-v0.3-lora-1024 (4 + 32 blocks, 6.8 B, 12 heads of 256):
+    examples/auraflow.toml's trainer, batch 2 at 1024 px, 4,360 keys a
+    sequence, every attention on the D 256 kernels."""
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        c = pipeline.af_config
+        check(list(out.shape) == list(target.shape) == [2, 4, 128, 128]
+              and c.attention_head_dim == 256, f"output {list(out.shape)}")
+        return dict(sequence=64 * 64 + c.num_register_tokens + AURAFLOW_TXT,
+                    head_dim=c.attention_head_dim, output_shape=list(out.shape))
+
+    counts, _, _ = phase_slice_family(
+        "slice-auraflow-lora", "auraflow-v0.3-lora-1024", build_auraflow_slice,
+        timed_steps=NEW_TIMED_STEPS, expected_fn=_new_family_expected, no_gradient=("none",),
+        after=after, may_stay=NEW_MAY_STAY)
+    return counts
+
+
+MISTRAL3_LAYERS = (10, 20, 30)  # FLUX.2 [dev]'s stacked hidden states
+
+
+def _mistral_small_31(dtype, **over):
+    """Mistral-Small-3.1-24B's language model (its text_config)."""
+    from diffusion_pipe_tpu_torch.models.llm_encoders import CausalLMConfig
+
+    d = dict(vocab=131072, dim=5120, num_layers=40, num_heads=32, num_kv_heads=8, head_dim=128,
+             ffn_dim=32768, rope_theta=1e9, rope_local_theta=1e9, rms_eps=1e-5, dtype=dtype,
+             param_dtype=dtype)
+    d.update(over)
+    return CausalLMConfig(**d)
+
+
+def phase_mistral3():
+    """FLUX.2 [dev]'s text function on Mistral-Small-3.1's language model at
+    its published size (40 layers, 5,120 wide, 32 / 8 heads, ffn 32,768;
+    24 B, 47 GB in bf16) from a seed: LLMTextEncoder's stacked hidden states
+    of layers 10, 20 and 30 for 1 x 512 ids, [1, 512, 15,360], timed. The
+    same function of a narrow 32-layer Mistral (128 wide) bf16 on the card
+    against f32 on the CPU (rel L2 < 3e-2)."""
+    from diffusion_pipe_tpu_torch.models.llm_encoders import CausalLM, LLMTextEncoder
+
+    def encoder(cfg, dev, seed):
+        with torch.device("meta"):
+            lm = CausalLM(cfg)
+        lm = lm.to_empty(device=dev)
+        lm.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        enc = LLMTextEncoder(".", max_length=512, hidden_layers=MISTRAL3_LAYERS,
+                             dtype=cfg.dtype, device=dev)
+        enc.model = lm.eval().requires_grad_(False)
+        return enc
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    narrow = dict(vocab=1024, dim=128, num_layers=32, num_heads=4, num_kv_heads=2, head_dim=32,
+                  ffn_dim=256)
+    ids = torch.randint(0, 1024, (1, 64), generator=gen)
+    mask = torch.ones_like(ids)
+    ref_enc = encoder(_mistral_small_31(torch.float32, **narrow), "cpu", SEED)
+    card_enc = encoder(_mistral_small_31(torch.bfloat16, **narrow), "cpu", SEED)
+    card_enc.model.to("cuda")
+    card_enc.device = torch.device("cuda")
+    with torch.no_grad():
+        ref = ref_enc.hidden_states(ids, mask)
+        got = card_enc.hidden_states(ids.cuda(), mask.cuda()).float().cpu()
+    narrow_err = _rel(got, ref)
+    del ref_enc, card_enc
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = encoder(_mistral_small_31(torch.bfloat16), "cuda", SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = torch.randint(0, 131072, (1, 512), generator=gen).cuda()
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        h = enc.hidden_states(ids, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            h = enc.hidden_states(ids, mask)
+        torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    params = sum(p.numel() for p in enc.model.parameters())
+    finite = bool(torch.isfinite(h).all())
+    emit(phase="mistral3", params=params, init_s=init_s, encode_ms=encode_ms,
+         shape=list(h.shape), layers=list(MISTRAL3_LAYERS), finite=finite,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), narrow_rel_l2=narrow_err)
+    check(list(h.shape) == [1, 512, 15360] and finite, f"Mistral-3 states {list(h.shape)}")
+    check(narrow_err < 3e-2, f"narrow Mistral-3 bf16 vs f32: rel L2 {narrow_err}")
+    del enc, h
+    _free()
+
+
+def phase_pile_t5():
+    """AuraFlow's text function (HFTextEncoder "t5") on a T5 encoder at
+    Pile-T5-XL's size (24 layers, 2,048 wide, 32 heads of 64, gated FFN
+    5,120, vocab 32,128; 1.3 B) from a seed, bf16, with a word-level
+    tokenizer: 2 captions padded to 256 ids, timed; against the same
+    weights in f32 on the card (rel L2 < 5e-2 on the valid rows)."""
+    from transformers import T5Config, T5EncoderModel
+
+    from diffusion_pipe_tpu_torch.models.text_encoders import HFTextEncoder
+
+    cfg = T5Config(vocab_size=32128, d_model=2048, d_kv=64, d_ff=5120, num_layers=24,
+                   num_heads=32, feed_forward_proj="gated-gelu", is_encoder_decoder=False)
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        model = T5EncoderModel(cfg).eval().requires_grad_(False)
+    caps = ["a seeded picture, number 0", "a seeded picture, number 1 of the pile"]
+    enc = HFTextEncoder("t5", "(seeded)", max_length=AURAFLOW_TXT, device="cuda",
+                        dtype=torch.bfloat16)
+    enc._tokenizer = _word_tokenizer(" ".join(caps).replace(",", " ").split(), eos="</s>")
+    enc._model = model
+    with torch.no_grad():
+        ref, mask = enc.encode(caps, return_mask=True)
+    enc._model = model.to(torch.bfloat16)
+    got = enc.encode(caps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        got = enc.encode(caps)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    valid = mask.bool()
+    err = _rel(got[valid], ref[valid])
+    emit(phase="pile-t5", params=sum(p.numel() for p in model.parameters()),
+         encode_ms=encode_ms, shape=list(got.shape), valid_ids=mask.sum(1).tolist(),
+         rel_l2_vs_f32=err)
+    check(list(got.shape) == [2, AURAFLOW_TXT, 2048] and bool(torch.isfinite(got).all()),
+          f"Pile-T5 output {list(got.shape)}")
+    check(err < 5e-2, f"Pile-T5 bf16 vs f32: rel L2 {err}")
+    del model, enc
+    _free()
+
+
+FLUX2_DRIVER_TOML = """# flux2-dev-lora-1024-fp8-int8's trainer through the driver, at 512 px, 2 + 2 blocks
+output_dir = "{root}/{out}"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 100
+micro_batch_size_per_gpu = 2
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 1
+eval_before_first_step = {eval_first}
+activation_checkpointing = true
+sample_steps = {sample_steps}
+
+[model]
+type = "flux2"
+dtype = "bfloat16"
+transformer_dtype = "float8"
+num_layers = 2
+num_single_layers = 2
+vae_path = "{vae}"
+
+[adapter]
+type = "lora"
+rank = 32
+{init}
+[optimizer]
+type = "adamw8bit"
+lr = 1e-4
+"""
+AURAFLOW_DRIVER_TOML = FLUX2_DRIVER_TOML.replace(
+    "flux2-dev-lora-1024-fp8-int8's trainer", "examples/auraflow.toml's trainer").replace(
+    "2 + 2 blocks", "1 + 2 blocks").replace('type = "flux2"', 'type = "auraflow"').replace(
+    "num_layers = 2\n", "num_layers = 1\nmax_sequence_length = 256\n")
+
+
+def _flux2_text_stand_in():
+    """Seeded text rows [512, 15,360]: three stacked Mistral-3 layers."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    return [lambda caps: {"text_embeds_0": seeded_draws(caps, "mistral3", (FLUX2_TXT, 15360))}]
+
+
+def _auraflow_text_stand_in():
+    """Seeded Pile-T5 rows [256, 2,048]."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    return [lambda caps: {"prompt_embeds": seeded_draws(caps, "pile-t5", (AURAFLOW_TXT, 2048))}]
+
+
+def _write_flux2_vae(folder):
+    """A seeded full-width FLUX.2-shaped VAE (32 latent channels, no scale
+    or shift) in the diffusers layout, with batch-norm statistics over the
+    128 packed channels and config.json's batch_norm_eps."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.autoencoder_kl import (AutoencoderKL, VAEConfig,
+                                                                diffusers_vae_state_dict)
+
+    folder.mkdir(parents=True)
+    vae = AutoencoderKL(VAEConfig(latent_channels=32, scaling_factor=1.0, shift_factor=0.0))
+    gen = torch.Generator().manual_seed(SEED)
+    vae.init_weights(gen)
+    sd = diffusers_vae_state_dict(vae)
+    sd["bn.running_mean"] = torch.randn(128, generator=gen) * 0.1
+    sd["bn.running_var"] = torch.rand(128, generator=gen) + 0.5
+    safetensors_io.save_file(sd, folder / "diffusion_pytorch_model.safetensors")
+    (folder / "config.json").write_text(json.dumps({"batch_norm_eps": 1e-4}))
+    return folder
+
+
+def _write_sdxl_vae(folder):
+    """A seeded full-width SDXL VAE (AuraFlow's) in the diffusers layout."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.autoencoder_kl import (AutoencoderKL, VAEConfig,
+                                                                diffusers_vae_state_dict)
+
+    folder.mkdir(parents=True)
+    vae = AutoencoderKL(VAEConfig.sdxl())
+    vae.init_weights(torch.Generator().manual_seed(SEED))
+    safetensors_io.save_file(diffusers_vae_state_dict(vae),
+                             folder / "diffusion_pytorch_model.safetensors")
+    return folder
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4096,7 +4650,8 @@ def nvidia_smi_line():
 
 
 def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                 driver_counts, ptxas, more_counts, qwen_int8_timing):
+                 driver_counts, ptxas, more_counts, qwen_int8_timing, flux2_int8_timing,
+                 d256):
     """One entry per kernel. K1-K4 at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
@@ -4112,8 +4667,10 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     build. more_counts: {key: launches of another Wan path} (the LoRA,
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
-    and those of SDXL, SD3, Chroma and Qwen-Image; H1 and H2 theirs at
-    Qwen-Image's ff_in (qwen_int8_timing)."""
+    and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2 and AuraFlow (D 256),
+    and the ptxas record of their bf16 D 256 build (d256); H1 and H2 theirs
+    at Qwen-Image's ff_in (qwen_int8_timing) and FLUX.2's linear1
+    (flux2_int8_timing)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd", "sdpa_bwd_ms")
 
@@ -4131,11 +4688,14 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             main = int8_timing[name]["forward_ff_in"]
             beside = {"dgrad_ff_in": pick(int8_timing[name]["dgrad_ff_in"]),
                       "qwen_forward_ff_in": pick(qwen_int8_timing[name]["forward_ff_in"]),
-                      "qwen_dgrad_ff_in": pick(qwen_int8_timing[name]["dgrad_ff_in"])}
+                      "qwen_dgrad_ff_in": pick(qwen_int8_timing[name]["dgrad_ff_in"]),
+                      "flux2_forward_linear1": pick(flux2_int8_timing[name]["forward_linear1"]),
+                      "flux2_dgrad_linear1": pick(flux2_int8_timing[name]["dgrad_linear1"])}
             launches = fp8_counts[name]
         elif name == "rescale_i32":
             main, launches = int8_timing[name], fp8_counts[name]
-            beside = {"qwen_ff_in": pick(qwen_int8_timing[name])}
+            beside = {"qwen_ff_in": pick(qwen_int8_timing[name]),
+                      "flux2_linear1": pick(flux2_int8_timing[name])}
         else:
             main = timings["wan_cross"][name]
             beside = {shape: {k: timings[shape][name][k] for k in keys + extra
@@ -4143,7 +4703,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                       for shape in ("wan_self", "flux") + tuple(c for c, _ in I2V_CASES)
                       + tuple(c for c, _ in SDXL_KERNEL_CASES)
                       + tuple(c[0] for c in SD3_CHROMA_KERNEL_CASES)
-                      + tuple(c[0] for c in QWEN_KERNEL_CASES)}
+                      + tuple(c[0] for c in QWEN_KERNEL_CASES)
+                      + tuple(c[0] for c in FLUX2_AURAFLOW_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -4153,6 +4714,7 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                      **{k: main[k] for k in extra if k in main})
         if name in FLASH:
             entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
+            entry["ptxas_bf16_d256"] = d256.get(name)
         entry["at_other_shapes"] = beside
         kernels.append(entry)
     return json.dumps({"kernels": kernels})
@@ -4252,6 +4814,24 @@ def main():
     driver_qwen_counts = phase_driver_qwen()
     _free()
     emit(phase="qwen-phases", seconds=time.perf_counter() - qwen_t0)
+    new_t0 = time.perf_counter()
+    new_timings, flux2_int8, d256 = phase_kernels_flux2_auraflow(ptxas)
+    timings.update(new_timings)
+    phase_reference_flux2()
+    phase_reference_auraflow()
+    flux2_counts = phase_slice_flux2()
+    _free()
+    flux2_edit_counts = phase_slice_flux2(edit=True)
+    _free()
+    auraflow_counts = phase_slice_auraflow()
+    _free()
+    phase_mistral3()
+    phase_pile_t5()
+    driver_flux2_counts = phase_driver_family("flux2")
+    _free()
+    driver_auraflow_counts = phase_driver_family("auraflow")
+    _free()
+    emit(phase="flux2-auraflow-phases", seconds=time.perf_counter() - new_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -4262,9 +4842,13 @@ def main():
             "launches_driver_sd3": driver_sd3_counts,
             "launches_driver_chroma": driver_chroma_counts,
             "launches_qwen_image_lora": qwen_counts, "launches_qwen_image_edit": qwen_edit_counts,
-            "launches_driver_qwen": driver_qwen_counts}
+            "launches_driver_qwen": driver_qwen_counts,
+            "launches_flux2_dev_lora": flux2_counts, "launches_flux2_dev_edit": flux2_edit_counts,
+            "launches_auraflow_lora": auraflow_counts,
+            "launches_driver_flux2": driver_flux2_counts,
+            "launches_driver_auraflow": driver_auraflow_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                       driver_counts, ptxas, more, qwen_int8))
+                       driver_counts, ptxas, more, qwen_int8, flux2_int8, d256))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux, Wan, SD3, Chroma or Qwen-Image parameter tree as the JAX
+Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2 or AuraFlow parameter tree as the JAX
 package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
@@ -19,8 +19,15 @@ compute the same function:
   float8_e4m3fn array a torch.float8_e4m3fn tensor;
 - the scanned block stacks carry a leading [L] axis, split into the
   ModuleList entries `double_blocks.{i}.*` and `single_blocks.{i}.*` (Flux,
-  Chroma) or `blocks.{i}.*` (Wan, SD3, Qwen-Image); the other subtrees
+  Chroma, FLUX.2), `joint_blocks.{i}.*` and `single_blocks.{i}.*`
+  (AuraFlow) or `blocks.{i}.*` (Wan, SD3, Qwen-Image); the other subtrees
   (SD3's `final_block`, Chroma's `distilled_guidance_layer`) become dotted names.
+
+flux2_config / auraflow_config give the port's config of a JAX model's
+config: for FLUX.2 the JAX module's layout (GELU MLP at ratio 4, biased
+top linears, txt_norm, 3 RoPE axes at theta 10,000), which the port
+otherwise takes only from a checkpoint's keys. auraflow_state_dict reorders
+the JAX patch projection into the port's (diffusers') patch order.
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -44,7 +51,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-STACKED = ("double_blocks", "single_blocks", "blocks")
+STACKED = ("double_blocks", "single_blocks", "blocks", "joint_blocks")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -162,3 +169,60 @@ def tree_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         parts = [_BLOCK.sub(r"\1s.\2", p) for p in path[:-1]]
         out[".".join(parts + [name])] = _to_tensor(np.ascontiguousarray(arr))
     return out
+
+
+def _torch_dtype(jax_dtype) -> torch.dtype:
+    """A JAX / numpy dtype (e.g. jnp.float32) as the torch dtype of its name."""
+    from .common import dtype_from_string
+
+    return dtype_from_string(np.dtype(jax_dtype).name)
+
+
+def _shared_fields(jax_config, port_cls, **over) -> dict:
+    """The fields of port_cls that jax_config also has, dtypes translated."""
+    import dataclasses
+
+    kw = {}
+    for f in dataclasses.fields(port_cls):
+        if not hasattr(jax_config, f.name) or f.name == "remat":
+            continue
+        val = getattr(jax_config, f.name)
+        if f.name in ("dtype", "param_dtype", "lora_dtype") or (
+                f.name == "base_kernel_dtype" and val is not None):
+            val = _torch_dtype(val)
+        kw[f.name] = tuple(val) if isinstance(val, list) else val
+    kw.update(over)
+    return kw
+
+
+def flux2_config(jax_config, **over):
+    """The port's Flux2Config computing what the JAX Flux2Transformer of
+    `jax_config` computes: its sizes and adapter, in the JAX module's layout
+    (flux2.JAX_LAYOUT: GELU MLP, biases, txt_norm, its RoPE axes and ids)."""
+    from .models.flux2 import JAX_LAYOUT, Flux2Config
+
+    kw = _shared_fields(jax_config, Flux2Config, **over)
+    for key in ("mlp_gated", "use_bias", "txt_norm"):
+        kw.setdefault(key, JAX_LAYOUT[key])
+    return Flux2Config(**kw)
+
+
+def auraflow_config(jax_config, **over):
+    """The port's AuraFlowConfig of a JAX AuraFlowConfig (the same fields)."""
+    from .models.auraflow import AuraFlowConfig
+
+    return AuraFlowConfig(**_shared_fields(jax_config, AuraFlowConfig, **over))
+
+
+def auraflow_state_dict(params: Mapping[str, Any], config,
+                        dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX AuraFlow tree, with the patch projection's
+    columns reordered from the JAX (row, col, channel) patch order to the
+    port's (channel, row, col) (models/auraflow.py)."""
+    from .models.auraflow import patch_proj_from_jax
+
+    sd = jax_to_state_dict(params, dtype)
+    if "patch_proj.weight" in sd:
+        sd["patch_proj.weight"] = patch_proj_from_jax(sd["patch_proj.weight"],
+                                                      config.in_channels, config.patch_size)
+    return sd

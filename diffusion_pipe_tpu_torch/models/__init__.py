@@ -1,8 +1,8 @@
 """Model plugins: the registry maps `model.type` strings to pipeline classes.
 
 Counterpart of diffusion_pipe_tpu/models/__init__.py; so far the Flux family,
-Wan (t2v, i2v, flf2v, i2v_v2 and ti2v), SDXL, SD3 / SD3.5, Chroma and
-Qwen-Image / Qwen-Image-Edit are ported.
+Wan (t2v, i2v, flf2v, i2v_v2 and ti2v), SDXL, SD3 / SD3.5, Chroma,
+Qwen-Image / Qwen-Image-Edit, FLUX.2 and AuraFlow are ported.
 """
 
 from typing import Dict
@@ -21,7 +21,7 @@ def register_model(name: str, *aliases: str):
 
 
 def get_model_class(name: str):
-    from . import chroma, flux, qwen_image, sd3, sdxl, wan  # noqa: F401
+    from . import auraflow, chroma, flux, flux2, qwen_image, sd3, sdxl, wan  # noqa: F401
 
     if name not in _REGISTRY:
         raise NotImplementedError(f"model type {name!r} is not ported yet (ROADMAP A9)")

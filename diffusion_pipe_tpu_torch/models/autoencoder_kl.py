@@ -19,7 +19,9 @@ ComfyUI (`vae.`) keys, the topology inferred from the weights' shapes.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
@@ -357,7 +359,11 @@ def load_image_vae(path, device=None, **config_overrides):
     """Any AutoencoderKL-family image VAE from a safetensors file or folder
     (diffusers, original-SD `first_stage_model.` or ComfyUI `vae.` keys),
     its topology inferred from the shapes: (vae on `device`, frozen, config).
-    config_overrides (e.g. dtype, scaling_factor) go to the config."""
+    config_overrides (e.g. dtype, scaling_factor) go to the config. A
+    FLUX.2 VAE's batch-norm statistics of the 2 x 2-packed latents
+    (`bn.running_mean` / `bn.running_var`, with config.json's batch_norm_eps
+    beside a folder, else 1e-4) become `vae.latent_bn` = (mean, var, eps);
+    None for the other VAEs."""
     from .weights import load_safetensors_dir
 
     sd = {}
@@ -374,4 +380,12 @@ def load_image_vae(path, device=None, **config_overrides):
         vae = AutoencoderKL(cfg)
     vae = vae.to_empty(device=device or "cpu")
     vae.load_state_dict({k: v.to(cfg.dtype) for k, v in convert_diffusers_vae(sd, cfg).items()})
+    vae.latent_bn = None
+    if "bn.running_mean" in sd:
+        eps = 1e-4
+        cfg_json = Path(path) / "config.json"
+        if cfg_json.is_file():
+            eps = float(json.loads(cfg_json.read_text()).get("batch_norm_eps", eps))
+        vae.latent_bn = (sd["bn.running_mean"].float().to(device or "cpu"),
+                         sd["bn.running_var"].float().to(device or "cpu"), eps)
     return vae.eval().requires_grad_(False), cfg

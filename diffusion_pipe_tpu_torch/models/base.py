@@ -73,6 +73,51 @@ class BasePipeline:
     def get_call_text_encoder_fns(self):
         raise NotImplementedError(f"{self.name}: text-embedding caching is not ported yet")
 
+    def _load_generic_image_vae(self, tiny_latent_channels: int = 4):
+        """The AutoencoderKL-family VAE of the JAX
+        BasePipeline._generic_image_vae_fn, loaded at the first call, in
+        [model]'s dtype on the pipeline's device, frozen, as a
+        NormalizedImageVAE: under `_tiny` a seeded small KL VAE at
+        tiny_latent_channels; else model.vae_path (alias `vae`) through
+        load_image_vae, its topology from the shapes."""
+        if getattr(self, "_vae", None) is None:
+            from ..common import dtype_from_string
+            from .autoencoder_kl import AutoencoderKL, VAEConfig, load_image_vae
+
+            mc = self.model_config
+            dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
+            if mc.get("_tiny", False):
+                vae = AutoencoderKL(VAEConfig.tiny(latent_channels=tiny_latent_channels))
+                vae = vae.to(self.device)
+                vae.init_weights(torch.Generator(device=self.device).manual_seed(0))
+                vae = vae.eval().requires_grad_(False)
+                vae.latent_bn = None
+            else:
+                path = mc.get("vae_path") or mc.get("vae")
+                if not path:
+                    raise FileNotFoundError(f"{self.name}: set model.vae_path for latent caching")
+                vae, _ = load_image_vae(path, device=self.device, dtype=dtype)
+            self._vae = NormalizedImageVAE(vae)
+        return self._vae
+
+    def _generic_image_vae_fn(self, tiny_latent_channels: int = 4):
+        """get_call_vae_fn of the AutoencoderKL families:
+        fn(pixels [B, 3, H, W] or [B, 3, 1, H, W] in [-1, 1], numpy) ->
+        {"latents": [B, C, H/8, W/8] f32 CPU tensor}, through
+        _load_generic_image_vae."""
+
+        def fn(pixels):
+            import numpy as np
+
+            vae = self._load_generic_image_vae(tiny_latent_channels)
+            x = torch.from_numpy(np.asarray(pixels, np.float32))
+            if x.dim() == 5:
+                x = x[:, :, 0]
+            with torch.no_grad():
+                return {"latents": vae.encode(x.to(self.device)).float().cpu()}
+
+        return fn
+
     # --- weight-key map (drives load / save when defined) ---------------------
 
     def keymap(self):
@@ -135,3 +180,39 @@ class BasePipeline:
         safetensors_io.save_file({k: v.detach().contiguous().cpu() for k, v in sd.items()},
                                  str(out / "model.safetensors"), metadata={"format": "pt"})
         print(f"saved {len(sd)} tensors to {out / 'model.safetensors'}")
+
+
+class NormalizedImageVAE:
+    """An AutoencoderKL whose latents are normalised, where the VAE carries
+    batch-norm statistics of its 2 x 2-packed latents (FLUX.2's
+    `bn.running_mean` / `running_var`, vae.latent_bn): encode gives (z -
+    mean) / sqrt(var + eps) per packed channel, stored unpacked; decode
+    inverts it. Without statistics both pass through."""
+
+    def __init__(self, vae):
+        self.vae = vae
+
+    def _stats(self, z):
+        """Per-pixel [C, h, w] mean and std of the unpacked latents z: packed
+        channel c * 4 + 2 dy + dx (pack_latents' order) tiled over the 2 x 2
+        patches."""
+        mean, var, eps = self.vae.latent_bn
+        c, h, w = mean.shape[0] // 4, z.shape[-2], z.shape[-1]
+
+        def tile(x):
+            return x.float().reshape(c, 2, 2).repeat(1, h // 2, w // 2)
+
+        return tile(mean), torch.sqrt(tile(var) + eps)
+
+    def encode(self, pixels):
+        z = self.vae.encode(pixels)
+        if self.vae.latent_bn is None:
+            return z
+        mean, std = self._stats(z)
+        return (z.float() - mean) / std
+
+    def decode(self, z):
+        if self.vae.latent_bn is not None:
+            mean, std = self._stats(z)
+            z = z.float() * std + mean
+        return self.vae.decode(z)

@@ -404,7 +404,7 @@ def load_causal_lm(path, dtype=torch.bfloat16, device=None, prefix: str = "model
         ours = cast_te_params_fp8(ours)
     with torch.device("meta"):
         model = CausalLM(cfg)
-    model = model.to_empty(device=device)
+    model = model.to_empty(device=device or "cpu")
     for name, p in model.named_parameters():  # fp8 weights keep their storage dtype
         if ours[name].dtype != p.dtype:
             owner, leaf = name.rsplit(".", 1)
@@ -422,16 +422,22 @@ class LLMTextEncoder:
     dropped from the hidden states and the mask (HunyuanVideo's
     crop_start, Qwen-Image's drop_idx), and `hidden_layer` picks the state
     that feeds the DiT (-1: the final normed output; k: index k of the
-    transformers-style hidden_states list). Weights and tokenizer load at
-    the first call from a transformers folder; the text tower's prefix is
-    found in the checkpoint."""
+    transformers-style hidden_states list). `hidden_layers`, when given,
+    replaces it: the states of those indices are stacked per token along
+    the features (FLUX.2's layers 10, 20 and 30 of Mistral-3). Weights and
+    tokenizer load at the first call from a transformers folder (a
+    Mistral3ForConditionalGeneration's language model too: its nested
+    text_config and longer key prefix are found; its vision tower is not
+    loaded); the text tower's prefix is found in the checkpoint."""
 
     def __init__(self, path: str, max_length: int, template: str = "{}",
                  crop_start: int = 0, hidden_layer: int = -1,
                  tokenizer_path: Optional[str] = None, dtype=torch.bfloat16,
-                 hf_prefix: str = "model.", fp8: bool = False, device=None):
+                 hf_prefix: str = "model.", fp8: bool = False, device=None,
+                 hidden_layers: Tuple[int, ...] = ()):
         self.path, self.max_length, self.template = Path(path), max_length, template
         self.crop_start, self.hidden_layer = crop_start, hidden_layer
+        self.hidden_layers = tuple(hidden_layers)
         self.tokenizer_path = tokenizer_path or str(path)
         self.dtype, self.hf_prefix, self.fp8 = dtype, hf_prefix, fp8
         self.device = torch.device(device) if device is not None else torch.device("cpu")
@@ -455,7 +461,12 @@ class LLMTextEncoder:
                              padding="max_length", truncation=True,
                              max_length=self.max_length + self.crop_start, return_tensors="pt")
         ids, mask = enc["input_ids"].to(self.device), enc["attention_mask"].to(self.device)
-        out, hiddens = self.model(ids, mask, collect_hidden=self.hidden_layer != -1)
-        h = out if self.hidden_layer == -1 else hiddens[self.hidden_layer]
+        h = self.hidden_states(ids, mask)
         h, mask = h[:, self.crop_start:].float().cpu(), mask[:, self.crop_start:].cpu()
         return (h, mask) if return_mask else h
+
+    def hidden_states(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The state(s) that feed the DiT for token ids [B, S] and their mask."""
+        layers = self.hidden_layers or (self.hidden_layer,)
+        out, hiddens = self.model(ids, mask, collect_hidden=layers != (-1,))
+        return torch.cat([out if k == -1 else hiddens[k] for k in layers], dim=-1)

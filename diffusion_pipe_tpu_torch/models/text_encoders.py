@@ -45,11 +45,21 @@ def seeded_draws(captions: List[str], suffix: str, shape) -> torch.Tensor:
         for c in captions]))
 
 
+def _model_type(path) -> str:
+    """config.json's model_type of a transformers folder ("" without one)."""
+    import json
+    from pathlib import Path
+
+    cfg = Path(path) / "config.json"
+    return json.loads(cfg.read_text()).get("model_type", "") if cfg.is_file() else ""
+
+
 class HFTextEncoder:
     """Lazy wrapper around a transformers torch text encoder.
 
     kind: 't5' | 'clip' | 'clip_pooled'; path: a folder with the weights
-    (tokenizer_path overrides where the tokenizer is). encode(captions)
+    (tokenizer_path overrides where the tokenizer is); a 't5' folder whose
+    config names umt5 (Pile-T5) loads UMT5's encoder. encode(captions)
     returns the last hidden state [B, max_length, D] (or CLIP's pooled
     output [B, D]) as f32 CPU tensors.
     """
@@ -74,7 +84,10 @@ class HFTextEncoder:
         from transformers import AutoTokenizer
 
         self._tokenizer = AutoTokenizer.from_pretrained(self.tokenizer_path)
-        if self.kind == "t5":
+        if self.kind == "t5" and _model_type(self.path) == "umt5":
+            # Pile-T5 (AuraFlow's) and UMT5 checkpoints: UMT5's encoder
+            from transformers import UMT5EncoderModel as cls
+        elif self.kind == "t5":
             from transformers import T5EncoderModel as cls
         else:
             from transformers import CLIPTextModel as cls

@@ -2,8 +2,10 @@
 
 Counterpart of diffusion_pipe_tpu/ops/flash_attention.py. Three CUDA
 kernels (csrc/flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu) replace the
-Pallas TPU kernels `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`. Each
-source file says what bounds its kernel on the H100 and how it is laid out.
+Pallas TPU kernels `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` at head
+dim 64 and 128; at head dim 256 (AuraFlow) the three kernels of
+csrc/flash_d256.cu do. Each source file says what bounds its kernels on the
+H100 and how they are laid out.
 
 Layout is the model's own [B, S, H, D] for q, k, v, O and the gradients
 (the kernels read through strides, so no transpose); the LSE is [B, H, Sq]
@@ -35,23 +37,34 @@ from . import kernel_build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _STRIDES = [_L] * 3
+_FWD_ARGS = [_P] * 6 + [_I] * 5 + _STRIDES * 3 + [_L, _F, _I, _P]
+_DQ_ARGS = [_P] * 8 + [_I] * 5 + _STRIDES * 4 + [_L, _F, _I, _P]
+_DKV_ARGS = [_P] * 9 + [_I] * 5 + _STRIDES * 4 + [_L, _F, _I, _P, _I, _P, _P]
 _SIGNATURES = {
-    "dpt_flash_fwd": ("flash_fwd", [_P] * 6 + [_I] * 5 + _STRIDES * 3
-                      + [_L, _F, _I, _P]),
-    "dpt_flash_bwd_dq": ("flash_bwd_dq", [_P] * 8 + [_I] * 5 + _STRIDES * 4
-                         + [_L, _F, _I, _P]),
-    "dpt_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 5 + _STRIDES * 4
-                          + [_L, _F, _I, _P, _I, _P, _P]),
+    "dpt_flash_fwd": ("flash_fwd", _FWD_ARGS),
+    "dpt_flash_bwd_dq": ("flash_bwd_dq", _DQ_ARGS),
+    "dpt_flash_bwd_dkv": ("flash_bwd_dkv", _DKV_ARGS),
+    # head dim 256: the same arguments (csrc/flash_d256.cu)
+    "dpt_flash_fwd_d256": ("flash_d256", _FWD_ARGS),
+    "dpt_flash_bwd_dq_d256": ("flash_d256", _DQ_ARGS),
+    "dpt_flash_bwd_dkv_d256": ("flash_d256", _DKV_ARGS),
 }
-# K3's tiles (csrc/flash_bwd_dkv.cu, DkvTile): a block owns 128 keys and
-# steps over 64 queries
+# K3's tiles: a block owns 128 keys and steps over 64 queries
+# (csrc/flash_bwd_dkv.cu, DkvTile); at head dim 256 it owns 128 keys and one
+# half of D, and steps over 32 queries (csrc/flash_d256.cu)
 DKV_KEY_TILE, DKV_QUERY_TILE = 128, 64
+DKV_QUERY_TILE_D256 = 32
 # splits of K3's query loop considered when its key tiles do not fill the card
 DKV_MAX_SPLITS = 16
+
+
+def _symbol(name: str, d: int) -> str:
+    """The C entry point of kernel `name` for head dim d."""
+    return f"{name}_d256" if d == 256 else name
 
 
 def _entry(symbol: str):
@@ -163,7 +176,8 @@ def flash_fwd_cuda(q, k, v, kv_mask, scale):
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     mask_ptr, mask_sb = _mask_args(kv_mask)
-    fn = _entry("dpt_flash_fwd")
+    symbol = _symbol("dpt_flash_fwd", d)
+    fn = _entry(symbol)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
@@ -172,7 +186,7 @@ def flash_fwd_cuda(q, k, v, kv_mask, scale):
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  mask_sb, float(scale), int(q.dtype == torch.float16), stream)
-    _check(err, "dpt_flash_fwd")
+    _check(err, symbol)
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -213,12 +227,14 @@ def _sm_count(device: torch.device) -> int:
 
 def _dkv_workspace(b, h, sq, skv, d, device):
     """(splits, f32 partials, zeroed per-tile counters) for K3's query split;
-    the partials are [key tiles, splits, 2, 128, D] (None without a split)."""
-    key_tiles = b * h * -(-skv // DKV_KEY_TILE)
-    splits = dkv_splits(key_tiles, -(-sq // DKV_QUERY_TILE), _sm_count(device))
+    the partials are [key blocks, splits, 2, 128, D / halves] (None without a
+    split), where a key block is a key tile, or at D 256 one half of its D."""
+    halves, query_tile = (2, DKV_QUERY_TILE_D256) if d == 256 else (1, DKV_QUERY_TILE)
+    key_tiles = b * h * -(-skv // DKV_KEY_TILE) * halves
+    splits = dkv_splits(key_tiles, -(-sq // query_tile), _sm_count(device))
     if splits == 1:
         return 1, None, None
-    ws = torch.empty((key_tiles, splits, 2, DKV_KEY_TILE, d), dtype=torch.float32,
+    ws = torch.empty((key_tiles, splits, 2, DKV_KEY_TILE, d // halves), dtype=torch.float32,
                      device=device)
     return splits, ws, torch.zeros(key_tiles, dtype=torch.int32, device=device)
 
@@ -246,6 +262,7 @@ def _bwd_cuda(symbol, q, k, v, kv_mask, lse, di, do, scale, n_out, out_len,
         splits, ws, counters = _dkv_workspace(b, h, sq, k.shape[1], d, q.device)
         extra = (splits, None if ws is None else ws.data_ptr(),
                  None if counters is None else counters.data_ptr())
+    symbol = _symbol(symbol, d)
     fn = _entry(symbol)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

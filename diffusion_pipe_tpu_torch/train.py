@@ -27,8 +27,8 @@ output_dir/example.png before training.
 
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
-optimizer (A10), and families other than Flux, Wan, SDXL, SD3, Chroma and
-Qwen-Image (A9).
+optimizer (A10), and families other than Flux, Wan, SDXL, SD3, Chroma,
+Qwen-Image, FLUX.2 and AuraFlow (A9).
 """
 
 from __future__ import annotations
@@ -77,18 +77,21 @@ def _check_ported(config, args):
         raise NotImplementedError(
             "blocks_to_swap and optimizer.type = 'offload' are not ported yet (ROADMAP A10)")
     from .models import get_model_class
+    from .models.auraflow import AuraFlowPipeline
     from .models.chroma import ChromaPipeline
     from .models.flux import FluxPipeline
+    from .models.flux2 import Flux2Pipeline
     from .models.qwen_image import QwenImagePipeline
     from .models.sd3 import SD3Pipeline
     from .models.sdxl import SDXLPipeline
     from .models.wan import WanPipeline
 
     trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
-               QwenImagePipeline)
+               QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline)
     if get_model_class(config["model"]["type"]) not in trained:
         raise NotImplementedError(
-            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma and Qwen-Image families so far; "
+            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2 and AuraFlow "
+            f"families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 

@@ -5,7 +5,9 @@ On the CPU the port's FlashAttention runs its plain versions: the forward
 against the JAX `flash_attention`, run as tests/test_flash_attention.py runs
 it (DPIPE_PALLAS_INTERPRET=1 from conftest), with the JAX tolerances: 2e-5
 on the forward, 5e-4 abs / 1e-3 rel on the grads. All inputs are numpy draws
-from a seed, in f32, at B=1, H=2, S=256, D=128.
+from a seed, in f32, at B=1, H=2, S=256, D=128, and at D=256 (AuraFlow's
+head dim, which the TPU kernels take as any multiple of 128) with and
+without a mask over a ragged Skv.
 
 The kernels themselves are tested on the GPU by test_torch_kernels_gpu.py.
 """
@@ -30,28 +32,30 @@ from torch_port_helpers import JAX_FAST_COMPILE
 B, SQ, H, D = 1, 256, 2, 128
 BLOCK_Q, BLOCK_K = 256, 128
 
-# case -> (Skv, masked)
-CASES = {"nomask": (256, False), "kv_mask": (256, True), "ragged": (300, False)}
+# case -> (Skv, masked, head dim)
+CASES = {"nomask": (256, False, D), "kv_mask": (256, True, D), "ragged": (300, False, D),
+         "d256": (256, False, 256), "d256_ragged_masked": (300, True, 256)}
 
 
 def _inputs(case):
-    skv, masked = CASES[case]
+    skv, masked, d = CASES[case]
     rng = np.random.default_rng(7)
-    q = rng.standard_normal((B, SQ, H, D), dtype=np.float32)
-    k = rng.standard_normal((B, skv, H, D), dtype=np.float32)
-    v = rng.standard_normal((B, skv, H, D), dtype=np.float32)
-    do = rng.standard_normal((B, SQ, H, D), dtype=np.float32)
+    q = rng.standard_normal((B, SQ, H, d), dtype=np.float32)
+    k = rng.standard_normal((B, skv, H, d), dtype=np.float32)
+    v = rng.standard_normal((B, skv, H, d), dtype=np.float32)
+    do = rng.standard_normal((B, SQ, H, d), dtype=np.float32)
     mask = (rng.random((B, skv)) > 0.3).astype(np.int32) if masked else None
     return q, k, v, do, mask
 
 
-def _jax_fn(skv, mask):
+def _jax_fn(skv, mask, d):
     """[B, S, H, D] wrapper around the Pallas kernel: pads a ragged KV length
-    to the block and passes tail_len, as ops/attention.py does."""
+    (and the mask, with invalid keys) to the block and passes tail_len, as
+    ops/attention.py does."""
     pad = -skv % BLOCK_K
-    tail = None if pad == 0 else skv - (skv + pad - BLOCK_K)
-    jmask = None if mask is None else jnp.asarray(mask)
-    scale = D ** -0.5
+    tail = None if pad == 0 or mask is not None else skv - (skv + pad - BLOCK_K)
+    jmask = None if mask is None else jnp.pad(jnp.asarray(mask), ((0, 0), (0, pad)))
+    scale = d ** -0.5
 
     def prep(q, k, v):
         qt, kt, vt = (jnp.swapaxes(x, 1, 2) for x in (q, k, v))
@@ -76,7 +80,7 @@ def _reference(case):
     """The Pallas kernel's O, LSE and (dQ, dK, dV) for `case`, from one jit
     shared by the forward and backward tests."""
     q, k, v, do, mask = _inputs(case)
-    out_fn, lse_fn = _jax_fn(k.shape[1], mask)
+    out_fn, lse_fn = _jax_fn(k.shape[1], mask, q.shape[-1])
 
     @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
     def run(q, k, v, do):
@@ -98,7 +102,7 @@ def test_forward_matches_pallas(case):
     q, k, v, _, mask = _inputs(case)
     o_ref, lse_ref, _ = _reference(case)
     _, o, lse = _port(q, k, v, mask)
-    assert o.shape == (B, SQ, H, D) and lse.shape == (B, H, SQ)
+    assert o.shape == q.shape and lse.shape == (B, H, SQ)
     np.testing.assert_allclose(o.detach().numpy(), o_ref, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=2e-5, rtol=2e-5)
 

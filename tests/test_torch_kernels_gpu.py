@@ -6,8 +6,8 @@ a machine without them:
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
-Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128 and
-64 (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
+Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128,
+64 and 256 (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
 tile, a key mask, a ragged Sq=200 that is no multiple of K1's and K2's
 128-row query tile, heads 2-3 of six as a strided view, Sq=4096 against
 Skv=128, where K3 splits its query loop over blocks, Sq=328 against Skv=50,
@@ -22,9 +22,11 @@ H 20, Sq 256 against 77 CLIP tokens, D 64), with and without a padded
 batch element, K2 and K3 deterministic there. SD3's joint sequence at
 1024 px (4,429 keys, D 64, a ragged last tile) and Chroma's at 512 px (1,536
 keys, D 128, 77 and 300 of the 512 T5 keys valid), at 4 heads, K2 and K3
+deterministic there. AuraFlow's joint sequence at 1024 px (B 2, 4,360 keys, D 256, a
+ragged last tile; 4 of its 12 heads), with and without a key mask, K2 and K3
 deterministic there. A batch element whose keys are
 all masked gets O = 0, the mask value as its LSE and zero gradients, with
-and without the query split.
+and without the query split, at D 64, 128 and 256.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
@@ -91,7 +93,7 @@ def _inputs(case, dev, dtype=torch.bfloat16, d=128):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("d", [128, 64, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernels_match_plain_on_gpu(case, dtype, d, cuda_device):
@@ -238,13 +240,19 @@ def test_sdxl_cross_shape_matches_plain(masked, cuda_device):
 # tokens) with 77 and 300 of the 512 T5 keys valid; fewer heads than the
 # models' 24
 SD3_CHROMA_CASES = {"sd3_1024": (1, 4429, 4, 64, None),
-                    "chroma_512_masked": (2, 1536, 4, 128, (77, 300))}
+                    "chroma_512_masked": (2, 1536, 4, 128, (77, 300)),
+                    # AuraFlow at 1024 px: 8 registers + 256 T5 rows + 4,096
+                    # image tokens at D 256, unmasked and with 200 and 60 of
+                    # the 256 T5 rows valid (the port's AuraFlow passes no
+                    # mask; the kernels take one at every head dim)
+                    "auraflow_1024": (2, 4360, 4, 256, None),
+                    "auraflow_1024_masked": (2, 4360, 4, 256, (208, 68))}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SD3_CHROMA_CASES))
 def test_sd3_chroma_shapes_match_plain(case, cuda_device):
-    """K1-K3 at SD3's and Chroma's joint-attention shapes (bf16): the error
+    """K1-K3 at SD3's, Chroma's and AuraFlow's joint-attention shapes (bf16): the error
     bound of test_kernels_match_plain_on_gpu; Chroma's masked T5 keys get
     no dK / dV; K2 and K3 give the same bits twice."""
     b, s, h, d, valid = SD3_CHROMA_CASES[case]
@@ -252,10 +260,11 @@ def test_sd3_chroma_shapes_match_plain(case, cuda_device):
     q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
                    .to(cuda_device, torch.bfloat16) for _ in range(4))
     mask = None
+    txt = 264 if d == 256 else 512
     if valid is not None:
         mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
         for i, n in enumerate(valid):
-            mask[i, n:512] = 0
+            mask[i, n:txt] = 0
     scale = d ** -0.5
 
     def plain(q, k, v, do):
@@ -279,13 +288,13 @@ def test_sd3_chroma_shapes_match_plain(case, cuda_device):
         assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item(), (err, plain_err)
     if valid is not None:
         for i, n in enumerate(valid):
-            assert torch.all(dk[i, n:512] == 0) and torch.all(dv[i, n:512] == 0)
+            assert torch.all(dk[i, n:txt] == 0) and torch.all(dv[i, n:txt] == 0)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["query_split", "no_split"])
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("d", [128, 64, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
     """Batch element 0 has no valid key: O = 0, LSE = DEFAULT_MASK_VALUE and
@@ -325,17 +334,18 @@ def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
 
 
 @pytest.mark.cuda
-def test_autograd_runs_the_kernels(cuda_device):
+@pytest.mark.parametrize("d", [128, 256])
+def test_autograd_runs_the_kernels(d, cuda_device):
     """flash_attention on CUDA tensors: forward and backward go through
     K1, K2 and K3 once each, and the grads match the plain backward."""
-    q, k, v, do, _ = _inputs("ragged", cuda_device)
+    q, k, v, do, _ = _inputs("ragged", cuda_device, d=d)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     port_fa.reset_launch_counts()
     o, _ = port_fa.flash_attention(*leaves)
     o.backward(do)
     assert port_fa.launch_counts() == {
         "flash_fwd_cuda": 1, "flash_bwd_dq_cuda": 1, "flash_bwd_dkv_cuda": 1}
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     ro, rlse = port_fa.flash_forward_plain(*(x.float() for x in (q, k, v)), None, scale)
     di = port_fa.row_dot(do.float(), ro)
     rdq = port_fa.flash_bwd_dq_plain(q.float(), k.float(), v.float(), None, rlse, di,

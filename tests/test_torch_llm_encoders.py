@@ -21,6 +21,14 @@ word-level tokenizer that holds the chat template's special tokens:
 hidden states 2e-5, the mask exactly; and with text_encoder_fp8 the port's
 2-D weights but the embedding are float8, the output within 2e-5 of the
 JAX fp8 encoder's.
+
+Mistral-3 as FLUX.2 [dev] reads it: a tiny random transformers Mistral
+language model written in Mistral3ForConditionalGeneration's layout (its
+config nested under text_config, its keys under `model.language_model.`,
+vision-tower and head keys beside them) loads through load_causal_lm (the
+other keys left unread), and LLMTextEncoder's stacked hidden_layers (1, 2,
+3) equal transformers' hidden_states of those indices concatenated per
+token (1e-4 on the valid rows, eager attention).
 """
 
 import dataclasses
@@ -172,3 +180,41 @@ def test_text_encoder_crop_and_mask_match_jax(qwen2_folder, fp8, layer):
     lin = port.model.layers[0].attn_q.weight
     assert lin.dtype == (torch.float8_e4m3fn if fp8 else torch.float32)
     assert port.model.token_embedding.weight.dtype == torch.float32
+
+
+def test_mistral3_nested_config_and_stacked_layers(tmp_path):
+    import transformers
+
+    from diffusion_pipe_tpu_torch import safetensors_io
+
+    text = transformers.MistralConfig(**{**BASE, "num_hidden_layers": 4}, rope_theta=1e6)
+    torch.manual_seed(0)
+    model = transformers.MistralModel(text).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape))
+    # Mistral3ForConditionalGeneration's layout: the language model's
+    # config under text_config, its keys under model.language_model., a
+    # Pixtral tower beside it
+    hf_cfg = {"model_type": "mistral3", "image_token_index": 10,
+              "text_config": {**text.to_dict(), "model_type": "mistral"},
+              "vision_config": {"model_type": "pixtral", "hidden_size": 16, "patch_size": 14}}
+    (tmp_path / "config.json").write_text(json.dumps(hf_cfg, default=str))
+    sd = {"model.language_model." + k: v.contiguous() for k, v in model.state_dict().items()}
+    sd["model.vision_tower.patch_conv.weight"] = torch.zeros(16, 3, 14, 14)
+    sd["lm_head.weight"] = torch.zeros(96, 32)
+    safetensors_io.save_file(sd, str(tmp_path / "model.safetensors"))
+    lm, tcfg, _, _ = tllm.load_causal_lm(tmp_path, torch.float32)
+    assert (tcfg.dim, tcfg.num_layers, tcfg.num_kv_heads, tcfg.rope_theta) == (32, 4, 2, 1e6)
+    enc = tllm.LLMTextEncoder(str(tmp_path), max_length=10, hidden_layers=(1, 2, 3),
+                              dtype=torch.float32)
+    enc.model = lm
+    ids, mask = torch.from_numpy(IDS), torch.from_numpy(MASK)
+    with torch.no_grad():
+        got = enc.hidden_states(ids, mask)
+        hf = model(input_ids=ids, attention_mask=mask, output_hidden_states=True).hidden_states
+    want = torch.cat([hf[k] for k in (1, 2, 3)], dim=-1)
+    assert got.shape == (2, 10, 96)
+    valid = MASK.astype(bool)
+    np.testing.assert_allclose(got.numpy()[valid], want.numpy()[valid], atol=1e-4, rtol=1e-4)

@@ -7,7 +7,9 @@ magnitude (measured 6e-7). CLIP: the JAX package's Flax CLIP call does not
 run with this transformers version (its module asks for position_ids), so
 the port's pooled and last hidden states are held against
 transformers' CLIPTextModel run directly on the same padded tokens, bit
-for bit.
+for bit. A "t5" folder whose config names umt5 (Pile-T5, AuraFlow's text
+encoder) loads transformers' UMT5 encoder, the same bits as that encoder
+run directly.
 """
 
 import numpy as np
@@ -27,7 +29,7 @@ WORDS = ["<pad>", "</s>", "<unk>", "a", "b", "c", "cat", "dog", "photo", "of"]
 def models(tmp_path_factory):
     from tokenizers import Tokenizer, models, pre_tokenizers
     from transformers import (CLIPTextConfig, CLIPTextModel, PreTrainedTokenizerFast, T5Config,
-                              T5EncoderModel)
+                              T5EncoderModel, UMT5Config, UMT5EncoderModel)
 
     root = tmp_path_factory.mktemp("te")
     tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(WORDS)}, unk_token="<unk>"))
@@ -38,6 +40,10 @@ def models(tmp_path_factory):
     T5EncoderModel(T5Config(vocab_size=len(WORDS), d_model=16, d_kv=4, d_ff=32, num_layers=2,
                             num_heads=4, relative_attention_num_buckets=8, pad_token_id=0,
                             eos_token_id=1, decoder_start_token_id=0)).save_pretrained(root / "t5")
+    UMT5EncoderModel(UMT5Config(vocab_size=len(WORDS), d_model=16, d_kv=4, d_ff=32, num_layers=2,
+                                num_heads=4, relative_attention_num_buckets=8, pad_token_id=0,
+                                eos_token_id=1, decoder_start_token_id=0)).save_pretrained(
+        root / "umt5")
     CLIPTextModel(CLIPTextConfig(vocab_size=len(WORDS), hidden_size=16, intermediate_size=32,
                                  num_hidden_layers=2, num_attention_heads=4,
                                  max_position_embeddings=8, pad_token_id=0, eos_token_id=1,
@@ -82,4 +88,19 @@ def test_clip_matches_transformers(models, kind):
         out = CLIPTextModel.from_pretrained(models / "clip")(
             input_ids=tok["input_ids"], attention_mask=tok["attention_mask"])
     ref = out.pooler_output if kind == "clip_pooled" else out.last_hidden_state
+    assert torch.equal(ours, ref)
+
+
+def test_umt5_folder_loads_umt5(models):
+    from transformers import AutoTokenizer, UMT5EncoderModel
+
+    enc = HFTextEncoder("t5", str(models / "umt5"), 8, tokenizer_path=str(models / "tok"),
+                        device="cpu")
+    ours = enc.encode(CAPTIONS)
+    assert isinstance(enc._model, UMT5EncoderModel)
+    tok = AutoTokenizer.from_pretrained(models / "tok")(
+        CAPTIONS, padding="max_length", truncation=True, max_length=8, return_tensors="pt")
+    with torch.no_grad():
+        ref = UMT5EncoderModel.from_pretrained(models / "umt5")(
+            input_ids=tok["input_ids"], attention_mask=tok["attention_mask"]).last_hidden_state
     assert torch.equal(ours, ref)

@@ -27,6 +27,9 @@ images as one-frame videos):
 - tiny Qwen-Image the same way (its seeded Wan 2.1 VAE, the `_tiny` text
   draws with their mask); tiny Qwen-Image-Edit trains on a control_path
   dataset, the control latents in every training batch;
+- tiny FLUX.2 (the published layout, its seeded KL VAE, the `_tiny` text
+  draws) and tiny AuraFlow (the seeded SDXL-shaped VAE; a 32 x 32 position
+  table) the same way, their adapters in the ComfyUI dialect;
 - tiny Flux full fine-tuning writes model.safetensors in the diffusers
   layout;
 - a [model] checkpoint path that does not load (a wrong path, a missing
@@ -179,11 +182,11 @@ def _cache_train_resume(root, make_config, family, adapter_keys):
                    for k in sb)
 
 
-def _family_config(family):
+def _family_config(family, model_line=""):
     def make(root, out):
         path = _config(root, out)
         with open(path) as f:
-            text = f.read().replace('type = "flux"', f'type = "{family}"')
+            text = f.read().replace('type = "flux"', f'type = "{family}"\n{model_line}')
         with open(path, "w") as f:
             f.write(text)
         return path
@@ -200,6 +203,20 @@ def test_sd3_cache_train_eval_checkpoint_resume(root):
 def test_qwen_image_cache_train_eval_checkpoint_resume(root):
     # 2 blocks x 14 LoRA linears: lora_A, lora_B and alpha each
     _cache_train_resume(root, _family_config("qwen_image"), "qwen_image", 2 * 14 * 3)
+
+
+def test_flux2_cache_train_eval_checkpoint_resume(root):
+    # 2 double blocks x 8 LoRA linears and 2 single blocks x 2: lora_A,
+    # lora_B and alpha each
+    _cache_train_resume(root, _family_config("flux2"), "flux2", (2 * 8 + 2 * 2) * 3)
+
+
+def test_auraflow_cache_train_eval_checkpoint_resume(root):
+    # 2 joint blocks x 16 LoRA linears and 2 single blocks x 8, with their
+    # alphas; a 32 x 32 position table covers the tiny VAE's 16 x 16 and
+    # 24 x 8 patch grids
+    _cache_train_resume(root, _family_config("auraflow", "pos_embed_max_size = 1024"),
+                        "auraflow", (2 * 16 + 2 * 8) * 3)
 
 
 def test_qwen_image_edit_trains_on_control_images(root):
@@ -414,7 +431,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "auraflow": ("", ('type = "flux"', 'type = "auraflow"'), []),
+    "lumina_2": ("", ('type = "flux"', 'type = "lumina_2"'), []),
 }
 
 

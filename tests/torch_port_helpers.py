@@ -299,3 +299,161 @@ def qwen_one_silu(model, params, hidden_states, encoder_hidden_states, timestep,
     scale, shift = jnp.split(mod, 2, axis=-1)
     return LoraDense(cfg.out_channels, **dd).apply(
         {"params": p["proj_out"]}, modulate(layer_norm_no_affine(out), shift, scale))
+
+
+# --- FLUX.2 in its published layout -----------------------------------------
+
+
+def flux2_published(cfg, p, hidden_states, encoder_hidden_states, timestep, img_ids,
+                    guidance=None, img_seq_len=None):
+    """FLUX.2 as the published model computes it, composed of the JAX
+    package's submodules (LoraDense, RMSNorm, rope_frequencies / apply_rope,
+    dot_product_attention, layer_norm_no_affine, modulate,
+    sinusoidal_timestep_embedding), for the layout of `cfg` (a port
+    Flux2Config: SwiGLU or GELU MLP, biases, txt_norm, RoPE axes, theta and
+    text axes). `p` maps each port module path to its leaves in the JAX
+    layout ({"kernel" [in, out], "bias", "lora_a", "lora_b"} or {"scale"}).
+    The JAX Flux2Transformer computes the JAX layout only."""
+    from diffusion_pipe_tpu.models.layers import (LoraDense, RMSNorm, apply_rope,
+                                                  layer_norm_no_affine, modulate,
+                                                  rope_frequencies,
+                                                  sinusoidal_timestep_embedding)
+    from diffusion_pipe_tpu.ops.attention import dot_product_attention
+
+    dim, hd = cfg.hidden_size, cfg.attention_head_dim
+    dt = jnp.float32
+    lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+
+    def dense(name, x, dtype=dt):
+        leaves = p[name]
+        m = LoraDense(leaves["kernel"].shape[1], use_bias="bias" in leaves, dtype=dtype,
+                      param_dtype=dt, **(lora if "lora_a" in leaves else {}))
+        return m.apply({"params": leaves}, x)
+
+    def norm(name, x):
+        return RMSNorm(dtype=dt, param_dtype=dt).apply({"params": p[name]}, x)
+
+    def act(y):
+        if cfg.mlp_gated:
+            a, b = jnp.split(y, 2, -1)
+            return jax.nn.silu(a) * b
+        return jax.nn.gelu(y, approximate=True)
+
+    def heads(x):
+        return x.reshape(x.shape[0], x.shape[1], -1, hd)
+
+    img = dense("img_in", hidden_states)
+    txt = encoder_hidden_states
+    if cfg.txt_norm:
+        txt = norm("txt_norm", txt)
+    txt = dense("txt_in", txt)
+    vec = dense("time_in_2", jax.nn.silu(dense("time_in_1", sinusoidal_timestep_embedding(
+        timestep * 1000.0, 256))))
+    if cfg.guidance_embeds and guidance is not None:
+        vec = vec + dense("guidance_in_2", jax.nn.silu(dense(
+            "guidance_in_1", sinusoidal_timestep_embedding(guidance * 1000.0, 256))))
+    sv = jax.nn.silu(vec)
+    mi = jnp.split(dense("double_stream_modulation_img", sv), 6, -1)
+    mt = jnp.split(dense("double_stream_modulation_txt", sv), 6, -1)
+    ms = jnp.split(dense("single_stream_modulation", sv), 3, -1)
+    st = txt.shape[1]
+    txt_ids = np.zeros((st, len(cfg.axes_dims_rope)), np.float32)
+    for ax in cfg.txt_ids_dims:
+        txt_ids[:, ax] = np.arange(st)
+    cos, sin = rope_frequencies(jnp.concatenate([jnp.asarray(txt_ids), img_ids], 0),
+                                tuple(cfg.axes_dims_rope), cfg.rope_theta)
+
+    for i in range(cfg.num_layers):
+        b = f"double_blocks.{i}."
+        qkv = {}
+        for s, x, m in (("img", img, mi), ("txt", txt, mt)):
+            q, k, v = (heads(u) for u in jnp.split(
+                dense(b + f"{s}_attn_qkv", modulate(layer_norm_no_affine(x), m[0], m[1])), 3, -1))
+            qkv[s] = (norm(b + f"{s}_attn_q_norm", q), norm(b + f"{s}_attn_k_norm", k), v)
+        q, k, v = (jnp.concatenate([qkv["txt"][j], qkv["img"][j]], 1) for j in range(3))
+        attn = dot_product_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        attn = attn.reshape(attn.shape[0], attn.shape[1], dim)
+        out = {}
+        for s, x, m, a in (("img", img, mi, attn[:, st:]), ("txt", txt, mt, attn[:, :st])):
+            x = x + m[2][:, None] * dense(b + f"{s}_attn_proj", a)
+            y = modulate(layer_norm_no_affine(x), m[3], m[4])
+            y = dense(b + f"{s}_mlp_fc2", act(dense(b + f"{s}_mlp_fc1", y)))
+            out[s] = x + m[5][:, None] * y
+        img, txt = out["img"], out["txt"]
+
+    x = jnp.concatenate([txt, img], 1)
+    for i in range(cfg.num_single_layers):
+        b = f"single_blocks.{i}."
+        y = dense(b + "linear1", modulate(layer_norm_no_affine(x), ms[0], ms[1]))
+        q, k, v = (heads(u) for u in jnp.split(y[..., :3 * dim], 3, -1))
+        q = apply_rope(norm(b + "q_norm", q), cos, sin)
+        k = apply_rope(norm(b + "k_norm", k), cos, sin)
+        attn = dot_product_attention(q, k, v)
+        attn = attn.reshape(attn.shape[0], attn.shape[1], dim)
+        x = x + ms[2][:, None] * dense(b + "linear2",
+                                       jnp.concatenate([attn, act(y[..., 3 * dim:])], -1))
+    out = x[:, st:]
+    if img_seq_len is not None:
+        out = out[:, :img_seq_len]
+    shift, scale = jnp.split(dense("final_mod", sv), 2, -1)
+    return dense("final_linear", modulate(layer_norm_no_affine(out), shift, scale))
+
+
+def port_to_jax_leaves(state_dict):
+    """A port state dict (torch tensors) as {module path: {leaf: numpy}} in
+    the JAX layouts: a `weight` [out, in] as `kernel` [in, out]."""
+    out = {}
+    for key, t in state_dict.items():
+        path, leaf = key.rsplit(".", 1)
+        arr = t.detach().float().numpy()
+        if leaf == "weight":
+            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+        out.setdefault(path, {})[leaf] = arr
+    return out
+
+
+# --- AuraFlow's diffusers layout ---------------------------------------------
+
+AURAFLOW_JOINT_MAP = {
+    "norm1_linear": "norm1.linear", "norm1_context_linear": "norm1_context.linear",
+    "attn_to_q": "attn.to_q", "attn_to_k": "attn.to_k", "attn_to_v": "attn.to_v",
+    "attn_add_q": "attn.add_q_proj", "attn_add_k": "attn.add_k_proj",
+    "attn_add_v": "attn.add_v_proj", "attn_to_out": "attn.to_out.0",
+    "attn_to_add_out": "attn.to_add_out", "ff_linear_1": "ff.linear_1",
+    "ff_linear_2": "ff.linear_2", "ff_out_projection": "ff.out_projection",
+    "ff_context_linear_1": "ff_context.linear_1", "ff_context_linear_2": "ff_context.linear_2",
+    "ff_context_out_projection": "ff_context.out_projection",
+}
+
+
+def auraflow_fake_sd(params, cfg):
+    """The JAX test suite's inverse of convert_diffusers_auraflow
+    (tests/test_auraflow.py `_fake_sd_from_params`, copied since a test
+    file is not imported as a module): JAX AuraFlow params -> the
+    diffusers-keyed state dict (numpy) that the converter reads."""
+    p = params["params"]
+    sd = {"pos_embed.pos_embed": np.asarray(p["pos_embed"]),
+          "register_tokens": np.asarray(p["register_tokens"])}
+
+    def put(theirs, leaf, bias=True):
+        sd[theirs + ".weight"] = np.asarray(leaf["kernel"]).T
+        if bias and "bias" in leaf:
+            sd[theirs + ".bias"] = np.asarray(leaf["bias"])
+
+    put("pos_embed.proj", p["patch_proj"])
+    put("context_embedder", p["context_embedder"], bias=False)
+    put("time_step_proj.linear_1", p["time_linear_1"])
+    put("time_step_proj.linear_2", p["time_linear_2"])
+    put("norm_out.linear", p["norm_out_linear"], bias=False)
+    put("proj_out", p["proj_out_linear"], bias=False)
+    single_map = {k: v for k, v in AURAFLOW_JOINT_MAP.items()
+                  if "context" not in k and "add" not in k}
+    for ours, theirs in AURAFLOW_JOINT_MAP.items():
+        stacked = np.asarray(p["joint_blocks"][ours]["kernel"])
+        for i in range(cfg.num_layers):
+            sd[f"joint_transformer_blocks.{i}.{theirs}.weight"] = stacked[i].T
+    for ours, theirs in single_map.items():
+        stacked = np.asarray(p["single_blocks"][ours]["kernel"])
+        for i in range(cfg.num_single_layers):
+            sd[f"single_transformer_blocks.{i}.{theirs}.weight"] = stacked[i].T
+    return sd

@@ -11,6 +11,8 @@
     python3 tools/profile_torch_step.py --slice sd3-lora  # sd3-medium-lora-1024
     python3 tools/profile_torch_step.py --slice chroma-lora  # chroma-lora-512
     python3 tools/profile_torch_step.py --slice qwen-lora  # qwen-image-lora-1024
+    python3 tools/profile_torch_step.py --slice flux2-lora  # flux2-dev-lora-1024-fp8-int8
+    python3 tools/profile_torch_step.py --slice auraflow-lora  # auraflow-v0.3-lora-1024
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -28,7 +30,13 @@ chip_smoke.build_chroma_slice: Chroma, LoRA r32, adamw8bit, "attn", batch 2
 at 512 px with 512 masked T5 tokens; or chip_smoke.build_qwen_slice:
 Qwen-Image at full size as examples/qwen_image.toml trains it, fp8
 weights pre-quantized to int8, int8_matmul "fwd_bwd", LoRA r32, adamw8bit,
-`true`, batch 2 at 1024 px with 512 masked text rows), builds the kernels if needed, runs
+`true`, batch 2 at 1024 px with 512 masked text rows; or
+chip_smoke.build_flux2_slice: FLUX.2 [dev] at its published size, fp8
+weights pre-quantized to int8, int8_matmul "fwd_bwd", LoRA r32, adamw8bit,
+`true`, batch 1 at 1024 px with 512 text rows; or
+chip_smoke.build_auraflow_slice: AuraFlow v0.3 at full size, fp8 weights,
+LoRA r32, adamw8bit, `true`, batch 2 at 1024 px with 256 text rows, its
+attention at head dim 256), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -69,10 +77,16 @@ sys.path.insert(0, str(ROOT))
 GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|sm90_", re.IGNORECASE)
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
            "sr_add_kernel", "quant_rows_kernel", "rescale_kernel")
+# the head-dim-256 kernels (csrc/flash_d256.cu), counted with K1-K3
+D256 = {"flash_fwd_d256": "flash_fwd_kernel", "flash_bwd_dq_d256": "flash_bwd_dq_kernel",
+        "flash_bwd_dkv_d256": "flash_bwd_dkv_kernel"}
 STEPS = 2
 
 
 def category(name: str) -> str:
+    for k, cat in D256.items():
+        if k in name:
+            return cat
     for k in KERNELS:
         if k in name:
             return k
@@ -129,7 +143,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora",
                                         "sdxl-lora", "sdxl-fullft", "sd3-lora",
-                                        "chroma-lora", "qwen-lora"),
+                                        "chroma-lora", "qwen-lora", "flux2-lora",
+                                        "auraflow-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -156,6 +171,10 @@ def main(argv=None):
                         chip_smoke.build_chroma_slice),
         "qwen-lora": ("qwen-image-lora-1024", chip_smoke.QWEN_LORA_CONFIG,
                       chip_smoke.build_qwen_slice),
+        "flux2-lora": ("flux2-dev-lora-1024-fp8-int8", chip_smoke.FLUX2_LORA_CONFIG,
+                       chip_smoke.build_flux2_slice),
+        "auraflow-lora": ("auraflow-v0.3-lora-1024", chip_smoke.AURAFLOW_LORA_CONFIG,
+                          chip_smoke.build_auraflow_slice),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing

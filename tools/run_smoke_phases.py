@@ -6,8 +6,11 @@
 Phases: kernels-sd3-chroma, reference-sd3, reference-chroma, slice-sd3-lora,
 slice-chroma-lora, driver-sd3, driver-chroma (with the vae phase first,
 whose Flux VAE Chroma's driver reads), kernels-qwen, reference-qwen,
-slice-qwen-image-lora, slice-qwen-image-edit-lora, qwen25vl, driver-qwen. Each prints its JSON lines as in the
-whole smoke; a failed check exits non-zero.
+slice-qwen-image-lora, slice-qwen-image-edit-lora, qwen25vl, driver-qwen,
+kernels-flux2-auraflow, reference-flux2, reference-auraflow, slice-flux2-lora,
+slice-flux2-edit-lora, slice-auraflow-lora, mistral3, pile-t5, driver-flux2,
+driver-auraflow. Each prints its JSON lines as in the whole smoke; a failed
+check exits non-zero.
 """
 
 import sys
@@ -43,13 +46,23 @@ def main(argv):
         "slice-qwen-image-edit-lora": lambda: cs.phase_slice_qwen(edit=True),
         "qwen25vl": cs.phase_qwen25vl,
         "driver-qwen": cs.phase_driver_qwen,
+        "kernels-flux2-auraflow": lambda: cs.phase_kernels_flux2_auraflow(ptxas),
+        "reference-flux2": cs.phase_reference_flux2,
+        "reference-auraflow": cs.phase_reference_auraflow,
+        "slice-flux2-lora": cs.phase_slice_flux2,
+        "slice-flux2-edit-lora": lambda: cs.phase_slice_flux2(edit=True),
+        "slice-auraflow-lora": cs.phase_slice_auraflow,
+        "mistral3": cs.phase_mistral3,
+        "pile-t5": cs.phase_pile_t5,
+        "driver-flux2": lambda: cs.phase_driver_family("flux2"),
+        "driver-auraflow": lambda: cs.phase_driver_family("auraflow"),
     }
     unknown = [p for p in argv if p not in phases]
     if unknown:
         print(f"run_smoke_phases: unknown phases {unknown}", file=sys.stderr)
         return 2
     cs.emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=cs.nvidia_smi_line())
-    cs.phase_build()
+    ptxas = cs.phase_build()
     for name in argv:
         phases[name]()
         cs._free()
