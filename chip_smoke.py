@@ -289,9 +289,12 @@ Phases, each printing one JSON line (or more):
                      through init_from_existing, bit for bit; the 2,520
                      adapter keys and the launches.
 
-17. kernels-flux2-auraflow -- (run last) the ptxas registers and spills of
-                     the head-dim-256 kernels (csrc/flash_d256.cu; no spill
-                     allowed); K1-K3 at FLUX.2 [dev]'s joint sequence (B 1 x
+17. kernels-flux2-auraflow -- (run last) the ptxas registers, spills and
+                     wgmma serialization of the head-dim-256 kernels (K1 in
+                     csrc/flash_fwd.cu and K3 in flash_bwd_dkv_d256.cu, wgmma
+                     kernels: no spill and no C7512 in their bf16 and fp16
+                     instances; K2 in flash_d256.cu, mma.sync: no
+                     spill); K1-K3 at FLUX.2 [dev]'s joint sequence (B 1 x
                      4,608 keys, 48 heads of 128; the edit's 8,704), checked
                      on six heads, and at AuraFlow's (B 2 x 4,360 keys, 12
                      heads of 256, unmasked and with 200 / 60 of the 256 T5
@@ -4193,16 +4196,26 @@ FLUX2_INT8_H1_CASES = {"forward_linear1": (FLUX2_ROWS, 6144, False),
 FLUX2_H2_SHAPE = (FLUX2_ROWS, 55296)
 
 
-def d256_ptxas(ptxas):
-    """The bf16 instances of the D 256 kernels (csrc/flash_d256.cu), by the
-    wrapper whose head-dim-256 calls they serve."""
+# the head-dim-256 kernels by wrapper: (library, a part of the mangled name
+# of its D 256 instances, source); K1 and K3 are wgmma kernels, K2 mma.sync
+D256_KERNELS = {
+    "flash_fwd": ("flash_fwd", "Li256E", "diffusion_pipe_tpu_torch/csrc/flash_fwd.cu"),
+    "flash_bwd_dq": ("flash_d256", "flash_bwd_dq_d256",
+                     "diffusion_pipe_tpu_torch/csrc/flash_d256.cu"),
+    "flash_bwd_dkv": ("flash_bwd_dkv_d256", "flash_bwd_dkv_d256",
+                      "diffusion_pipe_tpu_torch/csrc/flash_bwd_dkv_d256.cu"),
+}
+D256_WGMMA = ("flash_fwd", "flash_bwd_dkv")
+
+
+def d256_ptxas(ptxas, dtype="nv_bfloat16"):
+    """The ptxas records of the D 256 kernels' instances for `dtype` (a part
+    of the mangled name: "nv_bfloat16" or "6__half"), by the wrapper whose
+    head-dim-256 calls they serve."""
     out = {}
-    for mangled, rec in ptxas.get("flash_d256", {}).items():
-        if "nv_bfloat16" not in mangled:
-            continue
-        for name, tag in (("flash_fwd", "flash_fwd_d256"), ("flash_bwd_dq", "flash_bwd_dq_d256"),
-                          ("flash_bwd_dkv", "flash_bwd_dkv_d256")):
-            if tag in mangled:
+    for name, (lib, tag, _) in D256_KERNELS.items():
+        for mangled, rec in ptxas.get(lib, {}).items():
+            if dtype in mangled and tag in mangled:
                 out[name] = rec
     return out
 
@@ -4213,8 +4226,9 @@ def phase_kernels_flux2_auraflow(ptxas):
     deterministic on each, a batch element with every key masked at D 256
     (on K3's split path and without it), each timed beside its bound, its
     plain version (but at the edit's 8,704 keys, whose f32 logits take 14.5
-    GB a tensor) and SDPA's forward and backward; the ptxas registers and
-    spills of the D 256 builds (no spill allowed); H1 / H2 bit for bit and
+    GB a tensor) and SDPA's forward and backward; the ptxas registers,
+    spills and wgmma serialization of the D 256 builds (no spill in any, no
+    C7512 in K1's and K3's bf16 and fp16 instances); H1 / H2 bit for bit and
     timed at linear1's shape by queued_ms (this late in the smoke
     torch.profiler drops kernels from its traces). Returns ({case: K1-K3
     timing}, {kernel: H1 / H2 timing}, D 256 ptxas)."""
@@ -4222,11 +4236,14 @@ def phase_kernels_flux2_auraflow(ptxas):
     from diffusion_pipe_tpu_torch.ops import int8_quant as iq
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    d256 = d256_ptxas(ptxas)
-    emit(phase="kernels-flux2-auraflow", ptxas_bf16_d256=d256)
-    check(set(d256) == set(FLASH) and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
-                                          for r in d256.values()),
-          f"the D 256 kernels' ptxas records {d256}")
+    d256, d256_fp16 = d256_ptxas(ptxas), d256_ptxas(ptxas, "6__half")
+    emit(phase="kernels-flux2-auraflow", ptxas_bf16_d256=d256, ptxas_fp16_d256=d256_fp16)
+    records = (d256, d256_fp16)
+    check(all(set(r) == set(FLASH) for r in records)
+          and all(rec.get("spill_stores") == 0 and rec.get("spill_loads") == 0
+                  for r in records for rec in r.values())
+          and not any(r[name]["wgmma_serialized"] for r in records for name in D256_WGMMA),
+          f"the D 256 kernels' ptxas records {records}")
     errors, timings, splits = {}, {}, {}
     for case, (b, s, h), d, masked, heads, _ in FLUX2_AURAFLOW_KERNEL_CASES:
         errors[case] = _check_attention(fa, case, b, s, s, h, d, masked, gen, heads=heads)
@@ -4668,9 +4685,9 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
     and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2 and AuraFlow (D 256),
-    and the ptxas record of their bf16 D 256 build (d256); H1 and H2 theirs
-    at Qwen-Image's ff_in (qwen_int8_timing) and FLUX.2's linear1
-    (flux2_int8_timing)."""
+    and the source and ptxas record of their bf16 D 256 build (d256); H1
+    and H2 theirs at Qwen-Image's ff_in (qwen_int8_timing) and FLUX.2's
+    linear1 (flux2_int8_timing)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd", "sdpa_bwd_ms")
 
@@ -4714,6 +4731,7 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                      **{k: main[k] for k in extra if k in main})
         if name in FLASH:
             entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
+            entry["source_d256"] = D256_KERNELS[name][2]
             entry["ptxas_bf16_d256"] = d256.get(name)
         entry["at_other_shapes"] = beside
         kernels.append(entry)

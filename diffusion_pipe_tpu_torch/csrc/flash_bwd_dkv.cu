@@ -93,22 +93,6 @@ struct DkvTile {
   static constexpr int kThreads = 256;  // two warpgroups
 };
 
-// Writes rows r0, r0 + 8 (when < nrows) of a warp's accumulator slice, as T.
-template <typename T, int HD>
-__device__ __forceinline__ void store_acc(T* dst, int64_t row_stride, int r0, int nrows,
-                                          const float (&acc)[HD / 2], int t) {
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    const int c = 8 * i + 2 * t;
-    if (r0 < nrows)
-      *reinterpret_cast<uint32_t*>(dst + r0 * row_stride + c) =
-          Elem<T>::pack(acc[4 * i], acc[4 * i + 1]);
-    if (r0 + 8 < nrows)
-      *reinterpret_cast<uint32_t*>(dst + (r0 + 8) * row_stride + c) =
-          Elem<T>::pack(acc[4 * i + 2], acc[4 * i + 3]);
-  }
-}
-
 // Thread 0 issues the TMA copies of query step `step` (Q and dO tiles) into
 // stage `s`; they complete a transaction on the stage's full barrier.
 template <typename C>

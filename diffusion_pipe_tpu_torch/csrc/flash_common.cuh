@@ -1,9 +1,9 @@
 // Shared pieces of the three flash-attention kernels (forward, dQ, dK/dV)
 // that are not Hopper-specific: the log2 e and mask-value constants, the
 // rounding of two f32 values to a packed pair of the input type (the A
-// fragment of a register-operand wgmma), and the sums and maxima over the
-// four threads that share an accumulator row. The Hopper pieces (TMA,
-// mbarriers, wgmma) are in hopper_common.cuh.
+// fragment of a register-operand wgmma), the sums and maxima over the four
+// threads that share an accumulator row, and the store of an accumulator's
+// rows. The Hopper pieces (TMA, mbarriers, wgmma) are in hopper_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +45,23 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Writes rows r0, r0 + 8 (when < nrows) of a warp's slice of a 64-row wgmma
+// accumulator of N columns, as T.
+template <typename T, int N>
+__device__ __forceinline__ void store_acc(T* dst, int64_t row_stride, int r0, int nrows,
+                                          const float (&acc)[N / 2], int t) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    if (r0 < nrows)
+      *reinterpret_cast<uint32_t*>(dst + r0 * row_stride + c) =
+          Elem<T>::pack(acc[4 * i], acc[4 * i + 1]);
+    if (r0 + 8 < nrows)
+      *reinterpret_cast<uint32_t*>(dst + (r0 + 8) * row_stride + c) =
+          Elem<T>::pack(acc[4 * i + 2], acc[4 * i + 3]);
+  }
 }
 
 }  // namespace dpt

@@ -1,61 +1,36 @@
-// Flash attention at head dim 256 (K1, K2 and K3) for Hopper: mma.sync with
-// cp.async tile copies.
+// Flash-attention backward, dQ part (K2), at head dim 256 for Hopper:
+// mma.sync with cp.async tile copies.
 //
-// Replaces the Pallas TPU kernels of diffusion_pipe_tpu/ops/flash_attention.py
-// at D = 256 (the TPU kernels take any D that is a multiple of 128): the
-// forward `_fwd_kernel` / `_fwd_kernel_nomask` (lines 59 and 204, launched by
-// `_flash_forward`), the dQ kernel `_dq_kernel` / `_dq_kernel_nomask` (217,
-// 258) and the dK/dV kernel `_dkv_kernel` / `_dkv_kernel_nomask` (264, 315),
-// launched by `_flash_backward`. The three compute what flash_fwd.cu,
-// flash_bwd_dq.cu and flash_bwd_dkv.cu compute at D 64 and 128, with the
-// same mask, all-masked-row and query-split conventions; those files keep
-// their wgmma kernels for D 64 and 128.
+// Replaces the Pallas TPU kernel diffusion_pipe_tpu/ops/flash_attention.py
+// `_dq_kernel` / `_dq_kernel_nomask` (lines 217 and 258, pallas_call at 359),
+// launched by `_flash_backward`, at D = 256 (AuraFlow's head dim; the TPU
+// kernels take any D that is a multiple of 128). It computes what
+// flash_bwd_dq.cu computes at D 64 and 128, with the same mask and
+// all-masked-row conventions. K1 and K3 at D 256 are wgmma kernels:
+// flash_fwd.cu's at FwdTile<256> and flash_bwd_dkv_d256.cu.
 //
-// What bounds them on the H100: the tensor cores. Per (b, h) the forward
-// does 2 products of 2*Sq*Skv*D flops, dQ 3 and dK/dV 4, against
-// (2*Sq + 2*Skv)*D*2 bytes or so: at AuraFlow's shape (B 2, H 12, S 4,360)
-// 0.47 / 0.71 / 0.94 ms at 989 TFLOP/s.
+// What bounds it on the H100: the tensor cores. Per (b, h) it does 3
+// products of 2*Sq*Skv*D flops against (2*Sq + 2*Skv)*D*2 bytes or so: at
+// AuraFlow's shape (B 2, H 12, S 4,360) 0.71 ms at 989 TFLOP/s.
 //
-// Why not the D 128 tiles: the wgmma kernels hold a 64-row accumulator of D
-// columns per consumer warpgroup and stage 128-key K and V tiles; at D 256
-// the O / dQ accumulator alone is 128 f32 a thread, K3's dK and dV would be
-// 256, and the staged tiles pass the 227 KB a block may hold. So this file
-// is a first design that is right and simple: mma.sync m16n8k16 (f32
-// accumulators), one warp per 16 rows, tiles copied with cp.async into
-// XOR-swizzled shared memory (16-byte chunk c of row r at c ^ (r & 7), so
-// ldmatrix reads 8 rows without bank conflicts) in a ring of 2 stages.
+// Why not flash_bwd_dq.cu's tiles: its wgmma kernel holds a 64-row dQ
+// accumulator of D columns per consumer warpgroup and stages 64-key K and V
+// tiles in three stages; at D 256 that is 128 f32 a thread and more shared
+// memory than a block may hold. So this is a first design that is right and
+// simple: mma.sync m16n8k16 (f32 accumulators), one warp per 16 rows, tiles
+// copied with cp.async into XOR-swizzled shared memory (16-byte chunk c of
+// row r at c ^ (r & 7), so ldmatrix reads 8 rows without bank conflicts) in
+// a ring of 2 stages.
 //
-// K1 (flash_fwd_d256): a block of 4 warps owns 64 query rows and steps over
-// 32 keys; S = Q K^T, the online softmax in the exp2 domain, O += P V with P
-// rounded to the input type and taken from registers. O is 128 f32 a thread.
-// Shared memory: Q 32 KB + 2 x (K, V 16 KB each) = 96 KB, two blocks an SM.
-//
-// K2 (flash_bwd_dq_d256): a block of 8 warps owns 128 query rows and steps
-// over 32 keys; S = Q K^T and dP = dO V^T, P = exp(scale S - LSE), dS =
-// P (dP - D) scale rounded to the input type, dQ += dS K. dQ is 128 f32 a
-// thread. Shared memory: Q, dO 64 KB each + 2 x (K, V 16 KB each) = 192 KB.
-//
-// K3 (flash_bwd_dkv_d256): a block of 8 warps owns 128 keys and one half of
-// D (128 columns) of their dK and dV, and steps over 32 queries: S^T = K
-// Q^T and dP^T = V dO^T over the full D, then dV += P^T dO and dK += dS^T Q
-// over its half. dK and dV are 64 f32 each a thread. The two halves of a key
-// tile recompute S^T and dP^T each, so K3 does 6 products where 4 would do:
-// the price of keeping dK and dV in registers. (A version that split the
-// work between pairs of warps, one computing P^T and dV, the other dP^T, dS^T
-// and dK, so that no product was done twice, was within a few percent of
-// this one's time at AuraFlow's shape and spilled registers: at 8 warps an
-// SM these kernels wait on latency more than on their products.) Shared
-// memory: K, V 64 KB
-// each + 2 x (Q, dO 16 KB each) = 192 KB. When the key tiles (x halves x
-// heads x batch) do not fill the card the wrapper splits the query loop
-// over `splits` blocks; each writes its f32 partial to a workspace and the
-// last block of the tile to finish sums them in split order, as in
-// flash_bwd_dkv.cu, so the result is the same bits from run to run.
+// A block of 8 warps owns 128 query rows and steps over 32 keys; S = Q K^T
+// and dP = dO V^T, P = exp(scale S - LSE), dS = P (dP - D) scale rounded to
+// the input type, dQ += dS K. dQ is 128 f32 a thread. Shared memory: Q, dO
+// 64 KB each + 2 x (K, V 16 KB each) = 192 KB.
 //
 // Masked keys, keys past Skv and query rows past Sq get P = 0 (a select,
 // never a product with a value that may be infinite); rows past the ends
 // are copied as zeros and never stored. A query row with no valid key gets
-// O = 0 and LSE = -0.7 * FLT_MAX in K1 and zero gradients in K2 and K3.
+// a zero gradient.
 #include <initializer_list>
 
 #include "flash_common.cuh"
@@ -200,17 +175,17 @@ __device__ __forceinline__ void to_a_frags(const float (&p)[4][4], uint32_t (&a)
   }
 }
 
-// acc[NB x 8 columns from chunk c0] += A (16 x 32, from registers) times the
-// 32 rows of a [k][n] tile, columns from chunk c0 on
+// acc[NB x 8 columns] += A (16 x 32, from registers) times the 32 rows of a
+// [k][n] tile
 template <typename T, int NB>
 __device__ __forceinline__ void frags_x_rows(float (&acc)[NB][4], const uint32_t (&a)[2][4],
-                                             uint32_t tile, int c0, int lane) {
+                                             uint32_t tile, int lane) {
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
 #pragma unroll
     for (int n = 0; n < NB; n += 2) {
       uint32_t bf[4];
-      ldsm_x4_t(a_addr(tile, 16 * k, c0 + n, lane), bf);
+      ldsm_x4_t(a_addr(tile, 16 * k, n, lane), bf);
       Mma<T>::run(acc[n], a[k], bf[0], bf[1]);
       Mma<T>::run(acc[n + 1], a[k], bf[2], bf[3]);
     }
@@ -221,125 +196,11 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse_in, *di;
   const int* mask;
-  void *out0, *out1;  // K1: O; K2: dQ; K3: dK, dV
-  float* lse;         // K1's LSE
-  float* ws;          // K3's split partials
-  int* counters;
+  void* out0;  // dQ
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, mask_sb;
-  int h, sq, skv, splits, tiles_per_split;
+  int h, sq, skv;
   float scale;
 };
-
-// ---- K1 -------------------------------------------------------------------
-
-constexpr int kFwdBM = 64, kFwdBN = 32, kFwdThreads = 128;
-constexpr int kFwdQ = kFwdBM * kRowBytes, kFwdKV = kFwdBN * kRowBytes;
-constexpr int kFwdSmem = kFwdQ + 4 * kFwdKV + 16;
-
-template <typename T>
-__global__ void __launch_bounds__(kFwdThreads, 2) flash_fwd_d256(const Args a) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  const uint32_t s_q = smem_addr(sm), s_k = s_q + kFwdQ, s_v = s_k + 2 * kFwdKV;
-  uint32_t* words = reinterpret_cast<uint32_t*>(sm + kFwdQ + 4 * kFwdKV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * kFwdBM, h = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
-  const int n_tiles = (a.skv + kFwdBN - 1) / kFwdBN;
-
-  auto load_kv = [&](int j, int s) {
-    load_rows(s_k + s * kFwdKV, k, a.k_ss, j * kFwdBN, kFwdBN, a.skv, tid, kFwdThreads);
-    load_rows(s_v + s * kFwdKV, v, a.v_ss, j * kFwdBN, kFwdBN, a.skv, tid, kFwdThreads);
-    if (warp == 0) {
-      const uint32_t bits = key_bits(mask, j * kFwdBN, a.skv, lane);
-      if (lane == 0) words[s] = bits;
-    }
-  };
-  load_rows(s_q, q, a.q_ss, m0, kFwdBM, a.sq, tid, kFwdThreads);
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
-  if (n_tiles > 1) load_kv(1, 1);
-  cp_async_commit();
-
-  float o[32][4];
-#pragma unroll
-  for (int n = 0; n < 32; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  const float sl2 = a.scale * kLog2e;
-  const int r0 = warp * 16;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int s = j & 1;
-    cp_async_wait<1>();
-    __syncthreads();
-    float sacc[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
-    rows_x_keys<T>(sacc, s_q, r0, s_k + s * kFwdKV, lane);
-
-    const uint32_t bits = words[s];
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        sacc[n][e] = (bits >> col) & 1u ? sacc[n][e] * sl2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sacc[n][e]);
-      }
-    float base[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
-      alpha[i] = ex2(m_run[i] - base[i]);
-      m_run[i] = mx[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sacc[n][e] = ex2(sacc[n][e] - base[e >> 1]);
-        sum[e >> 1] += sacc[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + sum[i];
-#pragma unroll
-    for (int n = 0; n < 32; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    uint32_t pa[2][4];
-    to_a_frags<T>(sacc, pa);
-    frags_x_rows<T, 32>(o, pa, s_v + s * kFwdKV, 0, lane);
-    __syncthreads();
-    if (j + 2 < n_tiles) load_kv(j + 2, s);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  const long long row_stride = (long long)a.h * kD;
-  T* out = static_cast<T*>(a.out0) + (long long)b * a.sq * row_stride + h * kD;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float l = quad_sum(l_run[i]);
-    const int row = m0 + r0 + g + 8 * i;
-    if (row >= a.sq) continue;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int n = 0; n < 32; ++n)
-      *reinterpret_cast<uint32_t*>(out + row * row_stride + n * 8 + 2 * t) =
-          Elem<T>::pack(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    if (t == 0)
-      a.lse[((long long)b * a.h + h) * a.sq + row] =
-          l > 0.f ? (m_run[i] + __log2f(l)) * 0.6931471805599453f : kMaskValue;
-  }
-}
 
 // ---- K2 -------------------------------------------------------------------
 
@@ -415,7 +276,7 @@ __global__ void __launch_bounds__(kDqThreads, 1) flash_bwd_dq_d256(const Args a)
       }
     uint32_t dsa[2][4];
     to_a_frags<T>(sacc, dsa);
-    frags_x_rows<T, 32>(dq, dsa, s_k + s * kDqKV, 0, lane);
+    frags_x_rows<T, 32>(dq, dsa, s_k + s * kDqKV, lane);
     __syncthreads();
     if (j + 2 < n_tiles) load_kv(j + 2, s);
     cp_async_commit();
@@ -432,171 +293,6 @@ __global__ void __launch_bounds__(kDqThreads, 1) flash_bwd_dq_d256(const Args a)
     for (int n = 0; n < 32; ++n)
       *reinterpret_cast<uint32_t*>(out + row * row_stride + n * 8 + 2 * t) =
           Elem<T>::pack(dq[n][2 * i], dq[n][2 * i + 1]);
-  }
-}
-
-// ---- K3 -------------------------------------------------------------------
-
-constexpr int kDkvBN = 128, kDkvBM = 32, kDkvThreads = 256, kHalf = kD / 2;
-constexpr int kDkvK = kDkvBN * kRowBytes, kDkvQ = kDkvBM * kRowBytes;
-constexpr int kDkvOffRows = 2 * kDkvK + 4 * kDkvQ;  // LSE * log2 e, D: [2][32] f32 each
-constexpr int kDkvSmem = kDkvOffRows + 4 * 2 * kDkvBM * 4 + 16;
-
-template <typename T>
-__global__ void __launch_bounds__(kDkvThreads, 1) flash_bwd_dkv_d256(const Args a) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  const uint32_t s_k = smem_addr(sm), s_v = s_k + kDkvK, s_q = s_v + kDkvK,
-                 s_do = s_q + 2 * kDkvQ;
-  float* s_lse = reinterpret_cast<float*>(sm + kDkvOffRows);  // [2][32]
-  float* s_di = s_lse + 2 * kDkvBM;                          // [2][32]
-  int* s_flag = reinterpret_cast<int*>(s_di + 2 * kDkvBM);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kv_tile = blockIdx.x >> 1, half = blockIdx.x & 1;
-  const int n0 = kv_tile * kDkvBN, h = blockIdx.y;
-  const int b = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const long long row_at = ((long long)b * a.h + h) * a.sq;
-  const int q_tiles = (a.sq + kDkvBM - 1) / kDkvBM;
-  const int t_begin = split * a.tiles_per_split;
-  const int t_end = min(q_tiles, t_begin + a.tiles_per_split);
-  const int n_steps = max(0, t_end - t_begin);
-
-  auto load_q = [&](int j, int s) {
-    const int row0 = (t_begin + j) * kDkvBM;
-    load_rows(s_q + s * kDkvQ, q, a.q_ss, row0, kDkvBM, a.sq, tid, kDkvThreads);
-    load_rows(s_do + s * kDkvQ, dout, a.do_ss, row0, kDkvBM, a.sq, tid, kDkvThreads);
-    if (tid < kDkvBM) {
-      const int row = row0 + tid;
-      s_lse[s * kDkvBM + tid] = row < a.sq ? a.lse_in[row_at + row] * kLog2e : 0.f;
-      s_di[s * kDkvBM + tid] = row < a.sq ? a.di[row_at + row] : 0.f;
-    }
-  };
-  load_rows(s_k, k, a.k_ss, n0, kDkvBN, a.skv, tid, kDkvThreads);
-  load_rows(s_v, v, a.v_ss, n0, kDkvBN, a.skv, tid, kDkvThreads);
-  if (n_steps > 0) load_q(0, 0);
-  cp_async_commit();
-  if (n_steps > 1) load_q(1, 1);
-  cp_async_commit();
-
-  const int r0 = warp * 16;
-  bool kvalid[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = n0 + r0 + g + 8 * i;
-    kvalid[i] = key < a.skv && (a.mask == nullptr || a.mask[b * a.mask_sb + key] != 0);
-  }
-  float dk[16][4], dv[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const float sl2 = a.scale * kLog2e;
-  const int c0 = half * (kHalf / 8);
-
-  for (int j = 0; j < n_steps; ++j) {
-    const int s = j & 1;
-    cp_async_wait<1>();
-    __syncthreads();
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    rows_x_keys<T>(st, s_k, r0, s_q + s * kDkvQ, lane);
-    rows_x_keys<T>(dpt, s_v, r0, s_do + s * kDkvQ, lane);
-    const int qrow0 = (t_begin + j) * kDkvBM;
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const bool ok = kvalid[e >> 1] && qrow0 + col < a.sq;
-        const float p = ok ? ex2(st[n][e] * sl2 - s_lse[s * kDkvBM + col]) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - s_di[s * kDkvBM + col]) * a.scale;
-      }
-    uint32_t pa[2][4], dsa[2][4];
-    to_a_frags<T>(st, pa);
-    to_a_frags<T>(dpt, dsa);
-    frags_x_rows<T, 16>(dv, pa, s_do + s * kDkvQ, c0, lane);
-    frags_x_rows<T, 16>(dk, dsa, s_q + s * kDkvQ, c0, lane);
-    __syncthreads();
-    if (j + 2 < n_steps) load_q(j + 2, s);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  const long long row_stride = (long long)a.h * kD;
-  const long long out_base = (long long)b * a.skv * row_stride + h * kD + half * kHalf;
-  T* dk_out = static_cast<T*>(a.out0) + out_base;
-  T* dv_out = static_cast<T*>(a.out1) + out_base;
-  const int lr0 = r0 + g;  // rows lr0 and lr0 + 8 of the key tile
-  if (a.splits == 1) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = n0 + lr0 + 8 * i;
-      if (row >= a.skv) continue;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        const int c = n * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dk_out + row * row_stride + c) =
-            Elem<T>::pack(dk[n][2 * i], dk[n][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dv_out + row * row_stride + c) =
-            Elem<T>::pack(dv[n][2 * i], dv[n][2 * i + 1]);
-      }
-    }
-    return;
-  }
-
-  // query split: this block's f32 partial, then the last block of the tile
-  // sums all partials in split order
-  const int tile = (b * a.h + h) * gridDim.x + blockIdx.x;
-  const long long part = (long long)kDkvBN * kHalf;  // floats of one of dK or dV
-  float* mine = a.ws + ((long long)tile * a.splits + split) * 2 * part;
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    const int c = n * 8 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lr0 + 8 * i;
-      *reinterpret_cast<float2*>(mine + r * kHalf + c) = make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<float2*>(mine + part + r * kHalf + c) =
-          make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *s_flag = atomicAdd(a.counters + tile, 1) == a.splits - 1;
-  __syncthreads();
-  if (!*s_flag) return;
-  __threadfence();
-  const float* first = a.ws + (long long)tile * a.splits * 2 * part;
-#pragma unroll 1
-  for (int n = 0; n < 16; ++n) {
-    const int c = n * 8 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lr0 + 8 * i;
-      float2 ks = make_float2(0.f, 0.f), vs = ks;
-      for (int sp = 0; sp < a.splits; ++sp) {
-        const float* p = first + (long long)sp * 2 * part;
-        const float2 x = __ldcg(reinterpret_cast<const float2*>(p + r * kHalf + c));
-        const float2 y = __ldcg(reinterpret_cast<const float2*>(p + part + r * kHalf + c));
-        ks.x += x.x;
-        ks.y += x.y;
-        vs.x += y.x;
-        vs.y += y.y;
-      }
-      const int row = n0 + r;
-      if (row < a.skv) {
-        *reinterpret_cast<uint32_t*>(dk_out + row * row_stride + c) = Elem<T>::pack(ks.x, ks.y);
-        *reinterpret_cast<uint32_t*>(dv_out + row * row_stride + c) = Elem<T>::pack(vs.x, vs.y);
-      }
-    }
   }
 }
 
@@ -619,56 +315,6 @@ inline bool aligned(std::initializer_list<long long> strides) {
 }  // namespace d256
 }  // namespace dpt
 
-using dpt::d256::Args;
-
-extern "C" int dpt_flash_fwd_d256(
-    const void* q, const void* k, const void* v, const void* mask, void* o,
-    void* lse, int b, int h, int sq, int skv, int hd, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long mask_sb, float scale, int is_fp16, void* stream) {
-  namespace K = dpt::d256;
-  if (hd != K::kD || !K::aligned({q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh}))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a = {};
-  a.q = q; a.k = k; a.v = v;
-  a.mask = static_cast<const int*>(mask);
-  a.out0 = o;
-  a.lse = static_cast<float*>(lse);
-  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
-  a.mask_sb = mask_sb;
-  a.h = h; a.sq = sq; a.skv = skv; a.scale = scale;
-  dim3 grid((sq + K::kFwdBM - 1) / K::kFwdBM, h, b);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_fp16
-      ? K::launch(K::flash_fwd_d256<__half>, grid, K::kFwdThreads, K::kFwdSmem, a, s)
-      : K::launch(K::flash_fwd_d256<__nv_bfloat16>, grid, K::kFwdThreads, K::kFwdSmem, a, s);
-  return static_cast<int>(err);
-}
-
-static Args bwd_args(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* di, const void* mask, int h, int sq, int skv,
-                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-                     long long mask_sb, float scale) {
-  Args a = {};
-  a.q = q; a.k = k; a.v = v; a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.di = static_cast<const float*>(di);
-  a.mask = static_cast<const int*>(mask);
-  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
-  a.do_sb = do_sb; a.do_ss = do_ss; a.do_sh = do_sh;
-  a.mask_sb = mask_sb;
-  a.h = h; a.sq = sq; a.skv = skv; a.scale = scale;
-  a.splits = 1;
-  return a;
-}
-
 extern "C" int dpt_flash_bwd_dq_d256(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* mask, void* dq,
@@ -681,47 +327,22 @@ extern "C" int dpt_flash_bwd_dq_d256(
   if (hd != K::kD ||
       !K::aligned({q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh}))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = bwd_args(q, k, v, dout, lse, di, mask, h, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss,
-                    k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, mask_sb, scale);
+  K::Args a = {};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse_in = static_cast<const float*>(lse);
+  a.di = static_cast<const float*>(di);
+  a.mask = static_cast<const int*>(mask);
   a.out0 = dq;
+  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
+  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;
+  a.do_sb = do_sb; a.do_ss = do_ss; a.do_sh = do_sh;
+  a.mask_sb = mask_sb;
+  a.h = h; a.sq = sq; a.skv = skv; a.scale = scale;
   dim3 grid((sq + K::kDqBM - 1) / K::kDqBM, h, b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_fp16
       ? K::launch(K::flash_bwd_dq_d256<__half>, grid, K::kDqThreads, K::kDqSmem, a, s)
       : K::launch(K::flash_bwd_dq_d256<__nv_bfloat16>, grid, K::kDqThreads, K::kDqSmem, a, s);
-  return static_cast<int>(err);
-}
-
-// splits: blocks a key tile's query loop is split over (1: none); with
-// splits > 1, ws holds splits * 2 * 128 * 128 floats per (key tile of 128
-// rows, half of D), over heads and batch, and counters one zeroed int each.
-extern "C" int dpt_flash_bwd_dkv_d256(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* di, const void* mask, void* dk, void* dv,
-    int b, int h, int sq, int skv, int hd, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long do_sb,
-    long long do_ss, long long do_sh, long long mask_sb, float scale,
-    int is_fp16, void* stream, int splits, void* ws, void* counters) {
-  namespace K = dpt::d256;
-  if (hd != K::kD ||
-      !K::aligned({q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh}))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a = bwd_args(q, k, v, dout, lse, di, mask, h, sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss,
-                    k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, mask_sb, scale);
-  a.out0 = dk;
-  a.out1 = dv;
-  a.ws = static_cast<float*>(ws);
-  a.counters = static_cast<int*>(counters);
-  a.splits = splits;
-  const int q_tiles = (sq + K::kDkvBM - 1) / K::kDkvBM;
-  a.tiles_per_split = (q_tiles + splits - 1) / splits;
-  dim3 grid(2 * ((skv + K::kDkvBN - 1) / K::kDkvBN), h, b * splits);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_fp16
-      ? K::launch(K::flash_bwd_dkv_d256<__half>, grid, K::kDkvThreads, K::kDkvSmem, a, s)
-      : K::launch(K::flash_bwd_dkv_d256<__nv_bfloat16>, grid, K::kDkvThreads, K::kDkvSmem, a, s);
   return static_cast<int>(err);
 }

@@ -11,7 +11,7 @@
 // What bounds it on the H100: 4*B*H*Sq*Skv*D flops over 2*(2*Sq + 2*Skv)*B*H*D
 // bytes, so the tensor cores: 2.873 ms at 989 TFLOP/s for Wan2.1's
 // self-attention (B 1, H 12, S 21504, D 128), 0.059 ms for Flux-dev (B 2,
-// H 24, S 1536).
+// H 24, S 1536), 0.472 ms for AuraFlow (B 2, H 12, S 4360, D 256).
 //
 // Design: one block of three warpgroups per (query tile of 128 rows, head,
 // batch). Warpgroup 2 is the producer: it gives up its registers
@@ -40,6 +40,23 @@
 // Hopper), the tile is 128 x 128, and the transposed V copy is gone. Ragged Sq and Skv come free: TMA
 // fills rows past the end with zeros, the validity bits mask keys past Skv,
 // and rows past Sq are not stored.
+//
+// Head dim 256 (FwdTile<256>): 128 query rows x 64 keys a step, 2 stages,
+// so Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB of shared memory. S is a
+// wgmma m64n64k16 (32 f32 a thread), O += P V one m64n256k16 a k-step with
+// P from registers (O is 128 f32 a thread). There is no producer
+// warpgroup: ptxas places the wgmmas within the launch bound's registers,
+// 168 a thread at 384 threads (and at 288: three warps share an SM
+// sub-partition's 16K registers) whatever setmaxnreg grants, which spilled
+// and serialized every wgmma (C7512). So the block is the two consumer
+// warpgroups (256 threads, 200 registers, no spill) and warp 0 issues the
+// copies: Q and the first two stages before its first step, each later
+// stage once both warpgroups have freed it at the end of warp 0's step,
+// with that stage's mask read a step ahead so that the read does not stall
+// warp 0's warpgroup. Against the first design at D 256 (mma.sync
+// m16n8k16, 64 queries x 32 keys a block step, one warp per 16 rows,
+// cp.async by the warps that do the math, in flash_d256.cu): wgmma, TMA,
+// twice the keys a step and twice the rows a block.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -59,7 +76,8 @@ struct FwdArgs {
 template <int HD>
 struct FwdTile {
   static constexpr int kBM = 128;  // query rows a block (64 a consumer warpgroup)
-  static constexpr int kBN = 128;  // keys a step
+  // keys a step; at D 256, 64, so that two stages of K and V fit beside Q
+  static constexpr int kBN = HD == 256 ? 64 : 128;
   static constexpr int kStages = 2;
   static constexpr int kWords = kBN / 32;  // validity words a stage
   static constexpr int kQBytes = kBM * HD * 2;
@@ -69,11 +87,18 @@ struct FwdTile {
   static constexpr int kOffBar = kOffV + kStages * kKVBytes;  // q, full[S], empty[S]
   static constexpr int kOffWords = kOffBar + 8 * (1 + 2 * kStages);
   static constexpr int kSmem = kOffWords + 4 * kStages * kWords + 1024;  // + alignment
-  static constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
+  // D 64 and 128: producer warpgroup 2 hands its registers to the consumers
+  // (setmaxnreg). D 256: no producer; warp 0 issues the copies between its
+  // steps, so that the launch bound of 256 threads lets a consumer thread
+  // hold O's 128 f32 (ptxas places the wgmmas within the launch bound's
+  // registers, 168 at 384 threads whatever setmaxnreg grants).
+  static constexpr bool kProducerWarpgroup = HD != 256;
+  static constexpr int kThreads = kProducerWarpgroup ? 384 : 256;
+  static_assert(kSmem <= 232448, "shared memory a block may hold");
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(FwdTile<HD>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const FwdArgs a) {
@@ -103,51 +128,86 @@ __global__ void __launch_bounds__(384, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
-    // ---- producer: warpgroup 2, its first warp issues the copies ----
-    setmaxnreg_dec<24>();
-    if (threadIdx.x < 256 + 32) {
-      const int lane = threadIdx.x - 256;
-      if (lane == 0) {
-        prefetch_tensor_map(&tm_q);
-        prefetch_tensor_map(&tm_k);
-        prefetch_tensor_map(&tm_v);
-        mbar_arrive_expect_tx(bar_q, C::kQBytes);
+  // The copies, by one warp: Q once (load_q), then K and V of key step j
+  // into stage j % S once both consumer warpgroups have freed it, with the
+  // stage's key-validity bits (load_kv), NW words of 32 keys from each
+  // lane's key_ok (key < Skv and the mask: nonzero is valid; read into the
+  // registers with no test, so that a read ahead does not wait).
+  const CUtensorMap* pq = &tm_q;
+  const CUtensorMap* pk = &tm_k;
+  const CUtensorMap* pv = &tm_v;
+  const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
+  auto load_q = [&](int lane) {
+    if (lane == 0) {
+      prefetch_tensor_map(pq);
+      prefetch_tensor_map(pk);
+      prefetch_tensor_map(pv);
+      mbar_arrive_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
-        for (int hf = 0; hf < HD / 64; ++hf)
-          tma_load_4d(base + hf * BM * 128, &tm_q, bar_q, hf * 64, h, m0, b);
+      for (int hf = 0; hf < HD / 64; ++hf)
+        tma_load_4d(base + hf * BM * 128, pq, bar_q, hf * 64, h, m0, b);
+    }
+  };
+  auto key_ok = [&](int j, int lane, int (&ok)[NW]) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int key = j * BN + 32 * i + lane;
+      ok[i] = key < a.skv;
+      if (mask != nullptr && key < a.skv) ok[i] = mask[key];
+    }
+  };
+  auto load_kv = [&](int j, int lane, const int (&ok)[NW]) {
+    const int s = j % S;
+    const int n0 = j * BN;
+    uint32_t w[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = __ballot_sync(0xffffffffu, ok[i] != 0);
+    mbar_wait(bar_empty + 8 * s, ((j / S) & 1) ^ 1);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) words[s * NW + i] = w[i];
+      const uint32_t bar = bar_full + 8 * s;
+      mbar_arrive_expect_tx(bar, 2 * C::kKVBytes);
+      const uint32_t dk = base + C::kOffK + s * C::kKVBytes;
+      const uint32_t dv = base + C::kOffV + s * C::kKVBytes;
+#pragma unroll
+      for (int hf = 0; hf < HD / 64; ++hf) {
+        tma_load_4d(dk + hf * BN * 128, pk, bar, hf * 64, h, n0, b);
+        tma_load_4d(dv + hf * BN * 128, pv, bar, hf * 64, h, n0, b);
       }
-      const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % S;
-        const int n0 = j * BN;
-        uint32_t w[NW];
-#pragma unroll
-        for (int i = 0; i < NW; ++i) {
-          const int key = n0 + 32 * i + lane;
-          const bool ok = key < a.skv && (mask == nullptr || mask[key] != 0);
-          w[i] = __ballot_sync(0xffffffffu, ok);
+    }
+    __syncwarp();
+  };
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup 2 (D 64, 128): its first warp issues the
+    // copies ----
+    if constexpr (C::kProducerWarpgroup) {
+      setmaxnreg_dec<24>();
+      if (threadIdx.x < 256 + 32) {
+        const int lane = threadIdx.x - 256;
+        load_q(lane);
+        for (int j = 0; j < n_tiles; ++j) {
+          int ok[NW];
+          key_ok(j, lane, ok);
+          load_kv(j, lane, ok);
         }
-        mbar_wait(bar_empty + 8 * s, ((j / S) & 1) ^ 1);
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < NW; ++i) words[s * NW + i] = w[i];
-          const uint32_t bar = bar_full + 8 * s;
-          mbar_arrive_expect_tx(bar, 2 * C::kKVBytes);
-          const uint32_t dk = base + C::kOffK + s * C::kKVBytes;
-          const uint32_t dv = base + C::kOffV + s * C::kKVBytes;
-#pragma unroll
-          for (int hf = 0; hf < HD / 64; ++hf) {
-            tma_load_4d(dk + hf * BN * 128, &tm_k, bar, hf * 64, h, n0, b);
-            tma_load_4d(dv + hf * BN * 128, &tm_v, bar, hf * 64, h, n0, b);
-          }
-        }
-        __syncwarp();
       }
     }
   } else {
     // ---- consumers: warpgroup cw owns query rows m0 + 64 cw + [0, 64) ----
-    setmaxnreg_inc<240>();
+    if constexpr (C::kProducerWarpgroup) {
+      setmaxnreg_inc<240>();
+    } else if (threadIdx.x < 32) {
+      // D 256: warp 0 issues the copies, the first S stages now and each
+      // later one after its own step (below)
+      load_q(threadIdx.x);
+      for (int j = 0; j < min(S, n_tiles); ++j) {
+        int ok[NW];
+        key_ok(j, threadIdx.x, ok);
+        load_kv(j, threadIdx.x, ok);
+      }
+    }
     const int cw = threadIdx.x / 128;
     const int tid = threadIdx.x % 128;
     const int warp = tid >> 5;
@@ -165,6 +225,12 @@ __global__ void __launch_bounds__(384, 1)
     mbar_wait(bar_q, 0);
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % S;
+      // D 256: warp 0 reads the mask of the step it loads after this one
+      // now, so that the read's latency hides behind this step
+      int ok_next[NW];
+      if constexpr (!C::kProducerWarpgroup) {
+        if (threadIdx.x < 32 && j + S < n_tiles) key_ok(j + S, lane, ok_next);
+      }
       mbar_wait(bar_full + 8 * s, (j / S) & 1);
       const uint32_t sk = base + C::kOffK + s * C::kKVBytes;
       const uint32_t sv = base + C::kOffV + s * C::kKVBytes;
@@ -250,6 +316,10 @@ __global__ void __launch_bounds__(384, 1)
       fence_regs(o);
       fence_regs(pa);
       mbar_arrive(bar_empty + 8 * s);
+      if constexpr (!C::kProducerWarpgroup) {
+        // D 256: once both warpgroups have freed stage s, refill it
+        if (threadIdx.x < 32 && j + S < n_tiles) load_kv(j + S, lane, ok_next);
+      }
     }
 
     float inv[2], lse[2];
@@ -286,10 +356,10 @@ __global__ void __launch_bounds__(384, 1)
 // loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
 // same process would skip the call.
 namespace {
-bool g_smem_set[4][64];
+bool g_smem_set[6][64];
 template <typename T, int HD>
 constexpr int smem_flag() {
-  return (std::is_same<T, __half>::value ? 2 : 0) + (HD == 128 ? 1 : 0);
+  return (std::is_same<T, __half>::value ? 3 : 0) + (HD == 64 ? 0 : HD == 128 ? 1 : 2);
 }
 }  // namespace
 
@@ -313,16 +383,17 @@ extern "C" int dpt_flash_fwd(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long mask_sb, float scale, int is_fp16, void* stream) {
-  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  // the tile's rows: 128 queries, and keys a step (FwdTile<64> is FwdTile<128>'s)
+  const int bm = dpt::FwdTile<128>::kBM;
+  const int bn = hd == 256 ? dpt::FwdTile<256>::kBN : dpt::FwdTile<128>::kBN;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = dpt::hopper::make_bshd_map(&tq, q, is_fp16, b, sq, h, hd, q_sb, q_ss,
-                                               q_sh, dpt::FwdTile<128>::kBM);
+  cudaError_t err =
+      dpt::hopper::make_bshd_map(&tq, q, is_fp16, b, sq, h, hd, q_sb, q_ss, q_sh, bm);
   if (err == cudaSuccess)
-    err = dpt::hopper::make_bshd_map(&tk, k, is_fp16, b, skv, h, hd, k_sb, k_ss, k_sh,
-                                     dpt::FwdTile<128>::kBN);
+    err = dpt::hopper::make_bshd_map(&tk, k, is_fp16, b, skv, h, hd, k_sb, k_ss, k_sh, bn);
   if (err == cudaSuccess)
-    err = dpt::hopper::make_bshd_map(&tv, v, is_fp16, b, skv, h, hd, v_sb, v_ss, v_sh,
-                                     dpt::FwdTile<128>::kBN);
+    err = dpt::hopper::make_bshd_map(&tv, v, is_fp16, b, skv, h, hd, v_sb, v_ss, v_sh, bn);
   if (err != cudaSuccess) return static_cast<int>(err);
   dpt::FwdArgs a = {};
   a.mask = static_cast<const int*>(mask);
@@ -337,8 +408,11 @@ extern "C" int dpt_flash_fwd(
   if (hd == 64)
     err = is_fp16 ? dpt::run_fwd<__half, 64>(tq, tk, tv, a, b, s)
                   : dpt::run_fwd<__nv_bfloat16, 64>(tq, tk, tv, a, b, s);
-  else
+  else if (hd == 128)
     err = is_fp16 ? dpt::run_fwd<__half, 128>(tq, tk, tv, a, b, s)
                   : dpt::run_fwd<__nv_bfloat16, 128>(tq, tk, tv, a, b, s);
+  else
+    err = is_fp16 ? dpt::run_fwd<__half, 256>(tq, tk, tv, a, b, s)
+                  : dpt::run_fwd<__nv_bfloat16, 256>(tq, tk, tv, a, b, s);
   return static_cast<int>(err);
 }

@@ -7,15 +7,15 @@
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 16-bit elements (128 bytes), the 16-byte chunk c of row
 // r stored at chunk c ^ (r % 8), tiles 1024-byte aligned. A tile with D = 128
-// columns is two such column halves, one after the other. wgmma reads them
-// with 128-byte-swizzle descriptors:
+// or 256 columns is two or four such 64-column boxes, one after the other.
+// wgmma reads them with 128-byte-swizzle descriptors:
 // - K-major (the reduction index runs along the 128-byte rows: Q and K in
 //   S = Q K^T, dO and V in dP = dO V^T): 8-row groups 1024 bytes apart
 //   (SBO); a k-step of 16 elements moves the start address by 32 bytes
-//   inside a half;
+//   inside a box;
 // - MN-major (the output column runs along the rows: V in O = P V, K in
 //   dQ = dS K, dO and Q in dV = P^T dO and dK = dS^T Q): 8-row groups along
-//   k 1024 bytes apart (SBO), column halves one tile-half apart (LBO); a
+//   k 1024 bytes apart (SBO), 64-column boxes one box apart (LBO); a
 //   k-step of 16 rows moves the start by 2048 bytes. No tile is ever stored
 //   transposed.
 #pragma once
@@ -141,6 +141,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy, so that a wgmma issued after a barrier reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma uses across the fence/commit/wait that guard it.
 template <int N>
@@ -176,7 +182,7 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
 }
 
 // MN-major operand: rows of the tile are K, the 128-byte rows run along N;
-// `half_bytes` apart are the column halves (N 64-127).
+// `half_bytes` apart are its 64-column boxes (N 64-127, 128-191, ...).
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t half_bytes) {
   return make_desc(addr, half_bytes, 1024);
 }
@@ -196,13 +202,20 @@ template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db);
 
-// The eight instances below, {bf16, fp16} x {N 64, N 128} x {SS, RS}, come
-// from one macro per (N, kind) whose parameters are the element type and its
-// PTX name. Operands: the accumulator d[0 .. N/2) is %0 .. %(N/2 - 1); for SS
-// the A and B descriptors follow and then the scale-d flag; for RS the four
-// registers of the A fragment, the B descriptor and a 1 (accumulate). After
-// the predicate come scale-a and scale-b (1) and the transpose bits: 0, 0 for
-// K-major A and B in SS, 1 for MN-major B in RS.
+// d[64 x N] += A[64 x 16] * B[16 x N], both from shared memory, A K-major
+// and B MN-major.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+// The instances below, for bf16 and fp16, come from one macro per (N, kind)
+// whose parameters are the element type and its PTX name: SS at N 32, 64
+// and 128, SS with an MN-major B at N 128, RS at N 64, 128 and 256.
+// Operands: the accumulator d[0 .. N/2) is %0 .. %(N/2 - 1); for SS the A
+// and B descriptors follow and then the scale-d flag (a 1, accumulate, for
+// the MN-major SS); for RS the four registers of the A fragment, the B
+// descriptor and a 1. After the predicate come scale-a and scale-b (1) and
+// the transpose bits: 0, 0 for K-major A and B in SS, 0, 1 for the
+// MN-major SS, 1 for MN-major B in RS.
 #define DPT_ACC32_REGS                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -230,6 +243,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
   "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define DPT_ACC16_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15}"
+#define DPT_ACC128_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127}"
+#define DPT_ACC16_OPS "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define DPT_ACC128_OPS DPT_ACC64_OPS, \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+  "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+  "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+  "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+  "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+  "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
 #define DPT_WGMMA_SS_64(T, PTX)                                                       \
   template <>                                                                         \
@@ -275,6 +325,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));      \
   }
 
+#define DPT_WGMMA_SS_32(T, PTX)                                                       \
+  template <>                                                                         \
+  __device__ __forceinline__ void wgmma_ss<T, 32>(float (&d)[16], uint64_t da,        \
+                                                  uint64_t db, int scale_d) {         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                         \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " "        \
+                 DPT_ACC16_REGS ", %16, %17, p, 1, 1, 0, 0;\n}\n"                      \
+                 : DPT_ACC16_OPS                                                      \
+                 : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }
+
+#define DPT_WGMMA_SS_MN_128(T, PTX)                                                   \
+  template <>                                                                         \
+  __device__ __forceinline__ void wgmma_ss_mn<T, 128>(float (&d)[64], uint64_t da,    \
+                                                      uint64_t db) {                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " "       \
+                 DPT_ACC64_REGS ", %64, %65, p, 1, 1, 0, 1;\n}\n"                      \
+                 : DPT_ACC64_OPS                                                      \
+                 : "l"(da), "l"(db), "r"(1));                                         \
+  }
+
+#define DPT_WGMMA_RS_256(T, PTX)                                                      \
+  template <>                                                                         \
+  __device__ __forceinline__ void wgmma_rs<T, 256>(float (&d)[128], const uint32_t (&a)[4], \
+                                                   uint64_t db) {                     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                        \
+                 "wgmma.mma_async.sync.aligned.m64n256k16.f32." PTX "." PTX " "       \
+                 DPT_ACC128_REGS ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"  \
+                 : DPT_ACC128_OPS                                                     \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));      \
+  }
+
 DPT_WGMMA_SS_64(__nv_bfloat16, "bf16")
 DPT_WGMMA_RS_64(__nv_bfloat16, "bf16")
 DPT_WGMMA_SS_128(__nv_bfloat16, "bf16")
@@ -283,11 +366,24 @@ DPT_WGMMA_SS_64(__half, "f16")
 DPT_WGMMA_RS_64(__half, "f16")
 DPT_WGMMA_SS_128(__half, "f16")
 DPT_WGMMA_RS_128(__half, "f16")
+DPT_WGMMA_SS_32(__nv_bfloat16, "bf16")
+DPT_WGMMA_SS_32(__half, "f16")
+DPT_WGMMA_SS_MN_128(__nv_bfloat16, "bf16")
+DPT_WGMMA_SS_MN_128(__half, "f16")
+DPT_WGMMA_RS_256(__nv_bfloat16, "bf16")
+DPT_WGMMA_RS_256(__half, "f16")
 
 #undef DPT_WGMMA_SS_64
 #undef DPT_WGMMA_RS_64
 #undef DPT_WGMMA_SS_128
 #undef DPT_WGMMA_RS_128
+#undef DPT_WGMMA_SS_32
+#undef DPT_WGMMA_SS_MN_128
+#undef DPT_WGMMA_RS_256
+#undef DPT_ACC16_REGS
+#undef DPT_ACC128_REGS
+#undef DPT_ACC16_OPS
+#undef DPT_ACC128_OPS
 #undef DPT_ACC32_REGS
 #undef DPT_ACC64_REGS
 #undef DPT_ACC32_OPS

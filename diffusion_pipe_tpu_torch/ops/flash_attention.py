@@ -1,11 +1,12 @@
 """Flash attention: hand-written Hopper kernels with their plain versions.
 
 Counterpart of diffusion_pipe_tpu/ops/flash_attention.py. Three CUDA
-kernels (csrc/flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu) replace the
-Pallas TPU kernels `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` at head
-dim 64 and 128; at head dim 256 (AuraFlow) the three kernels of
-csrc/flash_d256.cu do. Each source file says what bounds its kernels on the
-H100 and how they are laid out.
+kernels replace the Pallas TPU kernels `_fwd_kernel`, `_dq_kernel` and
+`_dkv_kernel`: K1 in csrc/flash_fwd.cu (head dim 64, 128 and 256), K2 in
+csrc/flash_bwd_dq.cu (64, 128) and csrc/flash_d256.cu (256), K3 in
+csrc/flash_bwd_dkv.cu (64, 128) and csrc/flash_bwd_dkv_d256.cu (256). Each
+source file says what bounds its kernels on the H100 and how they are laid
+out.
 
 Layout is the model's own [B, S, H, D] for q, k, v, O and the gradients
 (the kernels read through strides, so no transpose); the LSE is [B, H, Sq]
@@ -48,23 +49,23 @@ _SIGNATURES = {
     "dpt_flash_fwd": ("flash_fwd", _FWD_ARGS),
     "dpt_flash_bwd_dq": ("flash_bwd_dq", _DQ_ARGS),
     "dpt_flash_bwd_dkv": ("flash_bwd_dkv", _DKV_ARGS),
-    # head dim 256: the same arguments (csrc/flash_d256.cu)
-    "dpt_flash_fwd_d256": ("flash_d256", _FWD_ARGS),
+    # K2 and K3 at head dim 256, with the same arguments
     "dpt_flash_bwd_dq_d256": ("flash_d256", _DQ_ARGS),
-    "dpt_flash_bwd_dkv_d256": ("flash_d256", _DKV_ARGS),
+    "dpt_flash_bwd_dkv_d256": ("flash_bwd_dkv_d256", _DKV_ARGS),
 }
 # K3's tiles: a block owns 128 keys and steps over 64 queries
-# (csrc/flash_bwd_dkv.cu, DkvTile); at head dim 256 it owns 128 keys and one
-# half of D, and steps over 32 queries (csrc/flash_d256.cu)
+# (csrc/flash_bwd_dkv.cu, DkvTile); at head dim 256 it owns 64 keys at the
+# full D and steps over 64 queries (csrc/flash_bwd_dkv_d256.cu, Dkv256Tile)
 DKV_KEY_TILE, DKV_QUERY_TILE = 128, 64
-DKV_QUERY_TILE_D256 = 32
+DKV_KEY_TILE_D256, DKV_QUERY_TILE_D256 = 64, 64
 # splits of K3's query loop considered when its key tiles do not fill the card
 DKV_MAX_SPLITS = 16
 
 
 def _symbol(name: str, d: int) -> str:
-    """The C entry point of kernel `name` for head dim d."""
-    return f"{name}_d256" if d == 256 else name
+    """The C entry point of kernel `name` for head dim d (K1 has one entry
+    for every head dim)."""
+    return f"{name}_d256" if d == 256 and name != "dpt_flash_fwd" else name
 
 
 def _entry(symbol: str):
@@ -225,18 +226,27 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
-def _dkv_workspace(b, h, sq, skv, d, device):
-    """(splits, f32 partials, zeroed per-tile counters) for K3's query split;
-    the partials are [key blocks, splits, 2, 128, D / halves] (None without a
-    split), where a key block is a key tile, or at D 256 one half of its D."""
-    halves, query_tile = (2, DKV_QUERY_TILE_D256) if d == 256 else (1, DKV_QUERY_TILE)
-    key_tiles = b * h * -(-skv // DKV_KEY_TILE) * halves
-    splits = dkv_splits(key_tiles, -(-sq // query_tile), _sm_count(device))
+def dkv_layout(b, h, sq, skv, d, sms):
+    """(splits, workspace shape) of K3 on `sms` SMs: the workspace holds the
+    f32 partials [key tiles, splits, 2, key tile, D] of its query split
+    (None without a split), a key tile being 128 keys, or 64 at D 256."""
+    key_tile, query_tile = ((DKV_KEY_TILE_D256, DKV_QUERY_TILE_D256) if d == 256
+                            else (DKV_KEY_TILE, DKV_QUERY_TILE))
+    key_tiles = b * h * -(-skv // key_tile)
+    splits = dkv_splits(key_tiles, -(-sq // query_tile), sms)
     if splits == 1:
+        return 1, None
+    return splits, (key_tiles, splits, 2, key_tile, d)
+
+
+def _dkv_workspace(b, h, sq, skv, d, device):
+    """(splits, f32 partials, zeroed per-tile counters) for K3's query split
+    (dkv_layout; None and None without a split)."""
+    splits, shape = dkv_layout(b, h, sq, skv, d, _sm_count(device))
+    if shape is None:
         return 1, None, None
-    ws = torch.empty((key_tiles, splits, 2, DKV_KEY_TILE, d // halves), dtype=torch.float32,
-                     device=device)
-    return splits, ws, torch.zeros(key_tiles, dtype=torch.int32, device=device)
+    ws = torch.empty(shape, dtype=torch.float32, device=device)
+    return splits, ws, torch.zeros(shape[0], dtype=torch.int32, device=device)
 
 
 def _bwd_cuda(symbol, q, k, v, kv_mask, lse, di, do, scale, n_out, out_len,

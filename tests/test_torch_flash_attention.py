@@ -7,7 +7,12 @@ it (DPIPE_PALLAS_INTERPRET=1 from conftest), with the JAX tolerances: 2e-5
 on the forward, 5e-4 abs / 1e-3 rel on the grads. All inputs are numpy draws
 from a seed, in f32, at B=1, H=2, S=256, D=128, and at D=256 (AuraFlow's
 head dim, which the TPU kernels take as any multiple of 128) with and
-without a mask over a ragged Skv.
+without a mask over a ragged Skv, and masked at Sq 200 x Skv 130, across
+the edges of the D 256 kernels' 128-query and 64-key tiles (the Pallas
+kernel's ragged Sq padded with zero queries and cotangents, as
+ops/attention.py pads it).
+
+K3's query split (dkv_splits, dkv_layout) is held on the CPU at 132 SMs.
 
 The kernels themselves are tested on the GPU by test_torch_kernels_gpu.py.
 """
@@ -32,27 +37,31 @@ from torch_port_helpers import JAX_FAST_COMPILE
 B, SQ, H, D = 1, 256, 2, 128
 BLOCK_Q, BLOCK_K = 256, 128
 
-# case -> (Skv, masked, head dim)
-CASES = {"nomask": (256, False, D), "kv_mask": (256, True, D), "ragged": (300, False, D),
-         "d256": (256, False, 256), "d256_ragged_masked": (300, True, 256)}
+# case -> (Sq, Skv, masked, head dim)
+CASES = {"nomask": (SQ, 256, False, D), "kv_mask": (SQ, 256, True, D),
+         "ragged": (SQ, 300, False, D), "d256": (SQ, 256, False, 256),
+         "d256_ragged_masked": (SQ, 300, True, 256),
+         "d256_ragged_q_masked": (200, 130, True, 256)}
 
 
 def _inputs(case):
-    skv, masked, d = CASES[case]
+    sq, skv, masked, d = CASES[case]
     rng = np.random.default_rng(7)
-    q = rng.standard_normal((B, SQ, H, d), dtype=np.float32)
+    q = rng.standard_normal((B, sq, H, d), dtype=np.float32)
     k = rng.standard_normal((B, skv, H, d), dtype=np.float32)
     v = rng.standard_normal((B, skv, H, d), dtype=np.float32)
-    do = rng.standard_normal((B, SQ, H, d), dtype=np.float32)
+    do = rng.standard_normal((B, sq, H, d), dtype=np.float32)
     mask = (rng.random((B, skv)) > 0.3).astype(np.int32) if masked else None
     return q, k, v, do, mask
 
 
-def _jax_fn(skv, mask, d):
+def _jax_fn(sq, skv, mask, d):
     """[B, S, H, D] wrapper around the Pallas kernel: pads a ragged KV length
-    (and the mask, with invalid keys) to the block and passes tail_len, as
+    (and the mask, with invalid keys) to the block and passes tail_len, and
+    pads a ragged Sq with zero queries whose rows it drops, as
     ops/attention.py does."""
     pad = -skv % BLOCK_K
+    qpad = -sq % BLOCK_Q
     tail = None if pad == 0 or mask is not None else skv - (skv + pad - BLOCK_K)
     jmask = None if mask is None else jnp.pad(jnp.asarray(mask), ((0, 0), (0, pad)))
     scale = d ** -0.5
@@ -61,16 +70,18 @@ def _jax_fn(skv, mask, d):
         qt, kt, vt = (jnp.swapaxes(x, 1, 2) for x in (q, k, v))
         if pad:
             kt, vt = (jnp.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (kt, vt))
+        if qpad:
+            qt = jnp.pad(qt, ((0, 0), (0, 0), (0, qpad), (0, 0)))
         return qt, kt, vt
 
     def out(q, k, v):
         o = jax_flash_attention(*prep(q, k, v), jmask, scale, BLOCK_Q, BLOCK_K, tail)
-        return jnp.swapaxes(o, 1, 2)
+        return jnp.swapaxes(o[:, :, :sq], 1, 2)
 
     def lse(q, k, v):
         _, res = _flash_attention_fwd_res(*prep(q, k, v), jmask, scale, BLOCK_Q,
                                           BLOCK_K, tail)
-        return res[-1][..., 0]
+        return res[-1][:, :, :sq, 0]
 
     return out, lse
 
@@ -80,7 +91,7 @@ def _reference(case):
     """The Pallas kernel's O, LSE and (dQ, dK, dV) for `case`, from one jit
     shared by the forward and backward tests."""
     q, k, v, do, mask = _inputs(case)
-    out_fn, lse_fn = _jax_fn(k.shape[1], mask, q.shape[-1])
+    out_fn, lse_fn = _jax_fn(q.shape[1], k.shape[1], mask, q.shape[-1])
 
     @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
     def run(q, k, v, do):
@@ -102,7 +113,7 @@ def test_forward_matches_pallas(case):
     q, k, v, _, mask = _inputs(case)
     o_ref, lse_ref, _ = _reference(case)
     _, o, lse = _port(q, k, v, mask)
-    assert o.shape == q.shape and lse.shape == (B, H, SQ)
+    assert o.shape == q.shape and lse.shape == (B, H, q.shape[1])
     np.testing.assert_allclose(o.detach().numpy(), o_ref, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=2e-5, rtol=2e-5)
 
@@ -153,6 +164,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     (2016, 336, 1),  # Wan2.1 self-attention: 168 key tiles x 12 heads
     (576, 24, 1),    # Flux-dev: 12 key tiles x 24 heads x 2
     (2, 4, 4),       # fewer query tiles than the best split: one tile a block
+    (1656, 69, 1),   # AuraFlow at D 256: 69 key tiles of 64 x 12 heads x 2
+    (8, 64, 16),     # D 256, B 2 x H 2 x Skv 128 against Sq 4096: 2 x 2 x 2 key tiles
 ])
 def test_dkv_splits_fill_the_card(key_blocks, query_tiles, want):
     """K3's query split on 132 SMs: none once the key tiles fill the card,
@@ -160,3 +173,18 @@ def test_dkv_splits_fill_the_card(key_blocks, query_tiles, want):
     splits = port_fa.dkv_splits(key_blocks, query_tiles, 132)
     assert splits == want
     assert splits <= max(1, min(port_fa.DKV_MAX_SPLITS, query_tiles))
+
+
+@pytest.mark.parametrize("shape, want", [
+    # (B, Sq, Skv, H, D): (splits, workspace shape)
+    ((2, 4360, 4360, 12, 256), (1, None)),  # AuraFlow at 1024 px: 1,656 key tiles
+    ((2, 4096, 128, 2, 256), (16, (8, 16, 2, 64, 256))),  # short Skv at D 256
+    ((1, 21504, 512, 12, 128), (11, (48, 11, 2, 128, 128))),  # Wan2.1 cross-attention
+])
+def test_dkv_layout(shape, want):
+    """K3's split count and workspace on 132 SMs: key tiles of 128 keys,
+    or 64 at D 256, over heads and batch, each stepping over 64 queries."""
+    b, sq, skv, h, d = shape
+    assert (port_fa.DKV_KEY_TILE, port_fa.DKV_QUERY_TILE) == (128, 64)
+    assert (port_fa.DKV_KEY_TILE_D256, port_fa.DKV_QUERY_TILE_D256) == (64, 64)
+    assert port_fa.dkv_layout(b, h, sq, skv, d, 132) == want

@@ -11,12 +11,13 @@ Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128,
 tile, a key mask, a ragged Sq=200 that is no multiple of K1's and K2's
 128-row query tile, heads 2-3 of six as a strided view, Sq=4096 against
 Skv=128, where K3 splits its query loop over blocks, Sq=328 against Skv=50,
-a masked Skv=1000 of 16 key steps against Sq=130, and Wan i2v's image
-cross-attention, Skv=257 and 514 (flf2v), against Sq=1024): each kernel's error
+a masked Skv=1000 of 16 key steps against Sq=130, Wan i2v's image
+cross-attention, Skv=257 and 514 (flf2v), against Sq=1024, and Skv=63, 64
+and 65, the edges of the 64-key tiles at D 256): each kernel's error
 against the f32 plain result must be at most twice the plain version's in
 the same dtype, plus 1e-3 of the reference's largest magnitude. K3 gives the
-same bits on two launches, with and without the query split, and K2 at the
-Flux-dev and Wan2.1 cross-attention shapes; K2 and K3 at the i2v image
+same bits on two launches, with and without the query split, at D 128 and
+256, and K2 at the Flux-dev and Wan2.1 cross-attention shapes; K2 and K3 at the i2v image
 cross-attention (H 40, Skv 257 and 514). SDXL's cross-attention (B 4,
 H 20, Sq 256 against 77 CLIP tokens, D 64), with and without a padded
 batch element, K2 and K3 deterministic there. SD3's joint sequence at
@@ -69,7 +70,12 @@ CASES = {"nomask": (256, 256, False, None), "kv_mask": (256, 256, True, None),
          "ragged_steps_masked": (130, 1000, True, None),
          # Wan i2v's image cross-attention over 257 CLIP tokens (flf2v: 514):
          # one key past the last full tile
-         "clip_cross": (1024, 257, False, None), "flf2v_cross": (1024, 514, False, None)}
+         "clip_cross": (1024, 257, False, None), "flf2v_cross": (1024, 514, False, None),
+         # the edges of K1's 64-key step and K3's 64-key tile at D 256, against
+         # Sq no multiple of 128: one key short of a tile (masked), a whole
+         # tile, one key past it (on a head view)
+         "kv63_masked": (200, 63, True, None), "kv64": (130, 64, False, None),
+         "kv65_head_view": (328, 65, False, slice(2, 4))}
 
 
 @pytest.fixture
@@ -123,17 +129,19 @@ def test_kernels_match_plain_on_gpu(case, dtype, d, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["query_split", "no_split"])
-def test_dkv_is_deterministic(path, cuda_device):
+@pytest.mark.parametrize("d", [128, 256])
+def test_dkv_is_deterministic(d, path, cuda_device):
     """Two K3 launches on the same inputs give the same bits: with the query
-    loop split over blocks (2 key tiles on the card's SMs, summed in split
-    order) and without (24 heads x 12 key tiles)."""
+    loop split over blocks (2 key tiles of 128, or 2 x 2 of 64 at D 256, on
+    the card's SMs, summed in split order) and without (24 heads x 12 key
+    tiles, or x 24 at D 256)."""
     sq, skv, h = (4096, 128, 2) if path == "query_split" else (256, 1536, 24)
     rng = np.random.default_rng(11)
-    q, do = (torch.from_numpy(rng.standard_normal((1, sq, h, 128), dtype=np.float32))
+    q, do = (torch.from_numpy(rng.standard_normal((1, sq, h, d), dtype=np.float32))
              .to(cuda_device, torch.bfloat16) for _ in range(2))
-    k, v = (torch.from_numpy(rng.standard_normal((1, skv, h, 128), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, skv, h, d), dtype=np.float32))
             .to(cuda_device, torch.bfloat16) for _ in range(2))
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     o, lse = port_fa.flash_fwd_cuda(q, k, v, None, scale)
     di = port_fa.row_dot(do, o)
     dk1, dv1 = port_fa.flash_bwd_dkv_cuda(q, k, v, None, lse, di, do, scale)
@@ -337,7 +345,8 @@ def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
 @pytest.mark.parametrize("d", [128, 256])
 def test_autograd_runs_the_kernels(d, cuda_device):
     """flash_attention on CUDA tensors: forward and backward go through
-    K1, K2 and K3 once each, and the grads match the plain backward."""
+    K1, K2 and K3 once each (at D 256 K1's and K3's wgmma entries), and the
+    grads match the plain backward."""
     q, k, v, do, _ = _inputs("ragged", cuda_device, d=d)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     port_fa.reset_launch_counts()
@@ -345,12 +354,18 @@ def test_autograd_runs_the_kernels(d, cuda_device):
     o.backward(do)
     assert port_fa.launch_counts() == {
         "flash_fwd_cuda": 1, "flash_bwd_dq_cuda": 1, "flash_bwd_dkv_cuda": 1}
+    if d == 256:
+        assert port_fa._symbol("dpt_flash_fwd", d) == "dpt_flash_fwd"
+        assert port_fa._SIGNATURES[port_fa._symbol("dpt_flash_bwd_dkv", d)][0] == \
+            "flash_bwd_dkv_d256"
     scale = d ** -0.5
-    ro, rlse = port_fa.flash_forward_plain(*(x.float() for x in (q, k, v)), None, scale)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    ro, rlse = port_fa.flash_forward_plain(qf, kf, vf, None, scale)
     di = port_fa.row_dot(do.float(), ro)
-    rdq = port_fa.flash_bwd_dq_plain(q.float(), k.float(), v.float(), None, rlse, di,
-                                     do.float(), scale)
-    assert (leaves[0].grad.float() - rdq).abs().max().item() < 2e-2 * rdq.abs().max().item()
+    rdq = port_fa.flash_bwd_dq_plain(qf, kf, vf, None, rlse, di, do.float(), scale)
+    rdk, rdv = port_fa.flash_bwd_dkv_plain(qf, kf, vf, None, rlse, di, do.float(), scale)
+    for leaf, ref in zip(leaves, (rdq, rdk, rdv)):
+        assert (leaf.grad.float() - ref).abs().max().item() < 2e-2 * ref.abs().max().item()
 
 
 @pytest.mark.cuda

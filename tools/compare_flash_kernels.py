@@ -4,11 +4,14 @@
 
     git archive <commit> diffusion_pipe_tpu_torch | tar -x -C build/parent
     python3 tools/compare_flash_kernels.py --parent build/parent
+    python3 tools/compare_flash_kernels.py --parent build/parent --shapes auraflow
 
 The other tree's package is loaded under the name `dpt_parent` and builds
-its kernels into its own build/ directory. At each shape of the port's
-main paths (bf16, D 128: Flux-dev B 2, H 24, S 1536; Wan2.1 cross-attention
-Sq 21504, Skv 512, H 12; Wan2.1 self-attention S 21504, H 12) it checks
+its kernels into its own build/ directory. At each shape (bf16; by default
+the D 128 shapes of the port's main paths: Flux-dev B 2, H 24, S 1536;
+Wan2.1 cross-attention Sq 21504, Skv 512, H 12; Wan2.1 self-attention
+S 21504, H 12; or those --shapes names, AuraFlow's B 2, S 4360, H 12 at
+D 256 among them) it checks
 that the two trees' outputs agree (max abs difference, printed), then times
 each kernel in turns, parent, change, change, parent, with CUDA events over
 a run of launches after a warm-up. One JSON line a shape and kernel, then a
@@ -28,12 +31,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SHAPES = {  # name: (B, Sq, Skv, H), D = 128
-    "flux": (2, 1536, 1536, 24),
-    "wan_cross": (1, 21504, 512, 12),
-    "wan_self": (1, 21504, 21504, 12),
+SHAPES = {  # name: (B, Sq, Skv, H, D)
+    "flux": (2, 1536, 1536, 24, 128),
+    "wan_cross": (1, 21504, 512, 12, 128),
+    "wan_self": (1, 21504, 21504, 12, 128),
+    "auraflow": (2, 4360, 4360, 12, 256),
 }
-D = 128
+DEFAULT_SHAPES = ("flux", "wan_cross", "wan_self")
 
 
 def load_parent(parent: Path):
@@ -64,6 +68,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (holds diffusion_pipe_tpu_torch/)")
+    ap.add_argument("--shapes", nargs="+", choices=sorted(SHAPES), default=DEFAULT_SHAPES)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_flash_kernels: CUDA is not available", file=sys.stderr)
@@ -80,12 +85,13 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
-    for shape, (b, sq, skv, h) in SHAPES.items():
-        q, do = (torch.randn((b, sq, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+    for shape in args.shapes:
+        b, sq, skv, h, d = SHAPES[shape]
+        q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                  for _ in range(2))
-        k, v = (torch.randn((b, skv, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, skv, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(2))
-        scale = D ** -0.5
+        scale = d ** -0.5
         o, lse = new_fa.flash_fwd_cuda(q, k, v, None, scale)
         di = new_fa.row_dot(do, o)
         calls = {
@@ -105,7 +111,7 @@ def main():
             del got_old, got_new
             order = (old_fa, new_fa, new_fa, old_fa)
             times = [cuda_ms(fns[fa], iters) for fa in order]
-            rec = dict(shape=shape, kernel=name, q_shape=[b, sq, h, D], kv_len=skv,
+            rec = dict(shape=shape, kernel=name, q_shape=[b, sq, h, d], kv_len=skv,
                        parent_ms=[times[0], times[3]], change_ms=[times[1], times[2]],
                        parent_mean_ms=(times[0] + times[3]) / 2,
                        change_mean_ms=(times[1] + times[2]) / 2,

@@ -30,6 +30,8 @@ that tree's chip_smoke.py (TF32 off, as the smoke runs). Phases:
                     calls, kernel launches and device-busy ms a step, and the
                     host operators with the most self time;
   slice-flux-lokr, sample -- those smoke phases (this tree's only);
+  slice-auraflow-lora -- AuraFlow v0.3 at full size (D 256 attention), one
+                    warm-up and two timed steps;
   vae, driver, clip-vision -- those smoke phases (driver after vae).
 Every JSON line a phase prints is printed again with "tree" and "turn"
 added, after a "process-state" line taken just before the phases (the
@@ -57,6 +59,7 @@ PHASES = {  # name: (code run in the tree's chip_smoke, JSON key of its time)
     "slice-flux-lokr": ('cs.phase_slice(phase="slice-flux-lokr", cell="flux-dev-lokr-512-fp8-int8", '
                         'cfg=cs.LOKR_CONFIG, every_moved=True); cs._free()', "step_s"),
     "sample": ("cs.phase_sample()", "flux_512_s"),
+    "slice-auraflow-lora": ("cs.phase_slice_auraflow()", "step_s"),
     "vae": ("vae_dir = cs.phase_vae(); cs._free()", None),
     "driver": ("cs.phase_driver(vae_dir, 0.0); cs._free()", "step_s"),
     "clip-vision": ("cs.phase_clip_vision(); cs._free()", "encode_ms"),
