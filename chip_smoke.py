@@ -291,10 +291,10 @@ Phases, each printing one JSON line (or more):
 
 17. kernels-flux2-auraflow -- (run last) the ptxas registers, spills and
                      wgmma serialization of the head-dim-256 kernels (K1 in
-                     csrc/flash_fwd.cu and K3 in flash_bwd_dkv_d256.cu, wgmma
+                     csrc/flash_fwd.cu at FwdTile<256>, K2 in flash_bwd_dq.cu
+                     at DqTile<256>, K3 in flash_bwd_dkv_d256.cu, all wgmma
                      kernels: no spill and no C7512 in their bf16 and fp16
-                     instances; K2 in flash_d256.cu, mma.sync: no
-                     spill); K1-K3 at FLUX.2 [dev]'s joint sequence (B 1 x
+                     instances); K1-K3 at FLUX.2 [dev]'s joint sequence (B 1 x
                      4,608 keys, 48 heads of 128; the edit's 8,704), checked
                      on six heads, and at AuraFlow's (B 2 x 4,360 keys, 12
                      heads of 256, unmasked and with 200 / 60 of the 256 T5
@@ -4197,15 +4197,14 @@ FLUX2_H2_SHAPE = (FLUX2_ROWS, 55296)
 
 
 # the head-dim-256 kernels by wrapper: (library, a part of the mangled name
-# of its D 256 instances, source); K1 and K3 are wgmma kernels, K2 mma.sync
+# of its D 256 instances, source), all three wgmma kernels
 D256_KERNELS = {
     "flash_fwd": ("flash_fwd", "Li256E", "diffusion_pipe_tpu_torch/csrc/flash_fwd.cu"),
-    "flash_bwd_dq": ("flash_d256", "flash_bwd_dq_d256",
-                     "diffusion_pipe_tpu_torch/csrc/flash_d256.cu"),
+    "flash_bwd_dq": ("flash_bwd_dq", "Li256E", "diffusion_pipe_tpu_torch/csrc/flash_bwd_dq.cu"),
     "flash_bwd_dkv": ("flash_bwd_dkv_d256", "flash_bwd_dkv_d256",
                       "diffusion_pipe_tpu_torch/csrc/flash_bwd_dkv_d256.cu"),
 }
-D256_WGMMA = ("flash_fwd", "flash_bwd_dkv")
+D256_WGMMA = tuple(D256_KERNELS)
 
 
 def d256_ptxas(ptxas, dtype="nv_bfloat16"):
@@ -4227,8 +4226,9 @@ def phase_kernels_flux2_auraflow(ptxas):
     (on K3's split path and without it), each timed beside its bound, its
     plain version (but at the edit's 8,704 keys, whose f32 logits take 14.5
     GB a tensor) and SDPA's forward and backward; the ptxas registers,
-    spills and wgmma serialization of the D 256 builds (no spill in any, no
-    C7512 in K1's and K3's bf16 and fp16 instances); H1 / H2 bit for bit and
+    spills and wgmma serialization of the D 256 builds (K1 at FwdTile<256>,
+    K2 at DqTile<256>, K3's own kernel: no spill and no C7512 in their bf16
+    and fp16 instances); H1 / H2 bit for bit and
     timed at linear1's shape by queued_ms (this late in the smoke
     torch.profiler drops kernels from its traces). Returns ({case: K1-K3
     timing}, {kernel: H1 / H2 timing}, D 256 ptxas)."""

@@ -14,7 +14,8 @@
 // What bounds it on the H100: three products of 2*Sq*Skv*D flops per (b, h)
 // against (3*Sq + 2*Skv)*D*2 bytes, so the tensor cores: 4.309 ms at
 // 989 TFLOP/s for Wan2.1's self-attention (H 12, S 21504, D 128), 0.088 ms
-// for Flux-dev (B 2, H 24, S 1536).
+// for Flux-dev (B 2, H 24, S 1536), 0.709 ms for AuraFlow (B 2, H 12,
+// S 4360, D 256).
 //
 // Design, on the pattern of K1 (csrc/flash_fwd.cu): one block of three
 // warpgroups per (query tile of 128 rows, head, batch). Warpgroup 2 is the
@@ -49,6 +50,33 @@
 // Sq and Skv come free: TMA fills rows past the end with zeros, the
 // validity bits mask keys past Skv, rows past Sq get LSE = +inf (P = 0) and
 // are not stored.
+//
+// Head dim 256 (DqTile<256>): 128 query rows x 48 keys a step, 2 stages, so
+// Q, dO 64 KB each + 2 x (K, V 24 KB each) = 224 KB of shared memory (230,456
+// bytes with the barriers and the alignment; a 64-key step does not fit
+// beside the resident Q and dO). S and dP are wgmma m64n48k16 (24 f32 each a
+// thread), dQ += dS K one m64n256k16 a k-step with dS from registers (dQ is
+// 128 f32 a thread); 214 registers, no spill. S and dP read their A operand
+// (64 rows of Q or dO) from shared memory on every k-step, so shared-memory
+// bandwidth, not the tensor cores, sets their pace: an m64n48k16 reads 3.5 KB
+// for 48 K multiply-adds, an m64n32k16 3 KB for 32 K, and 48 keys in 2
+// stages ran 1.31x faster than 32 keys in 3 stages at AuraFlow's shape (on
+// an NVIDIA H100 80GB HBM3 at 700 W, tools/compare_flash_kernels.py). There
+// is no producer warpgroup, as in K1's FwdTile<256>: ptxas places the
+// wgmmas within the launch bound's registers, 168 a thread at 384 or 288
+// threads whatever setmaxnreg grants, and serializes them (C7512) when they
+// do not fit. So the block is the two consumer warpgroups (256 threads) and
+// warp 0 issues the copies: Q and dO and the first two stages before its
+// first step, each later stage once both warpgroups have freed it at the
+// end of warp 0's step, with that stage's mask read a step ahead so that
+// the read does not stall warp 0's warpgroup (2 validity words a stage, of
+// which the step reads 48 bits). Against the first design at
+// D 256 (mma.sync m16n8k16, one warp per 16 rows, every A and B fragment
+// reloaded by ldmatrix, cp.async copies issued by the warps that do the
+// math into 2 stages of 32 keys, a __syncthreads() twice a step, 241
+// registers): wgmma on 64-row operands read from shared memory by the
+// tensor cores, TMA copies that run ahead of the math, 48 keys a step
+// where it took 32, and no block-wide barrier in the loop.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -69,9 +97,11 @@ struct DqArgs {
 template <int HD>
 struct DqTile {
   static constexpr int kBM = 128;  // query rows a block (64 a consumer warpgroup)
-  static constexpr int kBN = 64;   // keys a step
-  static constexpr int kStages = 3;
-  static constexpr int kWords = kBN / 32;  // validity words a stage
+  // keys a step and stages; at D 256, 48 keys in 2 stages, so that K and V
+  // fit beside the resident Q and dO
+  static constexpr int kBN = HD == 256 ? 48 : 64;
+  static constexpr int kStages = HD == 256 ? 2 : 3;
+  static constexpr int kWords = (kBN + 31) / 32;  // validity words a stage
   static constexpr int kQBytes = kBM * HD * 2;   // one of Q or dO
   static constexpr int kKVBytes = kBN * HD * 2;  // one of K or V, a stage
   static constexpr int kOffDO = kQBytes;
@@ -80,11 +110,17 @@ struct DqTile {
   static constexpr int kOffBar = kOffV + kStages * kKVBytes;  // q, full[S], empty[S]
   static constexpr int kOffWords = kOffBar + 8 * (1 + 2 * kStages);  // [S][NW]
   static constexpr int kSmem = kOffWords + 4 * kStages * kWords + 1024;  // + alignment
-  static constexpr int kThreads = 384;  // consumer warpgroups 0, 1; producer 2
+  // D 64 and 128: producer warpgroup 2 hands its registers to the consumers
+  // (setmaxnreg). D 256: no producer; warp 0 issues the copies between its
+  // steps, so that the launch bound of 256 threads lets a consumer thread
+  // hold dQ's 128 f32.
+  static constexpr bool kProducerWarpgroup = HD != 256;
+  static constexpr int kThreads = kProducerWarpgroup ? 384 : 256;
+  static_assert(kSmem <= 232448, "shared memory a block may hold");
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(DqTile<HD>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -115,52 +151,88 @@ __global__ void __launch_bounds__(384, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
-    // ---- producer: warpgroup 2, its first warp issues the copies ----
-    setmaxnreg_dec<24>();
-    if (threadIdx.x < 256 + 32) {
-      const int lane = threadIdx.x - 256;
-      if (lane == 0) {
-        prefetch_tensor_map(&tm_k);
-        prefetch_tensor_map(&tm_v);
-        mbar_arrive_expect_tx(bar_q, 2 * C::kQBytes);
+  // The copies, by one warp: Q and dO once (load_q), then K and V of key
+  // step j into stage j % S once both consumer warpgroups have freed it,
+  // with the stage's key-validity bits (load_kv), NW words of 32 keys from
+  // each lane's key_ok (key < Skv and the mask: nonzero is valid; read into
+  // the registers with no test, so that a read ahead does not wait).
+  const CUtensorMap* pq = &tm_q;
+  const CUtensorMap* pk = &tm_k;
+  const CUtensorMap* pv = &tm_v;
+  const CUtensorMap* pdo = &tm_do;
+  const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
+  auto load_q = [&](int lane) {
+    if (lane == 0) {
+      prefetch_tensor_map(pk);
+      prefetch_tensor_map(pv);
+      mbar_arrive_expect_tx(bar_q, 2 * C::kQBytes);
 #pragma unroll
-        for (int hf = 0; hf < HD / 64; ++hf) {
-          tma_load_4d(base + hf * BM * 128, &tm_q, bar_q, hf * 64, h, m0, b);
-          tma_load_4d(base + C::kOffDO + hf * BM * 128, &tm_do, bar_q, hf * 64, h, m0, b);
-        }
+      for (int hf = 0; hf < HD / 64; ++hf) {
+        tma_load_4d(base + hf * BM * 128, pq, bar_q, hf * 64, h, m0, b);
+        tma_load_4d(base + C::kOffDO + hf * BM * 128, pdo, bar_q, hf * 64, h, m0, b);
       }
-      const int* mask = a.mask ? a.mask + b * a.mask_sb : nullptr;
-      for (int j = 0; j < n_steps; ++j) {
-        const int s = j % S;
-        const int n0 = j * BN;
-        uint32_t w[NW];
+    }
+  };
+  auto key_ok = [&](int j, int lane, int (&ok)[NW]) {
 #pragma unroll
-        for (int i = 0; i < NW; ++i) {
-          const int key = n0 + 32 * i + lane;
-          const bool ok = key < a.skv && (mask == nullptr || mask[key] != 0);
-          w[i] = __ballot_sync(0xffffffffu, ok);
+    for (int i = 0; i < NW; ++i) {
+      const int key = j * BN + 32 * i + lane;
+      ok[i] = key < a.skv;
+      if (mask != nullptr && key < a.skv) ok[i] = mask[key];
+    }
+  };
+  auto load_kv = [&](int j, int lane, const int (&ok)[NW]) {
+    const int s = j % S;
+    const int n0 = j * BN;
+    uint32_t w[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = __ballot_sync(0xffffffffu, ok[i] != 0);
+    mbar_wait(bar_empty + 8 * s, ((j / S) & 1) ^ 1);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) words[s * NW + i] = w[i];
+      const uint32_t bar = bar_full + 8 * s;
+      mbar_arrive_expect_tx(bar, 2 * C::kKVBytes);
+      const uint32_t dk = base + C::kOffK + s * C::kKVBytes;
+      const uint32_t dv = base + C::kOffV + s * C::kKVBytes;
+#pragma unroll
+      for (int hf = 0; hf < HD / 64; ++hf) {
+        tma_load_4d(dk + hf * BN * 128, pk, bar, hf * 64, h, n0, b);
+        tma_load_4d(dv + hf * BN * 128, pv, bar, hf * 64, h, n0, b);
+      }
+    }
+    __syncwarp();
+  };
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup 2 (D 64, 128): its first warp issues the
+    // copies ----
+    if constexpr (C::kProducerWarpgroup) {
+      setmaxnreg_dec<24>();
+      if (threadIdx.x < 256 + 32) {
+        const int lane = threadIdx.x - 256;
+        load_q(lane);
+        for (int j = 0; j < n_steps; ++j) {
+          int ok[NW];
+          key_ok(j, lane, ok);
+          load_kv(j, lane, ok);
         }
-        mbar_wait(bar_empty + 8 * s, ((j / S) & 1) ^ 1);
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < NW; ++i) words[s * NW + i] = w[i];
-          const uint32_t bar = bar_full + 8 * s;
-          mbar_arrive_expect_tx(bar, 2 * C::kKVBytes);
-          const uint32_t dk = base + C::kOffK + s * C::kKVBytes;
-          const uint32_t dv = base + C::kOffV + s * C::kKVBytes;
-#pragma unroll
-          for (int hf = 0; hf < HD / 64; ++hf) {
-            tma_load_4d(dk + hf * BN * 128, &tm_k, bar, hf * 64, h, n0, b);
-            tma_load_4d(dv + hf * BN * 128, &tm_v, bar, hf * 64, h, n0, b);
-          }
-        }
-        __syncwarp();
       }
     }
   } else {
     // ---- consumers: warpgroup cw owns query rows m0 + 64 cw + [0, 64) ----
-    setmaxnreg_inc<240>();
+    if constexpr (C::kProducerWarpgroup) {
+      setmaxnreg_inc<240>();
+    } else if (threadIdx.x < 32) {
+      // D 256: warp 0 issues the copies, the first S stages now and each
+      // later one after one of its own steps (below)
+      load_q(threadIdx.x);
+      for (int j = 0; j < min(S, n_steps); ++j) {
+        int ok[NW];
+        key_ok(j, threadIdx.x, ok);
+        load_kv(j, threadIdx.x, ok);
+      }
+    }
     const int cw = threadIdx.x / 128;
     const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
@@ -188,6 +260,12 @@ __global__ void __launch_bounds__(384, 1)
     mbar_wait(bar_q, 0);
     for (int j = 0; j < n_steps; ++j) {
       const int s = j % S;
+      // D 256: warp 0 reads the mask of the step it loads after this one
+      // now, so that the read's latency hides behind this step
+      int ok_next[NW];
+      if constexpr (!C::kProducerWarpgroup) {
+        if (threadIdx.x < 32 && j + S < n_steps) key_ok(j + S, lane, ok_next);
+      }
       mbar_wait(bar_full + 8 * s, (j / S) & 1);
       const uint32_t sk = base + C::kOffK + s * C::kKVBytes;
       const uint32_t sv = base + C::kOffV + s * C::kKVBytes;
@@ -265,6 +343,10 @@ __global__ void __launch_bounds__(384, 1)
       fence_regs(dq);
       fence_regs(dsa);
       mbar_arrive(bar_empty + 8 * s);
+      if constexpr (!C::kProducerWarpgroup) {
+        // D 256: once both warpgroups have freed stage s, refill it
+        if (threadIdx.x < 32 && j + S < n_steps) load_kv(j + S, lane, ok_next);
+      }
     }
 
     const int64_t row_stride = (int64_t)a.h * HD;
@@ -287,10 +369,10 @@ __global__ void __launch_bounds__(384, 1)
 // loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
 // same process would skip the call.
 namespace {
-bool g_smem_set[4][64];
+bool g_smem_set[6][64];
 template <typename T, int HD>
 constexpr int smem_flag() {
-  return (std::is_same<T, __half>::value ? 2 : 0) + (HD == 128 ? 1 : 0);
+  return (std::is_same<T, __half>::value ? 3 : 0) + (HD == 64 ? 0 : HD == 128 ? 1 : 2);
 }
 }  // namespace
 
@@ -316,20 +398,20 @@ extern "C" int dpt_flash_bwd_dq(
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, long long mask_sb, float scale, int is_fp16,
     void* stream) {
-  using Tile = dpt::DqTile<128>;
-  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  // the tile's rows: 128 queries, and keys a step (DqTile<64> is DqTile<128>'s)
+  const int bm = dpt::DqTile<128>::kBM;
+  const int bn = hd == 256 ? dpt::DqTile<256>::kBN : dpt::DqTile<128>::kBN;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = dpt::hopper::make_bshd_map(&tq, q, is_fp16, b, sq, h, hd, q_sb, q_ss,
-                                               q_sh, Tile::kBM);
+  cudaError_t err =
+      dpt::hopper::make_bshd_map(&tq, q, is_fp16, b, sq, h, hd, q_sb, q_ss, q_sh, bm);
   if (err == cudaSuccess)
     err = dpt::hopper::make_bshd_map(&tdo, dout, is_fp16, b, sq, h, hd, do_sb, do_ss,
-                                     do_sh, Tile::kBM);
+                                     do_sh, bm);
   if (err == cudaSuccess)
-    err = dpt::hopper::make_bshd_map(&tk, k, is_fp16, b, skv, h, hd, k_sb, k_ss, k_sh,
-                                     Tile::kBN);
+    err = dpt::hopper::make_bshd_map(&tk, k, is_fp16, b, skv, h, hd, k_sb, k_ss, k_sh, bn);
   if (err == cudaSuccess)
-    err = dpt::hopper::make_bshd_map(&tv, v, is_fp16, b, skv, h, hd, v_sb, v_ss, v_sh,
-                                     Tile::kBN);
+    err = dpt::hopper::make_bshd_map(&tv, v, is_fp16, b, skv, h, hd, v_sb, v_ss, v_sh, bn);
   if (err != cudaSuccess) return static_cast<int>(err);
   dpt::DqArgs a = {};
   a.lse = static_cast<const float*>(lse);
@@ -345,8 +427,11 @@ extern "C" int dpt_flash_bwd_dq(
   if (hd == 64)
     err = is_fp16 ? dpt::run_dq<__half, 64>(tq, tk, tv, tdo, a, b, s)
                   : dpt::run_dq<__nv_bfloat16, 64>(tq, tk, tv, tdo, a, b, s);
-  else
+  else if (hd == 128)
     err = is_fp16 ? dpt::run_dq<__half, 128>(tq, tk, tv, tdo, a, b, s)
                   : dpt::run_dq<__nv_bfloat16, 128>(tq, tk, tv, tdo, a, b, s);
+  else
+    err = is_fp16 ? dpt::run_dq<__half, 256>(tq, tk, tv, tdo, a, b, s)
+                  : dpt::run_dq<__nv_bfloat16, 256>(tq, tk, tv, tdo, a, b, s);
   return static_cast<int>(err);
 }

@@ -55,7 +55,8 @@
 // with that stage's mask read a step ahead so that the read does not stall
 // warp 0's warpgroup. Against the first design at D 256 (mma.sync
 // m16n8k16, 64 queries x 32 keys a block step, one warp per 16 rows,
-// cp.async by the warps that do the math, in flash_d256.cu): wgmma, TMA,
+// cp.async by the warps that do the math, formerly in flash_d256.cu):
+// wgmma, TMA,
 // twice the keys a step and twice the rows a block.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"

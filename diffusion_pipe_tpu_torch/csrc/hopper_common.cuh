@@ -208,8 +208,8 @@ template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint64_t db);
 
 // The instances below, for bf16 and fp16, come from one macro per (N, kind)
-// whose parameters are the element type and its PTX name: SS at N 32, 64
-// and 128, SS with an MN-major B at N 128, RS at N 64, 128 and 256.
+// whose parameters are the element type and its PTX name: SS at N 32, 48,
+// 64 and 128, SS with an MN-major B at N 128, RS at N 64, 128 and 256.
 // Operands: the accumulator d[0 .. N/2) is %0 .. %(N/2 - 1); for SS the A
 // and B descriptors follow and then the scale-d flag (a 1, accumulate, for
 // the MN-major SS); for RS the four registers of the A fragment, the B
@@ -263,6 +263,12 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint
   "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define DPT_ACC24_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23}"
+#define DPT_ACC24_OPS DPT_ACC16_OPS, \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
 #define DPT_ACC128_OPS DPT_ACC64_OPS, \
   "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
   "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
@@ -336,6 +342,17 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint
                  : "l"(da), "l"(db), "r"(scale_d));                                   \
   }
 
+#define DPT_WGMMA_SS_48(T, PTX)                                                       \
+  template <>                                                                         \
+  __device__ __forceinline__ void wgmma_ss<T, 48>(float (&d)[24], uint64_t da,        \
+                                                  uint64_t db, int scale_d) {         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"                         \
+                 "wgmma.mma_async.sync.aligned.m64n48k16.f32." PTX "." PTX " "        \
+                 DPT_ACC24_REGS ", %24, %25, p, 1, 1, 0, 0;\n}\n"                      \
+                 : DPT_ACC24_OPS                                                      \
+                 : "l"(da), "l"(db), "r"(scale_d));                                   \
+  }
+
 #define DPT_WGMMA_SS_MN_128(T, PTX)                                                   \
   template <>                                                                         \
   __device__ __forceinline__ void wgmma_ss_mn<T, 128>(float (&d)[64], uint64_t da,    \
@@ -368,6 +385,8 @@ DPT_WGMMA_SS_128(__half, "f16")
 DPT_WGMMA_RS_128(__half, "f16")
 DPT_WGMMA_SS_32(__nv_bfloat16, "bf16")
 DPT_WGMMA_SS_32(__half, "f16")
+DPT_WGMMA_SS_48(__nv_bfloat16, "bf16")
+DPT_WGMMA_SS_48(__half, "f16")
 DPT_WGMMA_SS_MN_128(__nv_bfloat16, "bf16")
 DPT_WGMMA_SS_MN_128(__half, "f16")
 DPT_WGMMA_RS_256(__nv_bfloat16, "bf16")
@@ -378,11 +397,14 @@ DPT_WGMMA_RS_256(__half, "f16")
 #undef DPT_WGMMA_SS_128
 #undef DPT_WGMMA_RS_128
 #undef DPT_WGMMA_SS_32
+#undef DPT_WGMMA_SS_48
 #undef DPT_WGMMA_SS_MN_128
 #undef DPT_WGMMA_RS_256
 #undef DPT_ACC16_REGS
 #undef DPT_ACC128_REGS
 #undef DPT_ACC16_OPS
+#undef DPT_ACC24_REGS
+#undef DPT_ACC24_OPS
 #undef DPT_ACC128_OPS
 #undef DPT_ACC32_REGS
 #undef DPT_ACC64_REGS

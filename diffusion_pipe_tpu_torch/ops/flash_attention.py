@@ -2,8 +2,8 @@
 
 Counterpart of diffusion_pipe_tpu/ops/flash_attention.py. Three CUDA
 kernels replace the Pallas TPU kernels `_fwd_kernel`, `_dq_kernel` and
-`_dkv_kernel`: K1 in csrc/flash_fwd.cu (head dim 64, 128 and 256), K2 in
-csrc/flash_bwd_dq.cu (64, 128) and csrc/flash_d256.cu (256), K3 in
+`_dkv_kernel`: K1 in csrc/flash_fwd.cu and K2 in csrc/flash_bwd_dq.cu (head
+dim 64, 128 and 256, each at its own tile: FwdTile<256>, DqTile<256>), K3 in
 csrc/flash_bwd_dkv.cu (64, 128) and csrc/flash_bwd_dkv_d256.cu (256). Each
 source file says what bounds its kernels on the H100 and how they are laid
 out.
@@ -49,8 +49,7 @@ _SIGNATURES = {
     "dpt_flash_fwd": ("flash_fwd", _FWD_ARGS),
     "dpt_flash_bwd_dq": ("flash_bwd_dq", _DQ_ARGS),
     "dpt_flash_bwd_dkv": ("flash_bwd_dkv", _DKV_ARGS),
-    # K2 and K3 at head dim 256, with the same arguments
-    "dpt_flash_bwd_dq_d256": ("flash_d256", _DQ_ARGS),
+    # K3 at head dim 256, with the same arguments
     "dpt_flash_bwd_dkv_d256": ("flash_bwd_dkv_d256", _DKV_ARGS),
 }
 # K3's tiles: a block owns 128 keys and steps over 64 queries
@@ -63,9 +62,9 @@ DKV_MAX_SPLITS = 16
 
 
 def _symbol(name: str, d: int) -> str:
-    """The C entry point of kernel `name` for head dim d (K1 has one entry
-    for every head dim)."""
-    return f"{name}_d256" if d == 256 and name != "dpt_flash_fwd" else name
+    """The C entry point of kernel `name` for head dim d (K1 and K2 have
+    one entry for every head dim, K3 its own at 256)."""
+    return f"{name}_d256" if d == 256 and name == "dpt_flash_bwd_dkv" else name
 
 
 def _entry(symbol: str):

@@ -30,7 +30,6 @@ SOURCES = {
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dkv_d256": "flash_bwd_dkv_d256.cu",
-    "flash_d256": "flash_d256.cu",
     "stochastic_round": "stochastic_round.cu",
     "int8_quant": "int8_quant.cu",
 }

@@ -12,7 +12,9 @@ the edges of the D 256 kernels' 128-query and 64-key tiles (the Pallas
 kernel's ragged Sq padded with zero queries and cotangents, as
 ops/attention.py pads it).
 
-K3's query split (dkv_splits, dkv_layout) is held on the CPU at 132 SMs.
+K3's query split (dkv_splits, dkv_layout) is held on the CPU at 132 SMs,
+and each kernel's C entry at each head dim against the libraries that
+kernel_build builds and their sources under csrc/.
 
 The kernels themselves are tested on the GPU by test_torch_kernels_gpu.py.
 """
@@ -30,6 +32,7 @@ from diffusion_pipe_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
 )
 from diffusion_pipe_tpu_torch.ops import flash_attention as port_fa
+from diffusion_pipe_tpu_torch.ops import kernel_build
 from torch_port_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import JAX_FAST_COMPILE
 
@@ -188,3 +191,18 @@ def test_dkv_layout(shape, want):
     assert (port_fa.DKV_KEY_TILE, port_fa.DKV_QUERY_TILE) == (128, 64)
     assert (port_fa.DKV_KEY_TILE_D256, port_fa.DKV_QUERY_TILE_D256) == (64, 64)
     assert port_fa.dkv_layout(b, h, sq, skv, d, 132) == want
+
+
+@pytest.mark.parametrize("d", port_fa.KERNEL_HEAD_DIMS)
+def test_entries_route_to_built_sources(d):
+    """At every head dim each kernel's C entry names a library that
+    kernel_build builds from a source present under csrc/: K1 and K2 one
+    entry for every head dim (FwdTile<256>, DqTile<256>), K3 its own at 256;
+    and every library that _SIGNATURES names is built."""
+    want = {"dpt_flash_fwd": "dpt_flash_fwd", "dpt_flash_bwd_dq": "dpt_flash_bwd_dq",
+            "dpt_flash_bwd_dkv": "dpt_flash_bwd_dkv_d256" if d == 256 else "dpt_flash_bwd_dkv"}
+    for name, symbol in want.items():
+        assert port_fa._symbol(name, d) == symbol
+        assert port_fa._SIGNATURES[symbol][0] in kernel_build.SOURCES
+    for lib, _ in port_fa._SIGNATURES.values():
+        assert (kernel_build.CSRC / kernel_build.SOURCES[lib]).is_file()

@@ -12,12 +12,15 @@ tile, a key mask, a ragged Sq=200 that is no multiple of K1's and K2's
 128-row query tile, heads 2-3 of six as a strided view, Sq=4096 against
 Skv=128, where K3 splits its query loop over blocks, Sq=328 against Skv=50,
 a masked Skv=1000 of 16 key steps against Sq=130, Wan i2v's image
-cross-attention, Skv=257 and 514 (flf2v), against Sq=1024, and Skv=63, 64
-and 65, the edges of the 64-key tiles at D 256): each kernel's error
+cross-attention, Skv=257 and 514 (flf2v), against Sq=1024, Skv=63, 64
+and 65, the edges of the 64-key tiles at D 256, and Skv=31, 33, 47 and
+49, the edges of K2's first validity word and of its 48-key step at D
+256): each kernel's error
 against the f32 plain result must be at most twice the plain version's in
 the same dtype, plus 1e-3 of the reference's largest magnitude. K3 gives the
 same bits on two launches, with and without the query split, at D 128 and
-256, and K2 at the Flux-dev and Wan2.1 cross-attention shapes; K2 and K3 at the i2v image
+256, and K2 at the Flux-dev and Wan2.1 cross-attention shapes and at
+AuraFlow's (D 256); K2 and K3 at the i2v image
 cross-attention (H 40, Skv 257 and 514). SDXL's cross-attention (B 4,
 H 20, Sq 256 against 77 CLIP tokens, D 64), with and without a padded
 batch element, K2 and K3 deterministic there. SD3's joint sequence at
@@ -75,7 +78,12 @@ CASES = {"nomask": (256, 256, False, None), "kv_mask": (256, 256, True, None),
          # Sq no multiple of 128: one key short of a tile (masked), a whole
          # tile, one key past it (on a head view)
          "kv63_masked": (200, 63, True, None), "kv64": (130, 64, False, None),
-         "kv65_head_view": (328, 65, False, slice(2, 4))}
+         "kv65_head_view": (328, 65, False, slice(2, 4)),
+         # the edges of K2's first 32-key validity word and of its 48-key
+         # step at D 256 (2 stages), against Sq no multiple of 128: one key
+         # short of each (masked), one key past each (on a head view)
+         "kv31_masked": (200, 31, True, None), "kv33_head_view": (328, 33, False, slice(2, 4)),
+         "kv47_masked": (200, 47, True, None), "kv49_head_view": (328, 49, False, slice(2, 4))}
 
 
 @pytest.fixture
@@ -154,18 +162,20 @@ def test_dkv_is_deterministic(d, path, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["flux", "wan_cross"])
+@pytest.mark.parametrize("shape", ["flux", "wan_cross", "auraflow"])
 def test_dq_is_deterministic(shape, cuda_device):
     """Two K2 launches on the same inputs give the same bits, at the shapes
-    of the main paths (bf16, D 128): Flux-dev's joint attention (B 2, H 24,
-    S 1536) and Wan2.1's cross-attention (Sq 21504, Skv 512, H 12)."""
-    b, sq, skv, h = (2, 1536, 1536, 24) if shape == "flux" else (1, 21504, 512, 12)
+    of the main paths (bf16): Flux-dev's joint attention (B 2, H 24, S 1536,
+    D 128), Wan2.1's cross-attention (Sq 21504, Skv 512, H 12, D 128) and
+    AuraFlow's joint attention (B 2, H 12, S 4360, D 256)."""
+    b, sq, skv, h, d = {"flux": (2, 1536, 1536, 24, 128), "wan_cross": (1, 21504, 512, 12, 128),
+                        "auraflow": (2, 4360, 4360, 12, 256)}[shape]
     rng = np.random.default_rng(17)
-    q, do = (torch.from_numpy(rng.standard_normal((b, sq, h, 128), dtype=np.float32))
+    q, do = (torch.from_numpy(rng.standard_normal((b, sq, h, d), dtype=np.float32))
              .to(cuda_device, torch.bfloat16) for _ in range(2))
-    k, v = (torch.from_numpy(rng.standard_normal((b, skv, h, 128), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, skv, h, d), dtype=np.float32))
             .to(cuda_device, torch.bfloat16) for _ in range(2))
-    scale = 128 ** -0.5
+    scale = d ** -0.5
     o, lse = port_fa.flash_fwd_cuda(q, k, v, None, scale)
     di = port_fa.row_dot(do, o)
     dq1 = port_fa.flash_bwd_dq_cuda(q, k, v, None, lse, di, do, scale)
@@ -345,8 +355,8 @@ def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
 @pytest.mark.parametrize("d", [128, 256])
 def test_autograd_runs_the_kernels(d, cuda_device):
     """flash_attention on CUDA tensors: forward and backward go through
-    K1, K2 and K3 once each (at D 256 K1's and K3's wgmma entries), and the
-    grads match the plain backward."""
+    K1, K2 and K3 once each (at D 256 K1's and K2's entries of every head
+    dim and K3's own), and the grads match the plain backward."""
     q, k, v, do, _ = _inputs("ragged", cuda_device, d=d)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     port_fa.reset_launch_counts()
@@ -356,6 +366,8 @@ def test_autograd_runs_the_kernels(d, cuda_device):
         "flash_fwd_cuda": 1, "flash_bwd_dq_cuda": 1, "flash_bwd_dkv_cuda": 1}
     if d == 256:
         assert port_fa._symbol("dpt_flash_fwd", d) == "dpt_flash_fwd"
+        assert port_fa._symbol("dpt_flash_bwd_dq", d) == "dpt_flash_bwd_dq"
+        assert port_fa._SIGNATURES["dpt_flash_bwd_dq"][0] == "flash_bwd_dq"
         assert port_fa._SIGNATURES[port_fa._symbol("dpt_flash_bwd_dkv", d)][0] == \
             "flash_bwd_dkv_d256"
     scale = d ** -0.5

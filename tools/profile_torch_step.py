@@ -77,10 +77,9 @@ sys.path.insert(0, str(ROOT))
 GEMM = re.compile(r"gemm|xmma|nvjet|cutlass|sm90_", re.IGNORECASE)
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
            "sr_add_kernel", "quant_rows_kernel", "rescale_kernel")
-# K2 and K3 at head dim 256 (csrc/flash_d256.cu, flash_bwd_dkv_d256.cu),
-# counted with K2 and K3; K1's kernel has one name at every head dim
-D256 = {"flash_bwd_dq_d256": "flash_bwd_dq_kernel",
-        "flash_bwd_dkv_d256": "flash_bwd_dkv_kernel"}
+# K3 at head dim 256 (csrc/flash_bwd_dkv_d256.cu), counted with K3; K1's
+# and K2's kernels have one name at every head dim
+D256 = {"flash_bwd_dkv_d256": "flash_bwd_dkv_kernel"}
 STEPS = 2
 
 
