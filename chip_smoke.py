@@ -289,7 +289,7 @@ Phases, each printing one JSON line (or more):
                      through init_from_existing, bit for bit; the 2,520
                      adapter keys and the launches.
 
-17. kernels-flux2-auraflow -- (run last) the ptxas registers, spills and
+17. kernels-flux2-auraflow -- (after the Qwen-Image phases) the ptxas registers, spills and
                      wgmma serialization of the head-dim-256 kernels (K1 in
                      csrc/flash_fwd.cu at FwdTile<256>, K2 in flash_bwd_dq.cu
                      at DqTile<256>, K3 in flash_bwd_dkv_d256.cu, all wgmma
@@ -338,6 +338,41 @@ Phases, each printing one JSON line (or more):
                      eval, a resume to 5 with --test_sample, the adapter
                      re-imported bit for bit.
 
+18. kernels-lumina -- (run last) the ptxas records of the D 128 instances that run D 96
+                     and 120 (TMA's zero fill past D): no spill, no C7512;
+                     K1-K3 at Lumina 2's joint sequence (B 2 x 4,352, 24
+                     heads of 96, 60 / 200 of 256 caption keys valid), its
+                     noise refiner (B 2 x 4,096, unmasked) and OmniGen2's
+                     (B 1 x 4,352, 21 heads of 120, 60 valid) against the
+                     plain versions, K2 / K3 deterministic there; bf16 and
+                     fp16 at a ragged S 1,000, masked and not; inputs that
+                     are column slices of NaN-filled buffers; an all-masked
+                     batch element on both K3 paths; each shape timed
+                     beside its bound (on the true D), the plain versions
+                     and SDPA's forward and backward.
+    reference-lumina2 / -zimage / -omnigen2 -- 1 main block and 1 + 1
+                     refiners at each family's full width and head dim (96,
+                     128 with pad tokens, 120), bf16 on the card against
+                     f32 on the CPU.
+    slice-lumina2-lokr -- cell lumina2-lokr-1024: Lumina-Image-2.0 at its
+                     published size (26 + 2 + 2 blocks, 2,304 wide, 24 heads
+                     of 96 over 8, 1.97 B) as examples/lumina_2.toml trains
+                     it (LoKr factor -1, genericoptim, `true`, bf16,
+                     lumina_shift), batch 2 at 1024 px with 256 caption rows,
+                     60 and 200 valid: 56 / 30 / 30 launches a step (the
+                     refiners are not checkpointed).
+    slice-omnigen2-lora -- cell omnigen2-lora-1024: OmniGen2 at full width
+                     (2,520, 21 heads of 120 over 7), 4 + 2 + 2 blocks, LoRA
+                     r32, adamw8bit, `true`, batch 1 at 1024 px, 256
+                     Qwen2.5-VL rows (200 valid).
+    driver-lumina2 / driver-zimage -- each family through train.main at full
+                     width with 2 main blocks (and 2 + 2 refiners) at 512
+                     px, the vae phase's Flux VAE and seeded caption rows
+                     with their masks, as driver-sd3; Lumina 2 with
+                     examples/lumina_2.toml's LoKr (per-part fused qkv
+                     factors), Z-Image at its published layout (head dim
+                     128, pad tokens, RoPE (32, 48, 48)) with LoRA r32.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -347,6 +382,7 @@ check raises and exits non-zero. Float32 references run with TF32 off
 (matmul and cuDNN).
 """
 
+import functools
 import gc
 import json
 import math
@@ -542,10 +578,11 @@ def ptxas_entries(text):
     return out
 
 
-def main_ptxas(entries):
-    """The bf16, D = 128 instance of a flash kernel (the main path's)."""
+def main_ptxas(entries, tag="Li128ELb0E"):
+    """The bf16, D = 128 instance of a flash kernel (the main path's); with
+    tag "Li128ELb1E", the instance that runs D 96 and 120 on its tiles."""
     for name, rec in entries.items():
-        if "nv_bfloat16" in name and "Li128E" in name:
+        if "nv_bfloat16" in name and tag in name:
             return rec
     return None
 
@@ -566,12 +603,22 @@ def phase_build():
 # --- phase 2 ------------------------------------------------------------------
 
 
-def _attn_inputs(b, sq, skv, h, d, masked, gen):
+def _attn_inputs(b, sq, skv, h, d, masked, gen, dtype=torch.bfloat16, guard=False):
+    """q, k, v, dO (in dtype) and the key mask; guard: each tensor the
+    column slice [..., :d] of a [..., 128]-wide buffer whose spare columns
+    hold NaN (a kernel that read past D would spread them)."""
     dev = "cuda"
-    q, do = (torch.randn((b, sq, h, d), generator=gen, device=dev).to(torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn((b, skv, h, d), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
+
+    def draw(s):
+        x = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        if not guard:
+            return x
+        buf = torch.full((b, s, h, 128), float("nan"), dtype=dtype, device=dev)
+        buf[..., :d] = x
+        return buf[..., :d]
+
+    q, do = (draw(sq) for _ in range(2))
+    k, v = (draw(skv) for _ in range(2))
     mask = None
     if masked:
         # text padding: element 0 keeps 300 of its 512 text tokens, element 1
@@ -610,12 +657,14 @@ ERR_KEYS = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
             "flash_bwd_dkv": ("dk", "dv")}
 
 
-def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None):
+def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None,
+                     dtype=torch.bfloat16, guard=False):
     """K1-K3 against their plain versions on one case; returns the errors.
     heads: a slice of the heads to check, taken as strided views of the
-    [B, S, h, D] inputs (the plain versions' f32 logits grow with each)."""
+    [B, S, h, D] inputs (the plain versions' f32 logits grow with each);
+    dtype and guard as _attn_inputs takes them."""
     scale = d ** -0.5
-    q, k, v, do, mask = _attn_inputs(b, sq, skv, h, d, masked, gen)
+    q, k, v, do, mask = _attn_inputs(b, sq, skv, h, d, masked, gen, dtype, guard)
     if heads is not None:
         q, k, v, do = (x[:, :, heads] for x in (q, k, v, do))
     ref = _plain_all(fa, q.float(), k.float(), v.float(), do.float(), mask, scale)
@@ -638,7 +687,8 @@ def _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=None):
             check(bool((got[3][i, keys] == 0).all() and (got[4][i, keys] == 0).all()),
                   "masked keys received dK/dV")
     emit(phase="kernels", case=case, q_shape=[b, sq, h, d], kv_len=skv, masked=bool(masked),
-         checked_heads=q.shape[2], errors=rec)
+         checked_heads=q.shape[2], dtype=str(dtype).removeprefix("torch."),
+         nan_guarded_columns=guard, errors=rec)
     return rec
 
 
@@ -3254,9 +3304,26 @@ def _flash_per_step(blocks, remat):
             "flash_bwd_dkv": blocks, "sr_add": 0, **NO_INT8}
 
 
+def _flash_step(pipeline):
+    """K1-K3 launches of a training step: _flash_per_step over the model's
+    attention blocks, but for the Lumina 2 families, whose refiners are not
+    checkpointed (as the JAX module checkpoints its main stack only): their
+    main blocks recompute K1 under "full", the 2 x num_refiner_layers
+    refiner blocks do not."""
+    blocks, mc = _model_blocks(pipeline)
+    if not hasattr(pipeline, "lumina_config"):
+        return _flash_per_step(blocks, mc.remat)
+    step = _flash_per_step(blocks, "")
+    step["flash_fwd"] += mc.num_layers if mc.remat == "full" else 0
+    return step
+
+
 def _model_blocks(pipeline):
     """(attention blocks, model config) of an SD3, Chroma, Qwen-Image,
-    FLUX.2 or AuraFlow pipeline."""
+    FLUX.2, AuraFlow or Lumina 2 family pipeline."""
+    if hasattr(pipeline, "lumina_config"):
+        cfg = pipeline.lumina_config
+        return cfg.num_layers + 2 * cfg.num_refiner_layers, cfg
     if hasattr(pipeline, "sd3_config"):
         return pipeline.sd3_config.num_layers, pipeline.sd3_config
     if hasattr(pipeline, "qi_config"):
@@ -3312,7 +3379,7 @@ def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda
     linears, int8_real, _ = _int8_weights(pipeline.model)
     extra = after(pipeline, batch, gen) if after else {}
     emit(phase=phase, cell=cell, params=sum(p.numel() for p in pipeline.model.parameters()),
-         blocks=blocks, hidden=mc.hidden_size, remat=mc.remat,
+         blocks=blocks, hidden=getattr(mc, "hidden_size", None) or mc.dim, remat=mc.remat,
          lora_params=sum(p.numel() for p in trainable.values()), lora_tensors=len(trainable),
          latent_shape=list(batch["latents"].shape), init_s=init_s, warmup_s=warm_s,
          warmup_loss=warm_loss, timed_steps=timed_steps, step_s=step_s,
@@ -3444,6 +3511,9 @@ def phase_driver_family(family, vae_dir=None):
     elif family == "auraflow":
         vae_dir = _write_sdxl_vae(root / "vae")
         toml, stand_ins = AURAFLOW_DRIVER_TOML, _auraflow_text_stand_in
+    elif family in LUMINA_DRIVER_TOMLS:
+        toml = LUMINA_DRIVER_TOMLS[family]
+        stand_ins = functools.partial(_lumina_text_stand_in, family)
     else:
         toml, stand_ins = CHROMA_DRIVER_TOML, _chroma_text_stand_in
     _write_images(root / "train", DRIVER_IMAGES, SEED)
@@ -3481,14 +3551,14 @@ def phase_driver_family(family, vae_dir=None):
         pipeline, state, frozen_print, lora0 = captured.pop()
         lora0 = lora_before or lora0
         frozen = [p for p in pipeline.model.parameters() if not p.requires_grad]
-        blocks, mc = _model_blocks(pipeline)
+        blocks, _ = _model_blocks(pipeline)
         out = dict(steps=steps, wall_s=wall_s, launches=counts,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
                    frozen_unchanged=bool(torch.equal(_fingerprint(frozen), frozen_print)),
                    lora_tensors=len(state.trainable),
                    lora_tensors_still=[n for n, p in state.trainable.items()
                                        if torch.equal(p.cpu(), lora0[n])])
-        shape = dict(blocks=blocks, step=_flash_per_step(blocks, mc.remat))
+        shape = dict(blocks=blocks, step=_flash_step(pipeline))
         del pipeline, state, frozen
         _free()
         return out, shape
@@ -3555,7 +3625,8 @@ def phase_driver_family(family, vae_dir=None):
     step_s = sum(step_times) / len(step_times)
     example = Image.open(Path(config["output_dir"]) / "example.png")
     n_lora = first["lora_tensors"]
-    emit(phase=f"driver-{family}", cell=f"driver-{family}", cache_only_s=cache_s, calls=calls,
+    name = DRIVER_PHASE_NAMES.get(family, f"driver-{family}")
+    emit(phase=name, cell=name, cache_only_s=cache_s, calls=calls,
          expected_launches=expected, losses=losses, eval=evals, step_s=step_s,
          step_times_s=step_times, samples_per_s=2 / step_s, final_step=saved_step,
          loader_state=meta.get("custom_loader"), uninterrupted_loader_state=uninterrupted,
@@ -3569,21 +3640,22 @@ def phase_driver_family(family, vae_dir=None):
     check(meta.get("custom_loader") == uninterrupted,
           f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
     check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
-    may_stay = NEW_MAY_STAY if family in ("flux2", "auraflow") else ("none",)
+    may_stay = NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image") else ("none",)
     check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT) or n.endswith(may_stay)
                                                   for n in c["lora_tensors_still"])
               for c in calls), "LoRA factors did not all move")
     keys = ADAPTER_KEYS[family]
-    check(len(adapter) == keys and len(factors) == 2 * keys // 3,
+    check(len(adapter) == keys and len(factors) == ADAPTER_FACTORS.get(family, 2 * keys // 3),
           f"adapter keys {len(adapter)} ({len(factors)} factors), expected {keys}")
     check(family != "chroma" or fused > 0, "no fused pair in the Chroma adapter")
     check(same, "the adapter loaded through init_from_existing does not export to the file")
     check(example.size == (512, 512), f"example.png is {example.size}")
     for c, want in zip(calls, expected):
-        check(c["launches"] == want, f"driver-{family} launches {c['launches']}, expected {want}")
+        check(c["launches"] == want, f"{name} launches {c['launches']}, expected {want}")
     return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
 
 
+DRIVER_PHASE_NAMES = {"lumina_2": "driver-lumina2", "z_image": "driver-zimage"}
 # the generic keymap export at full depth: lora_A, lora_B and alpha of each
 # pair. SD3-Medium: 23 blocks x 14 linears + the final block's 11 = 333
 # pairs. Chroma: a double block's 6 linears and fused img / txt qkv (8
@@ -3593,8 +3665,15 @@ def phase_driver_family(family, vae_dir=None):
 ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2),
                 # the driver cells' cut depths: FLUX.2 2 double blocks of 8
                 # linears and 2 single of 2; AuraFlow 1 joint of 16 and 2
-                # single of 8
-                "flux2": 3 * (2 * 8 + 2 * 2), "auraflow": 3 * (1 * 16 + 2 * 8)}
+                # single of 8; Z-Image 2 main blocks and 2 + 2 refiners, the
+                # fused qkv and 4 more pairs each
+                "flux2": 3 * (2 * 8 + 2 * 2), "auraflow": 3 * (1 * 16 + 2 * 8),
+                "z_image": 3 * 6 * 5,
+                # Lumina 2 with LoKr (no alphas): w1, w2_a and w2_b of each
+                # of a block's 7 linears (the fused qkv's 3 parts apart)
+                "lumina_2": 3 * 6 * 7}
+# adapter tensors other than the alphas, where not 2 / 3 of them
+ADAPTER_FACTORS = {"lumina_2": 3 * 6 * 7}
 
 
 # --- slice 11: Qwen-Image and Qwen-Image-Edit ----------------------------------
@@ -4659,6 +4738,267 @@ def _write_sdxl_vae(folder):
     return folder
 
 
+# --- slice 15: Lumina-Image-2.0, Z-Image and OmniGen2 --------------------------
+
+# K1-K3 at the Lumina 2 family's joint sequences at 1024 px: 256 caption rows
+# (60 and 200 of them valid, the key mask) then 4,096 image tokens; Lumina 2
+# at 24 heads of 96 (B 2), its noise refiner over the 4,096 image tokens
+# unmasked, OmniGen2 at 21 heads of 120 (B 1). D 96 and 120 run the D 128
+# tiles with the columns past D zero-filled by TMA.
+# (case, (B, S, H), D, masked keys of each batch element, checked heads)
+LUMINA_KERNEL_CASES = (
+    ("lumina2_4352_d96_masked", (2, 4352, 24), 96, (slice(60, 256), slice(200, 256)),
+     slice(0, 6)),
+    ("lumina2_refiner_4096_d96", (2, 4096, 24), 96, False, slice(0, 6)),
+    ("omnigen2_4352_d120_masked", (1, 4352, 21), 120, (slice(60, 256),), slice(0, 6)),
+)
+# the head dims the D 128 tiles run with TMA's zero fill past D
+PADDED_HEAD_DIMS = (96, 120)
+LUMINA_TXT = 256
+LUMINA_VALID = (60, 200)  # valid caption rows of each example's 256 in the Lumina cells
+
+
+def padded_ptxas(ptxas, dtype="nv_bfloat16"):
+    """The ptxas records of the D 128 instances that run D 96 and 120
+    (kPad), by the wrapper whose calls they serve."""
+    return {name: rec for name in FLASH for mangled, rec in ptxas.get(name, {}).items()
+            if dtype in mangled and "Li128ELb1E" in mangled}
+
+
+def phase_kernels_lumina(ptxas):
+    """K1-K3 at D 96 and 120: the ptxas records of their instances (no spill,
+    no C7512, bf16 and fp16); at each Lumina shape against the plain
+    versions (six heads as strided views), K2 / K3 deterministic; bf16 and
+    fp16 at a ragged S of 1,000 (no multiple of 64 or 128), masked and not;
+    inputs that are column slices of NaN-filled 128-wide buffers, at the
+    ragged shape and at a short key sequence (K3's query split); a batch
+    element with every key masked on both of K3's paths; then each Lumina
+    shape timed beside its bound (the true D), its plain version and SDPA's
+    forward and backward. Returns ({case: K1-K3 timing}, the ptxas records)."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = (padded_ptxas(ptxas), padded_ptxas(ptxas, "6__half"))
+    emit(phase="kernels-lumina", ptxas_bf16_d96_d120=records[0],
+         ptxas_fp16_d96_d120=records[1])
+    check(all(set(r) == set(FLASH) for r in records)
+          and all(rec.get("spill_stores") == 0 and rec.get("spill_loads") == 0
+                  and not rec["wgmma_serialized"] for r in records for rec in r.values()),
+          f"the D 96 / 120 kernels' ptxas records {records}")
+    errors, splits = {}, {}
+    for case, (b, s, h), d, masked, heads in LUMINA_KERNEL_CASES:
+        errors[case] = _check_attention(fa, case, b, s, s, h, d, masked, gen, heads=heads)
+        _free()
+        splits[case] = _check_bwd_deterministic(fa, case, b, s, s, h, d, gen, masked=masked)
+        _free()
+    for d in PADDED_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float16):
+            name = str(dtype).removeprefix("torch.")
+            for masked in (False, (slice(900, 1000), slice(333, 1000))):
+                _check_attention(fa, f"ragged_1000_d{d}_{name}{'_masked' if masked else ''}",
+                                 2, 1000, 1000, 24, d, masked, gen, dtype=dtype)
+            _check_attention(fa, f"nan_guard_ragged_d{d}_{name}", 2, 1000, 1000, 24, d,
+                             (slice(900, 1000), slice(333, 1000)), gen, dtype=dtype, guard=True)
+            _check_attention(fa, f"nan_guard_short_kv_d{d}_{name}", 2, 4096, 200, 2, d, False,
+                             gen, dtype=dtype, guard=True)
+            check(fa.flash_bwd_dkv_cuda.last_splits > 1,
+                  "the short key sequence did not take K3's query split")
+        check(_check_all_masked(fa, f"d{d}", 2, 1000, 1000, 24, d, gen) == 1,
+              f"the all-masked D {d} case took K3's query split")
+        check(_check_all_masked(fa, f"short_kv_d{d}", 2, 4096, 128, 2, d, gen) > 1,
+              f"a short key sequence at D {d} did not take K3's query split")
+        _free()
+    timings = {}
+    for case, (b, s, h), d, masked, _ in LUMINA_KERNEL_CASES:
+        timing, sdpa_bwd_ms = _time_attention(fa, b, s, s, h, d, gen, masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[case][k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels-lumina", case=f"timing_{case}", q_shape=[b, s, h, d], kv_len=s,
+             masked=bool(masked), timing=timing, sdpa_bwd_ms=sdpa_bwd_ms)
+        timings[case] = timing
+        _free()
+    emit(phase="kernels-lumina", k3_query_splits=splits)
+    return timings, records[0]
+
+
+def _lumina_reference_config(family, dtype):
+    """1 main block and 1 + 1 refiners at the family's full width and head
+    dim (Lumina 2: 2,304, 24 heads of 96; Z-Image: 3,840, 30 of 128, pad
+    tokens; OmniGen2: 2,520, 21 of 120), LoRA rank 4."""
+    from diffusion_pipe_tpu_torch.models import omnigen2, z_image
+    from diffusion_pipe_tpu_torch.models.lumina_2 import Lumina2Config
+
+    fam = {"lumina_2": dict(time_scale=1.0),
+           "z_image": dict(z_image.PUBLISHED, time_scale=1000.0, rope_cap_offset=1,
+                           pad_tokens_multiple=32),
+           "omnigen2": dict(omnigen2.PUBLISHED, time_scale=1000.0)}[family]
+    return Lumina2Config(**{**fam, "num_layers": 1, "num_refiner_layers": 1, "dtype": dtype,
+                            "param_dtype": dtype, "lora_rank": 4, "lora_alpha": 4.0,
+                            "lora_dtype": dtype})
+
+
+def phase_reference_lumina(family, device="cuda"):
+    """A family's transformer at 1 + 1 + 1 blocks (_lumina_reference_config):
+    a 16 x 20 latent (80 image tokens; Z-Image pads them to 96) and 24
+    caption rows, 18 and 24 of them valid, B 2; bf16 on the card against
+    f32 on the CPU."""
+    from diffusion_pipe_tpu_torch.models.lumina_2 import Lumina2Transformer
+
+    def build(dtype, dev):
+        with torch.device(dev):
+            return Lumina2Transformer(_lumina_reference_config(family, dtype))
+
+    cfg = _lumina_reference_config(family, torch.float32)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    lat = torch.randn((2, 16, 16, 20), generator=gen)
+    cap = torch.randn((2, 24, cfg.cap_dim), generator=gen)
+    mask = torch.ones((2, 24), dtype=torch.int32)
+    mask[0, 18:] = 0
+    target = torch.randn((2, 16, 16, 20), generator=gen)
+
+    def inputs(dtype):
+        return dict(x=lat.to(dtype), t=torch.tensor([0.3, 0.8]), cap_feats=cap.to(dtype),
+                    cap_mask=mask)
+
+    name = {"lumina_2": "lumina2", "z_image": "zimage", "omnigen2": "omnigen2"}[family]
+    _reference_family(f"reference-{name}", build, inputs, target, device, blocks=3)
+
+
+LUMINA2_LOKR_CONFIG = {  # lumina2-lokr-1024: examples/lumina_2.toml's trainer
+    "save_every_n_epochs": 2,
+    "model": {"type": "lumina_2", "dtype": "bfloat16", "lumina_shift": True},
+    # alpha = rank, as the config loader sets it
+    "adapter": {"type": "lokr", "rank": 16, "alpha": 16, "decompose_factor": -1},
+    "optimizer": {"type": "genericoptim", "lr": 1e-4, "second_moment_type": "sn", "rank": 128,
+                  "proj_type": "svd", "update_proj_gap": 200},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+OMNIGEN2_DEPTH = 4  # main blocks of the full-width omnigen2-lora-1024 cell
+OMNIGEN2_LORA_CONFIG = {  # omnigen2-lora-1024
+    "save_every_n_epochs": 1,
+    "model": {"type": "omnigen2", "dtype": "bfloat16", "num_layers": OMNIGEN2_DEPTH},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+
+
+def build_lumina_slice(cfg=LUMINA2_LOKR_CONFIG, device="cuda", latent_hw=128,
+                       txt_len=LUMINA_TXT, valid=LUMINA_VALID):
+    """A Lumina 2 family model at the config's size; a batch of len(valid)
+    1024 px latents with txt_len caption rows, `valid` of each example
+    unmasked (zero rows after), under the family's names."""
+    def make_batch(pipeline, gen):
+        c = pipeline.lumina_config
+        b = len(valid)
+        mask = torch.zeros((b, txt_len), dtype=torch.int32, device=device)
+        for i, n in enumerate(valid):
+            mask[i, :n] = 1
+        feats = torch.randn((b, txt_len, c.cap_dim), generator=gen, device=device)
+        feats_key, mask_key = pipeline.text_keys
+        return {"latents": torch.randn((b, c.in_channels, latent_hw, latent_hw), generator=gen,
+                                       device=device),
+                feats_key: (feats * mask[..., None]).to(c.dtype), mask_key: mask}
+
+    return _build_family_slice(cfg["model"]["type"], cfg, device, make_batch)
+
+
+def phase_slice_lumina(family="lumina_2"):
+    """lumina2-lokr-1024 (Lumina-Image-2.0 at its published size, 26 + 2 +
+    2 blocks, 24 heads of 96, 1.97 B; examples/lumina_2.toml's LoKr and
+    genericoptim, `true`; batch 2 at 1024 px with 60 and 200 of 256 caption
+    rows valid) or omnigen2-lora-1024 (OmniGen2 at full width, 4 + 2 + 2
+    blocks, 21 heads of 120; LoRA r32, adamw8bit, batch 1 with 200 valid)."""
+    lumina = family == "lumina_2"
+    cfg = LUMINA2_LOKR_CONFIG if lumina else OMNIGEN2_LORA_CONFIG
+
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        c = pipeline.lumina_config
+        check(list(out.shape) == list(target.shape) == [len(batch["latents"]), 16, 128, 128]
+              and c.head_dim == (96 if lumina else 120), f"output {list(out.shape)}")
+        return dict(sequence=64 * 64 + LUMINA_TXT, head_dim=c.head_dim,
+                    output_shape=list(out.shape), adapter=cfg["adapter"]["type"])
+
+    counts, _, _ = phase_slice_family(
+        "slice-lumina2-lokr" if lumina else "slice-omnigen2-lora",
+        "lumina2-lokr-1024" if lumina else "omnigen2-lora-1024",
+        lambda: build_lumina_slice(cfg, valid=LUMINA_VALID if lumina else (200,)),
+        timed_steps=NEW_TIMED_STEPS, expected_fn=_flash_step, no_gradient=("none",),
+        after=after, may_stay=() if lumina else NEW_MAY_STAY)
+    return counts
+
+
+LUMINA2_DRIVER_TOML = """# examples/lumina_2.toml's trainer through the driver, at 512 px, 2 main blocks
+output_dir = "{root}/{out}"
+dataset = "{root}/dataset.toml"
+eval_datasets = ["{root}/eval.toml"]
+epochs = 100
+micro_batch_size_per_gpu = 2
+gradient_accumulation_steps = 1
+gradient_clipping = 1.0
+save_every_n_epochs = 1
+eval_before_first_step = {eval_first}
+activation_checkpointing = true
+sample_steps = {sample_steps}
+
+[model]
+type = "lumina_2"
+dtype = "bfloat16"
+lumina_shift = true
+num_layers = 2
+vae_path = "{vae}"
+
+[adapter]
+type = "lokr"
+rank = 16
+decompose_factor = -1
+{init}
+[optimizer]
+type = "genericoptim"
+lr = 1e-4
+second_moment_type = "sn"
+rank = 128
+proj_type = "svd"
+update_proj_gap = 200
+"""
+LUMINA_DRIVER_TOMLS = {
+    "lumina_2": LUMINA2_DRIVER_TOML,
+    # Z-Image at its published width (head dim 128, pad tokens, RoPE (32,
+    # 48, 48)), 2 main blocks, with FLUX.2's driver settings (LoRA r32,
+    # adamw8bit, `true`)
+    "z_image": FLUX2_DRIVER_TOML.replace(
+        "flux2-dev-lora-1024-fp8-int8's trainer", "Z-Image LoRA").replace(
+        "2 + 2 blocks", "2 main blocks").replace('type = "flux2"', 'type = "z_image"').replace(
+        'transformer_dtype = "float8"\n', "").replace("num_single_layers = 2\n", ""),
+}
+
+
+def _lumina_text_stand_in(family):
+    """Seeded caption rows at the family's cached shape (Lumina 2: Gemma-2's
+    [256, 2,304]; Z-Image: Qwen3-4B's [512, 2,560]) with the first
+    min(len(caption) + 1, rows) valid and the mask: the `_tiny` hook's rule
+    at full size."""
+    from diffusion_pipe_tpu_torch.models import get_model_class
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    rows, width = {"lumina_2": (256, 2304), "z_image": (512, 2560)}[family]
+    feats_key, mask_key = get_model_class(family).text_keys
+
+    def fn(caps):
+        emb = seeded_draws(caps, family, (rows, width))
+        mask = torch.zeros((len(caps), rows), dtype=torch.int32)
+        for i, c in enumerate(caps):
+            mask[i, :min(len(c) + 1, rows)] = 1
+        return {feats_key: emb * mask[..., None], mask_key: mask}
+
+    return [fn]
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4668,7 +5008,7 @@ def nvidia_smi_line():
 
 def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                  driver_counts, ptxas, more_counts, qwen_int8_timing, flux2_int8_timing,
-                 d256):
+                 d256, padded):
     """One entry per kernel. K1-K4 at the Wan path's shape (K1-K3: the
     cross-attention shape, where the plain version fits; K4: ffn_in with a
     bf16 update), launches from the Wan path's timed steps, and the same
@@ -4684,10 +5024,11 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     build. more_counts: {key: launches of another Wan path} (the LoRA,
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
-    and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2 and AuraFlow (D 256),
-    and the source and ptxas record of their bf16 D 256 build (d256); H1
-    and H2 theirs at Qwen-Image's ff_in (qwen_int8_timing) and FLUX.2's
-    linear1 (flux2_int8_timing)."""
+    and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow (D 256),
+    Lumina 2 (D 96) and OmniGen2 (D 120), and the source and ptxas record
+    of their bf16 D 256 build (d256) and of the bf16 D 128 instance that
+    runs D 96 and 120 (padded); H1 and H2 theirs at Qwen-Image's ff_in
+    (qwen_int8_timing) and FLUX.2's linear1 (flux2_int8_timing)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd", "sdpa_bwd_ms")
 
@@ -4721,7 +5062,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                       + tuple(c for c, _ in SDXL_KERNEL_CASES)
                       + tuple(c[0] for c in SD3_CHROMA_KERNEL_CASES)
                       + tuple(c[0] for c in QWEN_KERNEL_CASES)
-                      + tuple(c[0] for c in FLUX2_AURAFLOW_KERNEL_CASES)}
+                      + tuple(c[0] for c in FLUX2_AURAFLOW_KERNEL_CASES)
+                      + tuple(c[0] for c in LUMINA_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -4733,6 +5075,7 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
             entry["ptxas_bf16_d128"] = main_ptxas(ptxas.get(name, {}))
             entry["source_d256"] = D256_KERNELS[name][2]
             entry["ptxas_bf16_d256"] = d256.get(name)
+            entry["ptxas_bf16_d96_d120"] = padded.get(name)
         entry["at_other_shapes"] = beside
         kernels.append(entry)
     return json.dumps({"kernels": kernels})
@@ -4850,6 +5193,21 @@ def main():
     driver_auraflow_counts = phase_driver_family("auraflow")
     _free()
     emit(phase="flux2-auraflow-phases", seconds=time.perf_counter() - new_t0)
+    lumina_t0 = time.perf_counter()
+    lumina_timings, padded = phase_kernels_lumina(ptxas)
+    timings.update(lumina_timings)
+    for family in ("lumina_2", "z_image", "omnigen2"):
+        phase_reference_lumina(family)
+        _free()
+    lumina2_counts = phase_slice_lumina("lumina_2")
+    _free()
+    omnigen2_counts = phase_slice_lumina("omnigen2")
+    _free()
+    driver_lumina2_counts = phase_driver_family("lumina_2", vae_dir)
+    _free()
+    driver_zimage_counts = phase_driver_family("z_image", vae_dir)
+    _free()
+    emit(phase="lumina-phases", seconds=time.perf_counter() - lumina_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -4864,9 +5222,12 @@ def main():
             "launches_flux2_dev_lora": flux2_counts, "launches_flux2_dev_edit": flux2_edit_counts,
             "launches_auraflow_lora": auraflow_counts,
             "launches_driver_flux2": driver_flux2_counts,
-            "launches_driver_auraflow": driver_auraflow_counts}
+            "launches_driver_auraflow": driver_auraflow_counts,
+            "launches_lumina2_lokr": lumina2_counts, "launches_omnigen2_lora": omnigen2_counts,
+            "launches_driver_lumina2": driver_lumina2_counts,
+            "launches_driver_zimage": driver_zimage_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
-                       driver_counts, ptxas, more, qwen_int8, flux2_int8, d256))
+                       driver_counts, ptxas, more, qwen_int8, flux2_int8, d256, padded))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

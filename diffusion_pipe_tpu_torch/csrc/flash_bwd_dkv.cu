@@ -53,6 +53,11 @@
 // run ahead of the math, the products are wgmma, the key tile is 128 and the
 // query step 64, Q and dO are read once a step, and the query split fills
 // the card at short Skv.
+//
+// Head dims 96 and 120 run the D 128 tiles (kPad), as K1 and K2 do: the
+// tensor maps carry the true D and TMA zero-fills the columns past it, so
+// dK and dV get zero columns there, which neither the epilogue nor the
+// query split's workspace (rows of the true D) stores.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -72,6 +77,7 @@ struct DkvArgs {
   int h, sq, skv;
   int splits, tiles_per_split;
   float scale;
+  int d;             // the true head dim: HD, or under kPad less (96, 120)
 };
 
 template <int HD>
@@ -109,7 +115,7 @@ __device__ __forceinline__ void load_step(const CUtensorMap* tm_q, const CUtenso
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad>
 __global__ void __launch_bounds__(256, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -291,30 +297,32 @@ __global__ void __launch_bounds__(256, 1)
     }
   }
 
-  const int64_t row_stride = (int64_t)a.h * HD;
-  const int64_t out_base = (int64_t)b * a.skv * row_stride + h * HD;
+  const int dcols = kPad ? a.d : HD;  // dK's and dV's columns
+  const int64_t row_stride = (int64_t)a.h * dcols;
+  const int64_t out_base = (int64_t)b * a.skv * row_stride + h * dcols;
   T* dk_out = static_cast<T*>(a.dk) + out_base;
   T* dv_out = static_cast<T*>(a.dv) + out_base;
   if (a.splits == 1) {
-    store_acc<T, HD>(dk_out, row_stride, n0 + lr0, a.skv, dk, t);
-    store_acc<T, HD>(dv_out, row_stride, n0 + lr0, a.skv, dv, t);
+    store_acc<T, HD, kPad>(dk_out, row_stride, n0 + lr0, a.skv, dk, t, dcols);
+    store_acc<T, HD, kPad>(dv_out, row_stride, n0 + lr0, a.skv, dv, t, dcols);
     return;
   }
 
   // query split: write this block's f32 partial; the last block of the
   // key tile sums all partials in split order
   const int tile = (b * a.h + h) * gridDim.x + kv_tile;
-  const int64_t part = (int64_t)BN * HD;  // floats of one of dK or dV
+  const int64_t part = (int64_t)BN * dcols;  // floats of one of dK or dV
   float* mine = a.ws + ((int64_t)tile * a.splits + split) * 2 * part;
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
     const int c = 8 * i + 2 * t;
-    *reinterpret_cast<float2*>(mine + lr0 * HD + c) = make_float2(dk[4 * i], dk[4 * i + 1]);
-    *reinterpret_cast<float2*>(mine + (lr0 + 8) * HD + c) =
+    if (kPad && c >= dcols) continue;
+    *reinterpret_cast<float2*>(mine + lr0 * dcols + c) = make_float2(dk[4 * i], dk[4 * i + 1]);
+    *reinterpret_cast<float2*>(mine + (lr0 + 8) * dcols + c) =
         make_float2(dk[4 * i + 2], dk[4 * i + 3]);
-    *reinterpret_cast<float2*>(mine + part + lr0 * HD + c) =
+    *reinterpret_cast<float2*>(mine + part + lr0 * dcols + c) =
         make_float2(dv[4 * i], dv[4 * i + 1]);
-    *reinterpret_cast<float2*>(mine + part + (lr0 + 8) * HD + c) =
+    *reinterpret_cast<float2*>(mine + part + (lr0 + 8) * dcols + c) =
         make_float2(dv[4 * i + 2], dv[4 * i + 3]);
   }
   __threadfence();
@@ -330,14 +338,15 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll 1
   for (int i = 0; i < HD / 8; ++i) {
     const int c = 8 * i + 2 * t;
+    if (kPad && c >= dcols) continue;
     float2 k0 = make_float2(0.f, 0.f), k1 = k0, v0 = k0, v1 = k0;
     for (int sp = 0; sp < a.splits; ++sp) {
       const float* p = first + (int64_t)sp * 2 * part;
-      const float2 x0 = __ldcg(reinterpret_cast<const float2*>(p + lr0 * HD + c));
-      const float2 x1 = __ldcg(reinterpret_cast<const float2*>(p + (lr0 + 8) * HD + c));
-      const float2 y0 = __ldcg(reinterpret_cast<const float2*>(p + part + lr0 * HD + c));
+      const float2 x0 = __ldcg(reinterpret_cast<const float2*>(p + lr0 * dcols + c));
+      const float2 x1 = __ldcg(reinterpret_cast<const float2*>(p + (lr0 + 8) * dcols + c));
+      const float2 y0 = __ldcg(reinterpret_cast<const float2*>(p + part + lr0 * dcols + c));
       const float2 y1 =
-          __ldcg(reinterpret_cast<const float2*>(p + part + (lr0 + 8) * HD + c));
+          __ldcg(reinterpret_cast<const float2*>(p + part + (lr0 + 8) * dcols + c));
       k0.x += x0.x; k0.y += x0.y; k1.x += x1.x; k1.y += x1.y;
       v0.x += y0.x; v0.y += y0.y; v1.x += y1.x; v1.y += y1.y;
     }
@@ -358,22 +367,23 @@ __global__ void __launch_bounds__(256, 1)
 // loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
 // same process would skip the call.
 namespace {
-bool g_smem_set[4][64];
-template <typename T, int HD>
+bool g_smem_set[6][64];
+template <typename T, int HD, bool kPad>
 constexpr int smem_flag() {
-  return (std::is_same<T, __half>::value ? 2 : 0) + (HD == 128 ? 1 : 0);
+  return (std::is_same<T, __half>::value ? 3 : 0) + (kPad ? 2 : HD == 128 ? 1 : 0);
 }
 }  // namespace
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad = false>
 cudaError_t run_dkv(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                     const CUtensorMap& tdo, const DkvArgs& a, int b, cudaStream_t stream) {
   using C = DkvTile<HD>;
-  cudaError_t err =
-      set_smem_once(flash_bwd_dkv_kernel<T, HD>, C::kSmem, g_smem_set[smem_flag<T, HD>()]);
+  cudaError_t err = set_smem_once(flash_bwd_dkv_kernel<T, HD, kPad>, C::kSmem,
+                                  g_smem_set[smem_flag<T, HD, kPad>()]);
   if (err != cudaSuccess) return err;
   dim3 grid((a.skv + C::kBN - 1) / C::kBN, a.h, b * a.splits);
-  flash_bwd_dkv_kernel<T, HD><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo, a);
+  flash_bwd_dkv_kernel<T, HD, kPad><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo,
+                                                                             a);
   return cudaGetLastError();
 }
 
@@ -382,7 +392,7 @@ cudaError_t run_dkv(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensor
 // splits: blocks a key tile's query loop is split over (1: none); with
 // splits > 1, ws holds splits * 2 * 128 * hd floats per key tile (key tiles
 // of 128 rows, over heads and batch) and counters one zeroed int per key
-// tile.
+// tile. hd: 64 or 128, or 96 or 120 on the D 128 tiles.
 extern "C" int dpt_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* mask, void* dk, void* dv,
@@ -392,7 +402,7 @@ extern "C" int dpt_flash_bwd_dkv(
     long long do_ss, long long do_sh, long long mask_sb, float scale,
     int is_fp16, void* stream, int splits, void* ws, void* counters) {
   using Tile = dpt::DkvTile<128>;
-  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (!dpt::kernel_head_dim(hd) || hd > 128) return static_cast<int>(cudaErrorInvalidValue);
   if (splits < 1 || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, tdo;
@@ -420,6 +430,7 @@ extern "C" int dpt_flash_bwd_dkv(
   a.h = h;
   a.sq = sq;
   a.skv = skv;
+  a.d = hd;
   a.splits = splits;
   const int q_tiles = (sq + Tile::kBM - 1) / Tile::kBM;
   a.tiles_per_split = (q_tiles + splits - 1) / splits;
@@ -428,6 +439,9 @@ extern "C" int dpt_flash_bwd_dkv(
   if (hd == 64)
     err = is_fp16 ? dpt::run_dkv<__half, 64>(tq, tk, tv, tdo, a, b, s)
                   : dpt::run_dkv<__nv_bfloat16, 64>(tq, tk, tv, tdo, a, b, s);
+  else if (hd < 128)
+    err = is_fp16 ? dpt::run_dkv<__half, 128, true>(tq, tk, tv, tdo, a, b, s)
+                  : dpt::run_dkv<__nv_bfloat16, 128, true>(tq, tk, tv, tdo, a, b, s);
   else
     err = is_fp16 ? dpt::run_dkv<__half, 128>(tq, tk, tv, tdo, a, b, s)
                   : dpt::run_dkv<__nv_bfloat16, 128>(tq, tk, tv, tdo, a, b, s);

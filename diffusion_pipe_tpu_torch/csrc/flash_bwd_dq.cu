@@ -77,6 +77,11 @@
 // registers): wgmma on 64-row operands read from shared memory by the
 // tensor cores, TMA copies that run ahead of the math, 48 keys a step
 // where it took 32, and no block-wide barrier in the loop.
+//
+// Head dims 96 and 120 run the D 128 tiles (kPad), as K1 does: the tensor
+// maps carry the true D, TMA zero-fills the columns past it (zero columns
+// of Q, K, V and dO add nothing to S, dP or D's rows, and give zero columns
+// of dQ), and the epilogue stores the true D's columns at its row stride.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -92,6 +97,7 @@ struct DqArgs {
   void* dq;          // contiguous [B, Sq, H, D]
   int h, sq, skv;
   float scale;
+  int d;             // the true head dim: HD, or under kPad less (96, 120)
 };
 
 template <int HD>
@@ -119,7 +125,7 @@ struct DqTile {
   static_assert(kSmem <= 232448, "shared memory a block may hold");
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad>
 __global__ void __launch_bounds__(DqTile<HD>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -349,11 +355,13 @@ __global__ void __launch_bounds__(DqTile<HD>::kThreads, 1)
       }
     }
 
-    const int64_t row_stride = (int64_t)a.h * HD;
-    T* out = static_cast<T*>(a.dq) + (int64_t)b * a.sq * row_stride + h * HD;
+    const int dcols = kPad ? a.d : HD;  // dQ's columns
+    const int64_t row_stride = (int64_t)a.h * dcols;
+    T* out = static_cast<T*>(a.dq) + (int64_t)b * a.sq * row_stride + h * dcols;
 #pragma unroll
     for (int i = 0; i < HD / 8; ++i) {
       const int c = 8 * i + 2 * t;
+      if (kPad && c >= dcols) continue;
       if (r0 < a.sq)
         *reinterpret_cast<uint32_t*>(out + r0 * row_stride + c) =
             Elem<T>::pack(dq[4 * i], dq[4 * i + 1]);
@@ -369,22 +377,24 @@ __global__ void __launch_bounds__(DqTile<HD>::kThreads, 1)
 // loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
 // same process would skip the call.
 namespace {
-bool g_smem_set[6][64];
-template <typename T, int HD>
+bool g_smem_set[8][64];
+template <typename T, int HD, bool kPad>
 constexpr int smem_flag() {
-  return (std::is_same<T, __half>::value ? 3 : 0) + (HD == 64 ? 0 : HD == 128 ? 1 : 2);
+  return (std::is_same<T, __half>::value ? 4 : 0) +
+         (kPad ? 3 : HD == 64 ? 0 : HD == 128 ? 1 : 2);
 }
 }  // namespace
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad = false>
 cudaError_t run_dq(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const CUtensorMap& tdo, const DqArgs& a, int b, cudaStream_t stream) {
   using C = DqTile<HD>;
-  cudaError_t err =
-      set_smem_once(flash_bwd_dq_kernel<T, HD>, C::kSmem, g_smem_set[smem_flag<T, HD>()]);
+  cudaError_t err = set_smem_once(flash_bwd_dq_kernel<T, HD, kPad>, C::kSmem,
+                                  g_smem_set[smem_flag<T, HD, kPad>()]);
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + C::kBM - 1) / C::kBM, a.h, b);
-  flash_bwd_dq_kernel<T, HD><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo, a);
+  flash_bwd_dq_kernel<T, HD, kPad><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo,
+                                                                            a);
   return cudaGetLastError();
 }
 
@@ -398,7 +408,7 @@ extern "C" int dpt_flash_bwd_dq(
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, long long mask_sb, float scale, int is_fp16,
     void* stream) {
-  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (!dpt::kernel_head_dim(hd)) return static_cast<int>(cudaErrorInvalidValue);
   // the tile's rows: 128 queries, and keys a step (DqTile<64> is DqTile<128>'s)
   const int bm = dpt::DqTile<128>::kBM;
   const int bn = hd == 256 ? dpt::DqTile<256>::kBN : dpt::DqTile<128>::kBN;
@@ -422,11 +432,15 @@ extern "C" int dpt_flash_bwd_dq(
   a.h = h;
   a.sq = sq;
   a.skv = skv;
+  a.d = hd;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     err = is_fp16 ? dpt::run_dq<__half, 64>(tq, tk, tv, tdo, a, b, s)
                   : dpt::run_dq<__nv_bfloat16, 64>(tq, tk, tv, tdo, a, b, s);
+  else if (hd < 128)
+    err = is_fp16 ? dpt::run_dq<__half, 128, true>(tq, tk, tv, tdo, a, b, s)
+                  : dpt::run_dq<__nv_bfloat16, 128, true>(tq, tk, tv, tdo, a, b, s);
   else if (hd == 128)
     err = is_fp16 ? dpt::run_dq<__half, 128>(tq, tk, tv, tdo, a, b, s)
                   : dpt::run_dq<__nv_bfloat16, 128>(tq, tk, tv, tdo, a, b, s);

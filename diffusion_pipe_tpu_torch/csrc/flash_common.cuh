@@ -18,6 +18,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Natural-log LSE written for a query row that has no valid key.
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
 
+// The head dims the kernels take: 64, 128 and 256 at their own tiles; 96
+// and 120 on the D 128 tiles, the columns past D zero-filled by TMA (kPad).
+inline bool kernel_head_dim(int hd) {
+  return hd == 64 || hd == 96 || hd == 120 || hd == 128 || hd == 256;
+}
+
 template <typename T>
 struct Elem;
 
@@ -48,13 +54,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Writes rows r0, r0 + 8 (when < nrows) of a warp's slice of a 64-row wgmma
-// accumulator of N columns, as T.
-template <typename T, int N>
+// accumulator of N columns, as T; under kPad only its first ncols columns
+// (a multiple of 8).
+template <typename T, int N, bool kPad = false>
 __device__ __forceinline__ void store_acc(T* dst, int64_t row_stride, int r0, int nrows,
-                                          const float (&acc)[N / 2], int t) {
+                                          const float (&acc)[N / 2], int t, int ncols = N) {
 #pragma unroll
   for (int i = 0; i < N / 8; ++i) {
     const int c = 8 * i + 2 * t;
+    if (kPad && c >= ncols) continue;
     if (r0 < nrows)
       *reinterpret_cast<uint32_t*>(dst + r0 * row_stride + c) =
           Elem<T>::pack(acc[4 * i], acc[4 * i + 1]);

@@ -58,6 +58,13 @@
 // cp.async by the warps that do the math, formerly in flash_d256.cu):
 // wgmma, TMA,
 // twice the keys a step and twice the rows a block.
+//
+// Head dims 96 and 120 (Lumina 2's and OmniGen2's) run the D 128 tiles
+// (kPad): the tensor maps carry the true D, so TMA fills the columns of the
+// second 64-wide box past D with zeros. Zero columns of Q and K add nothing
+// to S, and zero columns of V give zero columns of O, which the epilogue
+// does not store: it writes the true D's columns at the true row stride.
+// The products do 128 / D of the useful work (1.33x at D 96, 1.07x at 120).
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -72,6 +79,7 @@ struct FwdArgs {
   float* lse;       // [B, H, Sq]
   int h, sq, skv;
   float scale;
+  int d;            // the true head dim: HD, or under kPad less (96, 120)
 };
 
 template <int HD>
@@ -98,7 +106,7 @@ struct FwdTile {
   static_assert(kSmem <= 232448, "shared memory a block may hold");
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad>
 __global__ void __launch_bounds__(FwdTile<HD>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -332,11 +340,15 @@ __global__ void __launch_bounds__(FwdTile<HD>::kThreads, 1)
     }
     const int r0 = m0 + cw * 64 + warp * 16 + (lane >> 2);
     const int r1 = r0 + 8;
-    const int64_t row_stride = (int64_t)a.h * HD;
-    T* out = static_cast<T*>(a.out) + (int64_t)b * a.sq * row_stride + h * HD;
+    // O's columns: HD, or under kPad the true D (a multiple of 8, so no
+    // packed pair straddles it)
+    const int dcols = kPad ? a.d : HD;
+    const int64_t row_stride = (int64_t)a.h * dcols;
+    T* out = static_cast<T*>(a.out) + (int64_t)b * a.sq * row_stride + h * dcols;
 #pragma unroll
     for (int i = 0; i < HD / 8; ++i) {
       const int c = 8 * i + 2 * t;
+      if (kPad && c >= dcols) continue;
       if (r0 < a.sq)
         *reinterpret_cast<uint32_t*>(out + r0 * row_stride + c) =
             Elem<T>::pack(o[4 * i] * inv[0], o[4 * i + 1] * inv[0]);
@@ -357,22 +369,23 @@ __global__ void __launch_bounds__(FwdTile<HD>::kThreads, 1)
 // loaded libraries (STB_GNU_UNIQUE), so a second build of this kernel in the
 // same process would skip the call.
 namespace {
-bool g_smem_set[6][64];
-template <typename T, int HD>
+bool g_smem_set[8][64];
+template <typename T, int HD, bool kPad>
 constexpr int smem_flag() {
-  return (std::is_same<T, __half>::value ? 3 : 0) + (HD == 64 ? 0 : HD == 128 ? 1 : 2);
+  return (std::is_same<T, __half>::value ? 4 : 0) +
+         (kPad ? 3 : HD == 64 ? 0 : HD == 128 ? 1 : 2);
 }
 }  // namespace
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad = false>
 cudaError_t run_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                     const FwdArgs& a, int b, cudaStream_t stream) {
   using C = FwdTile<HD>;
-  cudaError_t err =
-      set_smem_once(flash_fwd_kernel<T, HD>, C::kSmem, g_smem_set[smem_flag<T, HD>()]);
+  cudaError_t err = set_smem_once(flash_fwd_kernel<T, HD, kPad>, C::kSmem,
+                                  g_smem_set[smem_flag<T, HD, kPad>()]);
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + C::kBM - 1) / C::kBM, a.h, b);
-  flash_fwd_kernel<T, HD><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
+  flash_fwd_kernel<T, HD, kPad><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -384,7 +397,7 @@ extern "C" int dpt_flash_fwd(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long mask_sb, float scale, int is_fp16, void* stream) {
-  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (!dpt::kernel_head_dim(hd)) return static_cast<int>(cudaErrorInvalidValue);
   // the tile's rows: 128 queries, and keys a step (FwdTile<64> is FwdTile<128>'s)
   const int bm = dpt::FwdTile<128>::kBM;
   const int bn = hd == 256 ? dpt::FwdTile<256>::kBN : dpt::FwdTile<128>::kBN;
@@ -404,11 +417,15 @@ extern "C" int dpt_flash_fwd(
   a.h = h;
   a.sq = sq;
   a.skv = skv;
+  a.d = hd;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     err = is_fp16 ? dpt::run_fwd<__half, 64>(tq, tk, tv, a, b, s)
                   : dpt::run_fwd<__nv_bfloat16, 64>(tq, tk, tv, a, b, s);
+  else if (hd < 128)
+    err = is_fp16 ? dpt::run_fwd<__half, 128, true>(tq, tk, tv, a, b, s)
+                  : dpt::run_fwd<__nv_bfloat16, 128, true>(tq, tk, tv, a, b, s);
   else if (hd == 128)
     err = is_fp16 ? dpt::run_fwd<__half, 128>(tq, tk, tv, a, b, s)
                   : dpt::run_fwd<__nv_bfloat16, 128>(tq, tk, tv, a, b, s);

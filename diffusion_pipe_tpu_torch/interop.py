@@ -1,6 +1,6 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2 or AuraFlow parameter tree as the JAX
+Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow or Lumina 2 parameter tree as the JAX
 package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
@@ -28,6 +28,11 @@ config: for FLUX.2 the JAX module's layout (GELU MLP at ratio 4, biased
 top linears, txt_norm, 3 RoPE axes at theta 10,000), which the port
 otherwise takes only from a checkpoint's keys. auraflow_state_dict reorders
 the JAX patch projection into the port's (diffusers') patch order.
+lumina2_config / lumina2_state_dict do it for the JAX Lumina2Transformer of
+all three of its families (Lumina 2, Z-Image, OmniGen2): the scanned
+`layers/Lumina2Block_0/...` stack becomes `layers.{i}.*` and the unrolled
+`context_refiner_{i}` / `noise_refiner_{i}` become `context_refiner.{i}` /
+`noise_refiner.{i}`.
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -226,3 +231,38 @@ def auraflow_state_dict(params: Mapping[str, Any], config,
         sd["patch_proj.weight"] = patch_proj_from_jax(sd["patch_proj.weight"],
                                                       config.in_channels, config.patch_size)
     return sd
+
+
+def lumina2_config(jax_config, **over):
+    """The port's Lumina2Config computing what the JAX Lumina2Transformer of
+    `jax_config` computes: its sizes, RoPE and adapter, t scaled by 1,000
+    as the JAX module scales it for every family (the port's Lumina 2 takes
+    time_scale 1)."""
+    from .models.lumina_2 import Lumina2Config
+
+    kw = _shared_fields(jax_config, Lumina2Config)
+    kw.setdefault("time_scale", 1000.0)
+    kw.update(over)
+    return Lumina2Config(**kw)
+
+
+_LUMINA_REFINER = re.compile(r"^(context_refiner|noise_refiner)_(\d+)\.")
+
+
+def lumina2_state_dict(params: Mapping[str, Any],
+                       dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX Lumina2Transformer tree (any of the three
+    families, or a subtree such as its LoRA factors) as the port's module
+    names: the scanned main stack `layers/Lumina2Block_0/<leaf>` [L, ...]
+    split into `layers.{i}.<leaf>`, the refiners `context_refiner_{i}.*` as
+    `context_refiner.{i}.*`."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    rest = {k: v for k, v in params.items() if k != "layers"}
+    out = {_LUMINA_REFINER.sub(r"\1.\2.", k): v for k, v in jax_to_state_dict(rest, dtype).items()}
+    if "layers" in params:
+        stack = params["layers"]
+        stack = stack.get("Lumina2Block_0", stack)
+        for key, val in jax_to_state_dict({"blocks": stack}, dtype).items():
+            out["layers." + key[len("blocks."):]] = val
+    return out

@@ -45,6 +45,23 @@ def seeded_draws(captions: List[str], suffix: str, shape) -> torch.Tensor:
         for c in captions]))
 
 
+def seeded_caption_draws(captions: List[str], rows: int, width: int):
+    """([B, rows, width] f32, [B, rows] int32): the JAX `_tiny` text hooks'
+    masked draws, min(len(caption) + 1, rows) valid rows of normal draws
+    from numpy's generator seeded with the caption's hash, zeros after."""
+    import numpy as np
+
+    from ..data.bucketing import seed_from_hash
+
+    embs = np.zeros((len(captions), rows, width), np.float32)
+    masks = np.zeros((len(captions), rows), np.int32)
+    for i, c in enumerate(captions):
+        n = min(len(c) + 1, rows)
+        embs[i, :n] = np.random.default_rng(seed_from_hash(c)).standard_normal((n, width))
+        masks[i, :n] = 1
+    return torch.from_numpy(embs), torch.from_numpy(masks)
+
+
 def _model_type(path) -> str:
     """config.json's model_type of a transformers folder ("" without one)."""
     import json

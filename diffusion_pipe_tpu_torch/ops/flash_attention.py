@@ -4,9 +4,11 @@ Counterpart of diffusion_pipe_tpu/ops/flash_attention.py. Three CUDA
 kernels replace the Pallas TPU kernels `_fwd_kernel`, `_dq_kernel` and
 `_dkv_kernel`: K1 in csrc/flash_fwd.cu and K2 in csrc/flash_bwd_dq.cu (head
 dim 64, 128 and 256, each at its own tile: FwdTile<256>, DqTile<256>), K3 in
-csrc/flash_bwd_dkv.cu (64, 128) and csrc/flash_bwd_dkv_d256.cu (256). Each
-source file says what bounds its kernels on the H100 and how they are laid
-out.
+csrc/flash_bwd_dkv.cu (64, 128) and csrc/flash_bwd_dkv_d256.cu (256). Head
+dims 96 and 120 (Lumina 2's and OmniGen2's) run the D 128 tiles: the
+kernels' tensor maps carry the true D, TMA fills the columns past it with
+zeros, and the epilogues store the true D's columns only. Each source file
+says what bounds its kernels on the H100 and how they are laid out.
 
 Layout is the model's own [B, S, H, D] for q, k, v, O and the gradients
 (the kernels read through strides, so no transpose); the LSE is [B, H, Sq]
@@ -38,7 +40,7 @@ from . import kernel_build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 120, 128, 256)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _STRIDES = [_L] * 3

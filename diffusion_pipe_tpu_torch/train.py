@@ -28,7 +28,7 @@ output_dir/example.png before training.
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
 optimizer (A10), and families other than Flux, Wan, SDXL, SD3, Chroma,
-Qwen-Image, FLUX.2 and AuraFlow (A9).
+Qwen-Image, FLUX.2, AuraFlow, Lumina 2, Z-Image and OmniGen2 (A9).
 """
 
 from __future__ import annotations
@@ -81,17 +81,18 @@ def _check_ported(config, args):
     from .models.chroma import ChromaPipeline
     from .models.flux import FluxPipeline
     from .models.flux2 import Flux2Pipeline
+    from .models.lumina_2 import Lumina2Pipeline
     from .models.qwen_image import QwenImagePipeline
     from .models.sd3 import SD3Pipeline
     from .models.sdxl import SDXLPipeline
     from .models.wan import WanPipeline
 
     trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
-               QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline)
-    if get_model_class(config["model"]["type"]) not in trained:
+               QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline, Lumina2Pipeline)
+    if not issubclass(get_model_class(config["model"]["type"]), trained):
         raise NotImplementedError(
-            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2 and AuraFlow "
-            f"families so far; "
+            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow "
+            f"and Lumina 2 (with Z-Image and OmniGen2) families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 

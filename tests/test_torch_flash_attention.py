@@ -10,7 +10,10 @@ head dim, which the TPU kernels take as any multiple of 128) with and
 without a mask over a ragged Skv, and masked at Sq 200 x Skv 130, across
 the edges of the D 256 kernels' 128-query and 64-key tiles (the Pallas
 kernel's ragged Sq padded with zero queries and cotangents, as
-ops/attention.py pads it).
+ops/attention.py pads it). At head dims 96 and 120 (Lumina 2's and
+OmniGen2's), which the JAX package sends to XLA since its kernel takes
+multiples of 128, the plain versions are held against `_xla_attention`,
+masked, forward and grads, with the same tolerances.
 
 K3's query split (dkv_splits, dkv_layout) is held on the CPU at 132 SMs,
 and each kernel's C entry at each head dim against the libraries that
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from diffusion_pipe_tpu.ops.attention import _xla_attention
 from diffusion_pipe_tpu.ops.flash_attention import (
     _flash_attention_fwd_res,
     flash_attention as jax_flash_attention,
@@ -133,6 +137,31 @@ def test_backward_matches_pallas(case):
                                    atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("d", [96, 120])
+def test_plain_versions_match_xla_attention_at_lumina_head_dims(d):
+    """Sq 200 against a masked Skv 130 (every row keeps a valid key, where
+    _xla_attention's finite mask value and the port's empty-row rule
+    agree): O and dQ, dK, dV against jax.vjp of `_xla_attention`."""
+    rng = np.random.default_rng(9)
+    q, do = (rng.standard_normal((2, 200, H, d), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((2, 130, H, d), dtype=np.float32) for _ in range(2))
+    mask = (rng.random((2, 130)) > 0.3).astype(np.int32)
+    mask[:, 0] = 1
+    scale = d ** -0.5
+
+    @functools.partial(jax.jit, compiler_options=JAX_FAST_COMPILE)
+    def run(q, k, v, do):
+        o, vjp = jax.vjp(lambda *x: _xla_attention(*x, jnp.asarray(mask), scale), q, k, v)
+        return o, vjp(do)
+
+    o_ref, grads_ref = jax.tree.map(np.asarray, run(q, k, v, do))
+    t, o, _ = _port(q, k, v, mask)
+    np.testing.assert_allclose(o.detach().numpy(), o_ref, atol=2e-5, rtol=2e-5)
+    o.backward(torch.from_numpy(do))
+    for got, ref in zip(t, grads_ref):
+        np.testing.assert_allclose(got.grad.numpy(), ref, atol=5e-4, rtol=1e-3)
+
+
 def test_fully_masked_rows_give_zero_output_and_grads():
     """A batch element with no valid key: O = 0, LSE = the mask value and
     zero grads (the kernels' documented semantics)."""
@@ -155,7 +184,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         port_fa.flash_fwd_cuda(x, x, x, None, 0.1)
     with pytest.raises(TypeError):
         port_fa.flash_fwd_cuda(x.float(), x.float(), x.float(), None, 0.1)
-    y = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
+    y = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         port_fa.flash_fwd_cuda(y, y, y, None, 0.1)
     assert port_fa.launch_counts() == {

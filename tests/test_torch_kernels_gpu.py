@@ -7,7 +7,8 @@ a machine without them:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
 Flash attention (K1-K3): bf16 and fp16 inputs at B=1, H=2, Sq=256, D=128,
-64 and 256 (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
+64, 256, 96 and 120 (D 96 and 120, Lumina 2's and OmniGen2's, on the D 128
+tiles with TMA's zero fill past D) (and a ragged Skv=300, a cross-attention Skv=40 shorter than one key
 tile, a key mask, a ragged Sq=200 that is no multiple of K1's and K2's
 128-row query tile, heads 2-3 of six as a strided view, Sq=4096 against
 Skv=128, where K3 splits its query loop over blocks, Sq=328 against Skv=50,
@@ -30,7 +31,13 @@ deterministic there. AuraFlow's joint sequence at 1024 px (B 2, 4,360 keys, D 25
 ragged last tile; 4 of its 12 heads), with and without a key mask, K2 and K3
 deterministic there. A batch element whose keys are
 all masked gets O = 0, the mask value as its LSE and zero gradients, with
-and without the query split, at D 64, 128 and 256.
+and without the query split, at D 64, 96, 120, 128 and 256. At D 96 and
+120 the inputs are also column slices of wider buffers whose spare columns
+hold NaN (no column past D is read) and the outputs are checked whole (no
+column past D is written over the next head's); Lumina 2's and OmniGen2's
+joint sequences (4,352 keys, 60 / 200 of 256 caption keys valid; the noise
+refiner's 4,096 unmasked) at 3 heads; an unsupported head dim (32, 80,
+112) raises.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
@@ -107,7 +114,7 @@ def _inputs(case, dev, dtype=torch.bfloat16, d=128):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 64, 256])
+@pytest.mark.parametrize("d", [128, 64, 256, 96, 120])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernels_match_plain_on_gpu(case, dtype, d, cuda_device):
@@ -137,7 +144,7 @@ def test_kernels_match_plain_on_gpu(case, dtype, d, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["query_split", "no_split"])
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 96, 120])
 def test_dkv_is_deterministic(d, path, cuda_device):
     """Two K3 launches on the same inputs give the same bits: with the query
     loop split over blocks (2 key tiles of 128, or 2 x 2 of 64 at D 256, on
@@ -312,7 +319,7 @@ def test_sd3_chroma_shapes_match_plain(case, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["query_split", "no_split"])
-@pytest.mark.parametrize("d", [128, 64, 256])
+@pytest.mark.parametrize("d", [128, 64, 256, 96, 120])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
     """Batch element 0 has no valid key: O = 0, LSE = DEFAULT_MASK_VALUE and
@@ -352,7 +359,7 @@ def test_all_masked_batch_element_gives_zeros(dtype, d, path, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 96, 120])
 def test_autograd_runs_the_kernels(d, cuda_device):
     """flash_attention on CUDA tensors: forward and backward go through
     K1, K2 and K3 once each (at D 256 K1's and K2's entries of every head
@@ -378,6 +385,103 @@ def test_autograd_runs_the_kernels(d, cuda_device):
     rdk, rdv = port_fa.flash_bwd_dkv_plain(qf, kf, vf, None, rlse, di, do.float(), scale)
     for leaf, ref in zip(leaves, (rdq, rdk, rdv)):
         assert (leaf.grad.float() - ref).abs().max().item() < 2e-2 * ref.abs().max().item()
+
+
+def _plain_all(q, k, v, do, mask, scale):
+    o, lse = port_fa.flash_forward_plain(q, k, v, mask, scale)
+    di = port_fa.row_dot(do, o)
+    return (o, lse, port_fa.flash_bwd_dq_plain(q, k, v, mask, lse, di, do, scale),
+            *port_fa.flash_bwd_dkv_plain(q, k, v, mask, lse, di, do, scale))
+
+
+def _kernels_all(q, k, v, do, mask, scale):
+    o, lse = port_fa.flash_fwd_cuda(q, k, v, mask, scale)
+    di = port_fa.row_dot(do, o)
+    return (o, lse, port_fa.flash_bwd_dq_cuda(q, k, v, mask, lse, di, do, scale),
+            *port_fa.flash_bwd_dkv_cuda(q, k, v, mask, lse, di, do, scale))
+
+
+def _assert_near_plain(got, q, k, v, do, mask, scale):
+    refs = _plain_all(q.float(), k.float(), v.float(), do.float(), mask, scale)
+    for g, p, r in zip(got, _plain_all(q, k, v, do, mask, scale), refs):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+        err = (g.float() - r).abs().max().item()
+        plain_err = (p.float() - r).abs().max().item()
+        assert err <= 2 * plain_err + 1e-3 * r.abs().max().item(), (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 120])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case, sq, skv, h, masked", [
+    ("ragged_masked", 200, 1000, 24, True), ("query_split", 4096, 128, 3, False)])
+def test_padded_head_dims_touch_only_d_columns(case, sq, skv, h, masked, dtype, d, cuda_device):
+    """Q, K, V and dO as column slices [..., :D] of [B, S, H, 128] buffers
+    whose columns past D hold NaN: a read past D would spread NaN into the
+    outputs. The outputs (contiguous, heads D apart) match the plain
+    versions in every column, so no store past D lands on the next head;
+    on both of K3's paths (2 x 24 heads x 8 key tiles fill the card; 2 x 3
+    x 1 split the query loop)."""
+    rng = np.random.default_rng(17)
+    views = []
+    for s in (sq, skv, skv, sq):
+        buf = torch.full((2, s, h, 128), float("nan"), dtype=dtype, device=cuda_device)
+        buf[..., :d] = torch.from_numpy(rng.standard_normal((2, s, h, d), dtype=np.float32)).to(
+            cuda_device, dtype)
+        views.append(buf[..., :d])
+    q, k, v, do = views
+    assert q.stride() == (sq * h * 128, h * 128, 128, 1)
+    mask = None
+    if masked:
+        mask = torch.from_numpy((rng.random((2, skv)) > 0.3).astype(np.int32)).to(cuda_device)
+    scale = d ** -0.5
+    got = _kernels_all(q, k, v, do, mask, scale)
+    torch.cuda.synchronize()
+    assert (port_fa.flash_bwd_dkv_cuda.last_splits > 1) == (case == "query_split")
+    _assert_near_plain(got, *(x.contiguous() for x in views), mask, scale)
+
+
+# Lumina 2's and OmniGen2's joint sequences at 1024 px (256 caption rows, 60
+# and 200 of them valid, then 4,096 image tokens) and Lumina 2's noise
+# refiner (the 4,096 image tokens, unmasked), at 3 heads:
+# name: (B, S, D, masked keys of each batch element)
+LUMINA_CASES = {"lumina2_4352_masked": (2, 4352, 96, (slice(60, 256), slice(200, 256))),
+                "lumina2_refiner_4096": (2, 4096, 96, None),
+                "omnigen2_4352_masked": (1, 4352, 120, (slice(60, 256),))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LUMINA_CASES))
+def test_lumina_shapes_match_plain(case, cuda_device):
+    """K1-K3 at the Lumina families' shapes against the plain versions; K2
+    and K3 give the same bits twice there."""
+    b, s, d, masked = LUMINA_CASES[case]
+    rng = np.random.default_rng(19)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, 3, d), dtype=np.float32))
+                   .to(cuda_device, torch.bfloat16) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
+        for i, keys in enumerate(masked):
+            mask[i, keys] = 0
+    scale = d ** -0.5
+    got = _kernels_all(q, k, v, do, mask, scale)
+    _assert_near_plain(got, q, k, v, do, mask, scale)
+    again = _kernels_all(q, k, v, do, mask, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 80, 112])
+def test_unsupported_head_dims_raise_on_the_card(d, cuda_device):
+    """Head dims the kernels do not take raise before a launch: no SDPA or
+    plain fallback for CUDA tensors."""
+    x = torch.zeros((1, 64, 2, d), dtype=torch.bfloat16, device=cuda_device)
+    port_fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim"):
+        port_fa.flash_attention(x, x, x)
+    assert sum(port_fa.launch_counts().values()) == 0
 
 
 @pytest.mark.cuda

@@ -30,6 +30,10 @@ images as one-frame videos):
 - tiny FLUX.2 (the published layout, its seeded KL VAE, the `_tiny` text
   draws) and tiny AuraFlow (the seeded SDXL-shaped VAE; a 32 x 32 position
   table) the same way, their adapters in the ComfyUI dialect;
+- tiny Lumina 2, Z-Image and OmniGen2 (the seeded Flux VAE, the JAX
+  `_tiny` hooks' caption draws with their masks, Z-Image's pad tokens) the
+  same way, their adapters in the ComfyUI dialect (NextDiT's fused qkv,
+  OmniGen2's diffusers names);
 - tiny Flux full fine-tuning writes model.safetensors in the diffusers
   layout;
 - a [model] checkpoint path that does not load (a wrong path, a missing
@@ -217,6 +221,14 @@ def test_auraflow_cache_train_eval_checkpoint_resume(root):
     # 24 x 8 patch grids
     _cache_train_resume(root, _family_config("auraflow", "pos_embed_max_size = 1024"),
                         "auraflow", (2 * 16 + 2 * 8) * 3)
+
+
+@pytest.mark.parametrize("family, pairs", [("lumina_2", 5), ("z_image", 5), ("omnigen2", 7)])
+def test_lumina2_families_cache_train_eval_checkpoint_resume(root, family, pairs):
+    # 2 main blocks and 1 + 1 refiners; NextDiT's fused qkv and 4 more LoRA
+    # pairs a block, OmniGen2's separate q, k, v and 4 more: lora_A, lora_B
+    # and alpha each
+    _cache_train_resume(root, _family_config(family), family, 4 * pairs * 3)
 
 
 def test_qwen_image_edit_trains_on_control_images(root):
@@ -431,7 +443,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "lumina_2": ("", ('type = "flux"', 'type = "lumina_2"'), []),
+    "hidream": ("", ('type = "flux"', 'type = "hidream"'), []),
 }
 
 

@@ -11,7 +11,7 @@ its kernels into its own build/ directory. At each shape (bf16; by default
 the D 128 shapes of the port's main paths: Flux-dev B 2, H 24, S 1536;
 Wan2.1 cross-attention Sq 21504, Skv 512, H 12; Wan2.1 self-attention
 S 21504, H 12; or those --shapes names, AuraFlow's B 2, S 4360, H 12 at
-D 256 among them) it checks
+D 256 and SD3's B 2, S 4429, H 24 at D 64 among them) it checks
 that the two trees' outputs agree (max abs difference, printed), then times
 each kernel in turns, parent, change, change, parent, with CUDA events over
 a run of launches after a warm-up. One JSON line a shape and kernel, then a
@@ -36,6 +36,7 @@ SHAPES = {  # name: (B, Sq, Skv, H, D)
     "wan_cross": (1, 21504, 512, 12, 128),
     "wan_self": (1, 21504, 21504, 12, 128),
     "auraflow": (2, 4360, 4360, 12, 256),
+    "sd3_d64": (2, 4429, 4429, 24, 64),
 }
 DEFAULT_SHAPES = ("flux", "wan_cross", "wan_self")
 

@@ -13,6 +13,8 @@
     python3 tools/profile_torch_step.py --slice qwen-lora  # qwen-image-lora-1024
     python3 tools/profile_torch_step.py --slice flux2-lora  # flux2-dev-lora-1024-fp8-int8
     python3 tools/profile_torch_step.py --slice auraflow-lora  # auraflow-v0.3-lora-1024
+    python3 tools/profile_torch_step.py --slice lumina2-lokr  # lumina2-lokr-1024
+    python3 tools/profile_torch_step.py --slice omnigen2-lora  # omnigen2-lora-1024
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -36,7 +38,12 @@ weights pre-quantized to int8, int8_matmul "fwd_bwd", LoRA r32, adamw8bit,
 `true`, batch 1 at 1024 px with 512 text rows; or
 chip_smoke.build_auraflow_slice: AuraFlow v0.3 at full size, fp8 weights,
 LoRA r32, adamw8bit, `true`, batch 2 at 1024 px with 256 text rows, its
-attention at head dim 256), builds the kernels if needed, runs
+attention at head dim 256; or chip_smoke.build_lumina_slice:
+Lumina-Image-2.0 at its published size as examples/lumina_2.toml trains it,
+LoKr and genericoptim, `true`, batch 2 at 1024 px with 256 masked caption
+rows, its attention at head dim 96; with chip_smoke.OMNIGEN2_LORA_CONFIG
+OmniGen2 at full width and 4 main blocks, LoRA r32, adamw8bit, batch 1,
+head dim 120), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -144,7 +151,7 @@ def main(argv=None):
     ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora",
                                         "sdxl-lora", "sdxl-fullft", "sd3-lora",
                                         "chroma-lora", "qwen-lora", "flux2-lora",
-                                        "auraflow-lora"),
+                                        "auraflow-lora", "lumina2-lokr", "omnigen2-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -175,6 +182,10 @@ def main(argv=None):
                        chip_smoke.build_flux2_slice),
         "auraflow-lora": ("auraflow-v0.3-lora-1024", chip_smoke.AURAFLOW_LORA_CONFIG,
                           chip_smoke.build_auraflow_slice),
+        "lumina2-lokr": ("lumina2-lokr-1024", chip_smoke.LUMINA2_LOKR_CONFIG,
+                         chip_smoke.build_lumina_slice),
+        "omnigen2-lora": ("omnigen2-lora-1024", chip_smoke.OMNIGEN2_LORA_CONFIG,
+                          lambda cfg: chip_smoke.build_lumina_slice(cfg, valid=(200,))),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing

@@ -9,7 +9,10 @@ whose Flux VAE Chroma's driver reads), kernels-qwen, reference-qwen,
 slice-qwen-image-lora, slice-qwen-image-edit-lora, qwen25vl, driver-qwen,
 kernels-flux2-auraflow, reference-flux2, reference-auraflow, slice-flux2-lora,
 slice-flux2-edit-lora, slice-auraflow-lora, mistral3, pile-t5, driver-flux2,
-driver-auraflow. Each prints its JSON lines as in the whole smoke; a failed
+driver-auraflow, kernels-lumina, reference-lumina2, reference-zimage,
+reference-omnigen2, slice-lumina2-lokr, slice-omnigen2-lora, driver-lumina2,
+driver-zimage (the last two with the vae phase first, whose Flux VAE they
+read). Each prints its JSON lines as in the whole smoke; a failed
 check exits non-zero.
 """
 
@@ -56,6 +59,14 @@ def main(argv):
         "pile-t5": cs.phase_pile_t5,
         "driver-flux2": lambda: cs.phase_driver_family("flux2"),
         "driver-auraflow": lambda: cs.phase_driver_family("auraflow"),
+        "kernels-lumina": lambda: cs.phase_kernels_lumina(ptxas),
+        "reference-lumina2": lambda: cs.phase_reference_lumina("lumina_2"),
+        "reference-zimage": lambda: cs.phase_reference_lumina("z_image"),
+        "reference-omnigen2": lambda: cs.phase_reference_lumina("omnigen2"),
+        "slice-lumina2-lokr": lambda: cs.phase_slice_lumina("lumina_2"),
+        "slice-omnigen2-lora": lambda: cs.phase_slice_lumina("omnigen2"),
+        "driver-lumina2": lambda: cs.phase_driver_family("lumina_2", cs.phase_vae()),
+        "driver-zimage": lambda: cs.phase_driver_family("z_image", cs.phase_vae()),
     }
     unknown = [p for p in argv if p not in phases]
     if unknown:
