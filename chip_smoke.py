@@ -373,6 +373,31 @@ Phases, each printing one JSON line (or more):
                      factors), Z-Image at its published layout (head dim
                      128, pad tokens, RoPE (32, 48, 48)) with LoRA r32.
 
+19. kernels-hidream -- (run last) K1-K3 at HiDream-I1's joint sequence at 1024 px
+                     (B 1 x 4,480 = 4,096 image rows + 128 T5 + 2 x 128
+                     Llama rows, 20 heads of 128, unmasked) against the
+                     plain versions, K2 / K3 deterministic, timed beside the
+                     bound, the plain versions and SDPA.
+    reference-hidream -- 1 + 1 blocks at 256 wide (2 heads of 128, 2 experts
+                     top 2 and a shared one, LoRA on the experts too), bf16
+                     on the card against f32 on the CPU.
+    llama31        -- HiDream's Llama text function on Llama-3.1-8B at its
+                     published size (llama3 RoPE scaling) from a seed: the
+                     stacked states of all 32 layers for 2 x 128 ids, timed
+                     with the peak, in bf16 and in fp8 storage
+                     (llama3_4bit), fp8 held against bf16; a narrow copy
+                     against f32 on the CPU.
+    slice-hidream-lora -- cell hidream-i1-lora-1024: HiDream-I1 at its
+                     published size (16 + 32 blocks, 2,560 wide, 17.1 B)
+                     in bf16, LoRA r32 on every block linear (the routed
+                     experts' too), adamw8bit, `true`, batch 1 at 1024 px
+                     with 128 T5 rows and 32 cached Llama layers of 128
+                     rows: 96 / 48 / 48 launches a step.
+    driver-hidream -- HiDream through train.main at full width and 1 + 2
+                     blocks in fp8 storage at 512 px, the vae phase's Flux
+                     VAE and seeded text at the cached shapes, as
+                     driver-sd3.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -382,6 +407,7 @@ check raises and exits non-zero. Float32 references run with TF32 off
 (matmul and cuDNN).
 """
 
+import dataclasses
 import functools
 import gc
 import json
@@ -3320,7 +3346,10 @@ def _flash_step(pipeline):
 
 def _model_blocks(pipeline):
     """(attention blocks, model config) of an SD3, Chroma, Qwen-Image,
-    FLUX.2, AuraFlow or Lumina 2 family pipeline."""
+    FLUX.2, AuraFlow, Lumina 2 family or HiDream pipeline."""
+    if hasattr(pipeline, "hd_config"):
+        cfg = pipeline.hd_config
+        return cfg.num_double_layers + cfg.num_single_layers, cfg
     if hasattr(pipeline, "lumina_config"):
         cfg = pipeline.lumina_config
         return cfg.num_layers + 2 * cfg.num_refiner_layers, cfg
@@ -3511,6 +3540,8 @@ def phase_driver_family(family, vae_dir=None):
     elif family == "auraflow":
         vae_dir = _write_sdxl_vae(root / "vae")
         toml, stand_ins = AURAFLOW_DRIVER_TOML, _auraflow_text_stand_in
+    elif family == "hidream":
+        toml, stand_ins = HIDREAM_DRIVER_TOML, _hidream_text_stand_in
     elif family in LUMINA_DRIVER_TOMLS:
         toml = LUMINA_DRIVER_TOMLS[family]
         stand_ins = functools.partial(_lumina_text_stand_in, family)
@@ -3640,7 +3671,8 @@ def phase_driver_family(family, vae_dir=None):
     check(meta.get("custom_loader") == uninterrupted,
           f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
     check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
-    may_stay = NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image") else ("none",)
+    may_stay = (NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image", "hidream")
+                else ("none",))
     check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT) or n.endswith(may_stay)
                                                   for n in c["lora_tensors_still"])
               for c in calls), "LoRA factors did not all move")
@@ -3671,7 +3703,11 @@ ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2),
                 "z_image": 3 * 6 * 5,
                 # Lumina 2 with LoKr (no alphas): w1, w2_a and w2_b of each
                 # of a block's 7 linears (the fused qkv's 3 parts apart)
-                "lumina_2": 3 * 6 * 7}
+                "lumina_2": 3 * 6 * 7,
+                # HiDream's 1 + 2 blocks: a double block's 27 adapted
+                # linears (adaLN, 8 attention, 3 shared-expert, 4 x 3 routed
+                # experts, 3 ff_t), a single block's 20
+                "hidream": 3 * (1 * 27 + 2 * 20)}
 # adapter tensors other than the alphas, where not 2 / 3 of them
 ADAPTER_FACTORS = {"lumina_2": 3 * 6 * 7}
 
@@ -4999,6 +5035,272 @@ def _lumina_text_stand_in(family):
     return [fn]
 
 
+# --- slice 16: HiDream-I1 ------------------------------------------------------
+
+# K1-K3 at HiDream-I1's joint sequence at 1024 px: 4,096 image rows, the
+# text carry of 128 T5 rows and 128 Llama rows, and the block's own 128
+# Llama rows (4,480), 20 heads of 128, B 1, unmasked
+# (case, (B, S, H), D, masked keys, checked heads)
+HIDREAM_KERNEL_CASES = (("hidream_4480", (1, 4480, 20), 128, False, None),)
+HIDREAM_T5, HIDREAM_LLAMA_LAYERS, HIDREAM_LLAMA_ROWS = 128, 32, 128
+
+
+def phase_kernels_hidream():
+    """K1-K3 at HiDream's joint shape against their plain versions (every
+    head: the plain K1's f32 logits are 1.6 GB), K2 / K3 deterministic,
+    timed beside the bound, the plain versions and SDPA's forward and
+    backward. Returns {case: K1-K3 timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timings = {}
+    for case, (b, s, h), d, masked, heads in HIDREAM_KERNEL_CASES:
+        errors = _check_attention(fa, case, b, s, s, h, d, masked, gen, heads=heads)
+        _free()
+        splits = _check_bwd_deterministic(fa, case, b, s, s, h, d, gen, masked=masked)
+        _free()
+        timing, sdpa_bwd_ms = _time_attention(fa, b, s, s, h, d, gen, masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels-hidream", case=f"timing_{case}", q_shape=[b, s, h, d], kv_len=s,
+             masked=bool(masked), timing=timing, sdpa_bwd_ms=sdpa_bwd_ms,
+             k3_query_splits=splits)
+        timings[case] = timing
+        _free()
+    return timings
+
+
+def _hidream_reference_config(dtype):
+    """1 + 1 blocks at 256 wide: 2 heads of 128 (RoPE (64, 32, 32)), 2
+    routed experts of 512 with top 2 and a shared one of 256, T5 64 wide,
+    Llama 48, pooled 32; LoRA rank 4 on every block linear, the experts'
+    included."""
+    from diffusion_pipe_tpu_torch.models.hidream import HiDreamConfig
+
+    return HiDreamConfig(hidden_size=256, num_heads=2, num_double_layers=1, num_single_layers=1,
+                         num_routed_experts=2, num_activated_experts=2, expert_hidden=512,
+                         shared_hidden=256, t5_dim=64, llama_dim=48, pooled_dim=32,
+                         dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0,
+                         lora_dtype=dtype)
+
+
+def phase_reference_hidream(device="cuda"):
+    """The narrow HiDream (_hidream_reference_config) on a 16 x 16 latent (64
+    image tokens), 24 T5 rows and 3 cached Llama layers of 16 rows (the
+    published carry: 64 + 24 + 16 + 16 = 120 keys), bf16 on the card
+    against f32 on the CPU."""
+    from diffusion_pipe_tpu_torch.models.flux import latent_image_ids
+    from diffusion_pipe_tpu_torch.models.hidream import HiDreamTransformer
+
+    def build(dtype, dev):
+        with torch.device(dev):
+            return HiDreamTransformer(_hidream_reference_config(dtype))
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    x = torch.randn((1, 64, 64), generator=gen)
+    t5 = torch.randn((1, 24, 64), generator=gen)
+    llama = torch.randn((1, 3, 16, 48), generator=gen)
+    pooled = torch.randn((1, 32), generator=gen)
+    target = torch.randn((1, 64, 64), generator=gen)
+
+    def inputs(dtype):
+        return dict(x_tokens=x.to(dtype), img_ids=latent_image_ids(8, 8),
+                    timesteps=torch.tensor([400.0]), pooled=pooled.to(dtype),
+                    t5_embeds=t5.to(dtype), llama_embeds=llama.to(dtype))
+
+    _reference_family("reference-hidream", build, inputs, target, device, blocks=2)
+
+
+# Llama-3.1-8B's config.json, as CausalLMConfig.from_hf_config reads it
+LLAMA31_8B = {"model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
+              "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+              "intermediate_size": 14336, "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+              "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                               "high_freq_factor": 4.0,
+                               "original_max_position_embeddings": 8192}}
+# fp8 e4m3 storage rounds each weight to 3 mantissa bits, and random weights
+# carry the rounding through all 32 layers: the stacked states' relative L2
+# against bf16 must stay below this
+LLAMA31_FP8_REL_L2 = 0.3
+
+
+def _to_fp8_storage(lm):
+    """llama3_4bit: the 2-D weights but the embedding stored in float8, as
+    load_causal_lm stores a text_encoder_fp8 checkpoint."""
+    from torch import nn
+
+    from diffusion_pipe_tpu_torch.models.text_encoders import cast_te_params_fp8
+
+    with torch.no_grad():
+        for name, w in cast_te_params_fp8(dict(lm.named_parameters())).items():
+            if w.dtype == torch.float8_e4m3fn:
+                owner, leaf = name.rsplit(".", 1)
+                setattr(lm.get_submodule(owner), leaf, nn.Parameter(w, requires_grad=False))
+    return lm
+
+
+def phase_llama31():
+    """HiDream's Llama text function on Llama-3.1-8B at its published size
+    (LLAMA31_8B through from_hf_config: 32 layers, 4,096 wide, 32 heads over
+    8, FFN 14,336, vocab 128,256, theta 500,000, llama3 scaling (8, 1, 4,
+    8,192)) from a seed, bf16: LLMTextEncoder's stacked states of every
+    layer for 2 x 128 ids (the second padded after 77), [2, 32, 128, 4,096],
+    timed with the peak; then the same weights in fp8 storage
+    (llama3_4bit), timed and held against bf16 (relative L2 on the valid
+    rows below LLAMA31_FP8_REL_L2). A narrow 32-layer copy (256 wide) bf16
+    on the card against f32 on the CPU (rel L2 < 3e-2)."""
+    from diffusion_pipe_tpu_torch.models.llm_encoders import (CausalLM, CausalLMConfig,
+                                                              LLMTextEncoder)
+
+    def encoder(cfg, dev, seed):
+        with torch.device("meta"):
+            lm = CausalLM(cfg)
+        lm = lm.to_empty(device=dev)
+        lm.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        enc = LLMTextEncoder(".", max_length=HIDREAM_LLAMA_ROWS, stack_layers=True,
+                             dtype=cfg.dtype, device=dev)
+        enc.model = lm.eval().requires_grad_(False)
+        return enc
+
+    def timed(enc, ids, mask):
+        with torch.no_grad():
+            h = enc.hidden_states(ids, mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                h = enc.hidden_states(ids, mask)
+            torch.cuda.synchronize()
+        return h, (time.perf_counter() - t0) / 3 * 1e3
+
+    full = CausalLMConfig.from_hf_config(LLAMA31_8B, dtype=torch.bfloat16)
+    check(full.rope_llama3 == (8.0, 1.0, 4.0, 8192.0), f"llama3 scaling {full.rope_llama3}")
+    gen = torch.Generator().manual_seed(SEED + 31)
+    narrow = dict(vocab=1024, dim=256, num_heads=4, num_kv_heads=1, ffn_dim=512)
+    ids = torch.randint(0, 1024, (1, 64), generator=gen)
+    mask = torch.ones_like(ids)
+    ref_enc = encoder(dataclasses.replace(full, dtype=torch.float32, param_dtype=torch.float32,
+                                          **narrow), "cpu", SEED)
+    card_enc = encoder(dataclasses.replace(full, **narrow), "cpu", SEED)
+    card_enc.model.to("cuda")
+    with torch.no_grad():
+        ref = ref_enc.hidden_states(ids, mask)
+        got = card_enc.hidden_states(ids.cuda(), mask.cuda()).float().cpu()
+    narrow_err = _rel(got, ref)
+    del ref_enc, card_enc
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = encoder(full, "cuda", SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = torch.randint(0, full.vocab, (2, HIDREAM_LLAMA_ROWS), generator=gen).cuda()
+    mask = torch.ones_like(ids)
+    mask[1, 77:] = 0
+    h, encode_ms = timed(enc, ids, mask)
+    peak = torch.cuda.max_memory_allocated()
+    params = sum(p.numel() for p in enc.model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    _to_fp8_storage(enc.model)
+    _free()
+    h8, fp8_encode_ms = timed(enc, ids, mask)
+    valid = mask.bool()[:, None].expand(-1, full.num_layers, -1)
+    fp8_err = _rel(h8[valid].float(), h[valid].float())
+    fp8_bytes = sum(p.numel() * p.element_size() for p in enc.model.parameters())
+    finite = bool(torch.isfinite(h).all() and torch.isfinite(h8).all())
+    emit(phase="llama31", params=params, init_s=init_s, encode_ms=encode_ms,
+         fp8_encode_ms=fp8_encode_ms, shape=list(h.shape), finite=finite,
+         peak_memory_bytes=peak, fp8_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         fp8_weight_bytes=fp8_bytes, fp8_rel_l2=fp8_err, fp8_rel_l2_bound=LLAMA31_FP8_REL_L2,
+         narrow_rel_l2=narrow_err)
+    check(list(h.shape) == [2, 32, HIDREAM_LLAMA_ROWS, 4096] and finite,
+          f"Llama-3.1 states {list(h.shape)}")
+    check(narrow_err < 3e-2, f"narrow Llama-3.1 bf16 vs f32: rel L2 {narrow_err}")
+    check(fp8_err < LLAMA31_FP8_REL_L2, f"Llama-3.1 fp8 vs bf16: rel L2 {fp8_err}")
+    del enc, h, h8
+    _free()
+
+
+HIDREAM_LORA_CONFIG = {  # hidream-i1-lora-1024
+    "save_every_n_epochs": 1,
+    "model": {"type": "hidream", "dtype": "bfloat16"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+
+
+def build_hidream_slice(cfg=HIDREAM_LORA_CONFIG, device="cuda", latent_hw=128,
+                        t5_len=HIDREAM_T5, llama_layers=HIDREAM_LLAMA_LAYERS,
+                        llama_len=HIDREAM_LLAMA_ROWS, batch_size=1):
+    """HiDream at the config's size; a batch of latents and the cached text:
+    T5 rows [t5_len, 4,096], the pooled CLIP pair [2,048] and every Llama
+    layer's rows [llama_layers, llama_len, 4,096]."""
+    def make_batch(pipeline, gen):
+        c = pipeline.hd_config
+
+        def r(*shape):
+            return torch.randn((batch_size, *shape), generator=gen, device=device)
+
+        return {"latents": r(c.in_channels // 4, latent_hw, latent_hw),
+                "t5_embeds": r(t5_len, c.t5_dim).to(c.dtype), "pooled": r(c.pooled_dim).to(c.dtype),
+                "llama_embeds": r(llama_layers, llama_len, c.llama_dim).to(c.dtype)}
+
+    return _build_family_slice("hidream", cfg, device, make_batch)
+
+
+def _hidream_rows(c, image_rows, t5_len=HIDREAM_T5, llama_len=HIDREAM_LLAMA_ROWS):
+    """The joint sequence of every block: the image rows, the text carry
+    (T5 and, published, the last block's Llama rows) and the block's Llama
+    rows."""
+    return image_rows + t5_len + llama_len * (2 if c.published_carry else 1)
+
+
+def phase_slice_hidream():
+    """hidream-i1-lora-1024: HiDream-I1 at its published size (16 + 32
+    blocks, 2,560 wide, 4 experts top 2 and a shared one; 17.1 B) in bf16,
+    LoRA r32 on every block linear (the experts' included), adamw8bit,
+    `true`, batch 1 at 1024 px: 4,096 image rows, 128 T5 rows, 32 cached
+    Llama layers of 128 rows, a joint sequence of 4,480. 96 / 48 / 48
+    launches a step; the output and target [1, 4,096, 64]."""
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        c = pipeline.hd_config
+        rows = _hidream_rows(c, 64 * 64)
+        check(list(out.shape) == list(target.shape) == [1, 64 * 64, 64] and rows == 4480
+              and c.head_dim == 128, f"output {list(out.shape)}, {rows} rows")
+        return dict(sequence=rows, head_dim=c.head_dim, output_shape=list(out.shape),
+                    experts=c.num_routed_experts, expert_hidden=c.ff_hidden,
+                    shared_hidden=c.shared_ff_hidden)
+
+    counts, _, _ = phase_slice_family(
+        "slice-hidream-lora", "hidream-i1-lora-1024", build_hidream_slice,
+        timed_steps=NEW_TIMED_STEPS, expected_fn=_flash_step, no_gradient=("none",),
+        after=after, may_stay=NEW_MAY_STAY)
+    return counts
+
+
+HIDREAM_DRIVER_TOML = FLUX2_DRIVER_TOML.replace(
+    "flux2-dev-lora-1024-fp8-int8's trainer", "hidream-i1-lora-1024's trainer").replace(
+    "2 + 2 blocks", "1 + 2 blocks, fp8 storage").replace(
+    'type = "flux2"', 'type = "hidream"').replace(
+    "num_layers = 2\nnum_single_layers = 2\n", "num_double_layers = 1\nnum_single_layers = 2\n")
+
+
+def _hidream_text_stand_in():
+    """Seeded text at HiDream's cached shapes: T5 rows [128, 4,096], the
+    pooled CLIP pair [2,048] and Llama-3.1's 32 layers [32, 128, 4,096]."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    return [lambda caps: {"pooled": seeded_draws(caps, "pooled", (2048,))},
+            lambda caps: {"t5_embeds": seeded_draws(caps, "t5", (HIDREAM_T5, 4096))},
+            lambda caps: {"llama_embeds": seeded_draws(
+                caps, "llama", (HIDREAM_LLAMA_LAYERS, HIDREAM_LLAMA_ROWS, 4096))}]
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5025,8 +5327,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
     and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow (D 256),
-    Lumina 2 (D 96) and OmniGen2 (D 120), and the source and ptxas record
-    of their bf16 D 256 build (d256) and of the bf16 D 128 instance that
+    Lumina 2 (D 96), OmniGen2 (D 120) and HiDream, and the source and ptxas
+    record of their bf16 D 256 build (d256) and of the bf16 D 128 instance that
     runs D 96 and 120 (padded); H1 and H2 theirs at Qwen-Image's ff_in
     (qwen_int8_timing) and FLUX.2's linear1 (flux2_int8_timing)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
@@ -5063,7 +5365,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                       + tuple(c[0] for c in SD3_CHROMA_KERNEL_CASES)
                       + tuple(c[0] for c in QWEN_KERNEL_CASES)
                       + tuple(c[0] for c in FLUX2_AURAFLOW_KERNEL_CASES)
-                      + tuple(c[0] for c in LUMINA_KERNEL_CASES)}
+                      + tuple(c[0] for c in LUMINA_KERNEL_CASES)
+                      + tuple(c[0] for c in HIDREAM_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -5208,6 +5511,15 @@ def main():
     driver_zimage_counts = phase_driver_family("z_image", vae_dir)
     _free()
     emit(phase="lumina-phases", seconds=time.perf_counter() - lumina_t0)
+    hidream_t0 = time.perf_counter()
+    timings.update(phase_kernels_hidream())
+    phase_reference_hidream()
+    phase_llama31()
+    hidream_counts = phase_slice_hidream()
+    _free()
+    driver_hidream_counts = phase_driver_family("hidream", vae_dir)
+    _free()
+    emit(phase="hidream-phases", seconds=time.perf_counter() - hidream_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -5225,7 +5537,9 @@ def main():
             "launches_driver_auraflow": driver_auraflow_counts,
             "launches_lumina2_lokr": lumina2_counts, "launches_omnigen2_lora": omnigen2_counts,
             "launches_driver_lumina2": driver_lumina2_counts,
-            "launches_driver_zimage": driver_zimage_counts}
+            "launches_driver_zimage": driver_zimage_counts,
+            "launches_hidream_lora": hidream_counts,
+            "launches_driver_hidream": driver_hidream_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more, qwen_int8, flux2_int8, d256, padded))
     print(card)

@@ -1,6 +1,7 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow or Lumina 2 parameter tree as the JAX
+Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, Lumina 2 or HiDream
+parameter tree as the JAX
 package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
@@ -33,6 +34,11 @@ all three of its families (Lumina 2, Z-Image, OmniGen2): the scanned
 `layers/Lumina2Block_0/...` stack becomes `layers.{i}.*` and the unrolled
 `context_refiner_{i}` / `noise_refiner_{i}` become `context_refiner.{i}` /
 `noise_refiner.{i}`.
+hidream_config / hidream_state_dict do it for the JAX HiDreamTransformer:
+its form of the text carry (T5 alone), of the Llama layers (cycled) and of
+RoPE ((32, 48, 48)), and its stacked `experts_w1 / w2 / w3` [E, in, out]
+and `caption_projection` [blocks, llama_dim, dim] split into the port's
+per-expert and per-block linears.
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -265,4 +271,47 @@ def lumina2_state_dict(params: Mapping[str, Any],
         stack = stack.get("Lumina2Block_0", stack)
         for key, val in jax_to_state_dict({"blocks": stack}, dtype).items():
             out["layers." + key[len("blocks."):]] = val
+    return out
+
+
+def hidream_config(jax_config, **over):
+    """The port's HiDreamConfig computing what the JAX HiDreamTransformer of
+    `jax_config` computes: its sizes, adapter and RoPE axes, the text carry
+    of T5 alone, and its Llama layers (cycled i % L where it sets none)."""
+    from .models.hidream import HiDreamConfig
+
+    kw = _shared_fields(jax_config, HiDreamConfig)
+    kw["llama_layers"] = (tuple(jax_config.llama_layers) if jax_config.llama_layers
+                          else "cycle")
+    kw["published_carry"] = False
+    kw.update(over)
+    return HiDreamConfig(**kw)
+
+
+# the JAX HiDream leaves whose port module has another name
+_HIDREAM_NAMES = (("ff_i.shared_w", "ff_i.shared.w"), ("txt_ff_w", "ff_t.w"))
+
+
+def hidream_state_dict(params: Mapping[str, Any],
+                       dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX HiDreamTransformer tree (or a subtree such
+    as its LoRA factors) as the port's module names: `ff_i/shared_w{n}` as
+    `ff_i.shared.w{n}`, `txt_ff_w{n}` as `ff_t.w{n}`, each block's expert
+    bank `ff_i/experts_w{n}` [E, in, out] as E linears
+    `ff_i.experts.{j}.w{n}.weight` [out, in], and `caption_projection`
+    [blocks, in, out] as `caption_projection.{i}.weight`."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in jax_to_state_dict(params, dtype).items():
+        for old, new in _HIDREAM_NAMES:
+            key = key.replace(old, new)
+        head, _, leaf = key.rpartition(".")
+        if leaf.startswith("experts_w"):
+            for j in range(val.shape[0]):
+                out[f"{head}.experts.{j}.{leaf[len('experts_'):]}.weight"] = \
+                    val[j].t().contiguous()
+        elif key == "caption_projection":
+            for i in range(val.shape[0]):
+                out[f"caption_projection.{i}.weight"] = val[i].t().contiguous()
+        else:
+            out[key] = val
     return out

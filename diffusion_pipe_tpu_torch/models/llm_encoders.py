@@ -1,13 +1,17 @@
-"""Decoder-only LLM text encoders (Llama / Qwen2 / Qwen2.5(-VL) / Qwen3 /
-Mistral / Gemma 2 / Gemma 3) as PyTorch modules, for caption embeddings.
+"""Decoder-only LLM text encoders (Llama / Llama 3.1 / Qwen2 / Qwen2.5(-VL) /
+Qwen3 / Qwen3-VL / Mistral / Gemma 2 / Gemma 3) as PyTorch modules, for
+caption embeddings.
 
 Counterpart of diffusion_pipe_tpu/models/llm_encoders.py: one configurable
 decoder covers the family, the per-model differences being config flags
 that `CausalLMConfig.from_hf_config` reads from a transformers config.json:
 GQA widths, q/k/v biases (Qwen2), multimodal RoPE sections (Qwen2.5-VL),
-per-head q/k RMS norms (Qwen3, Gemma 3), Gemma's (1 + w) RMS norms, sandwich
-norms, embedding scale, query scale and logit soft-capping, sliding-window
-layers and Gemma 3's local RoPE base.
+Llama 3.1's scaled RoPE frequencies (rope_type "llama3"), per-head q/k RMS
+norms (Qwen3, Qwen3-VL's text tower, Gemma 3), Gemma's (1 + w) RMS norms,
+sandwich norms, embedding scale, query scale and logit soft-capping,
+sliding-window layers and Gemma 3's local RoPE base. The JAX function reads
+neither Llama 3.1's scaling nor Qwen3-VL's q/k norms; the port reads both,
+as transformers does.
 
 The attention is plain torch (f32 logits, the JAX package's finfo.min on
 masked keys, an f32 softmax), as the JAX module computes it with einsums
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -52,6 +57,10 @@ class CausalLMConfig:
     rope_theta: float = 500000.0
     rope_local_theta: float = 10000.0  # the sliding layers' base (Gemma 3's local base)
     rope_scaling_factor: float = 1.0  # linear scaling on the full layers
+    # Llama 3.1's frequency scaling (rope_type "llama3"): (factor,
+    # low_freq_factor, high_freq_factor, original_max_position_embeddings);
+    # () = none
+    rope_llama3: Tuple[float, ...] = ()
     rms_eps: float = 1e-6
     qkv_bias: bool = False  # Qwen2 / 2.5
     qk_norm: bool = False  # Qwen3, Gemma 3
@@ -100,7 +109,9 @@ class CausalLMConfig:
             # transformers slides only above max_window_layers; the text
             # towers that are cached turn it off
             sliding = 0
-        elif mt == "qwen3":
+        elif mt in ("qwen3", "qwen3_vl", "qwen3_vl_text"):
+            # Qwen3-VL's interleaved multimodal RoPE is plain RoPE on
+            # text-only ids, which is all a caption encoder gives it
             kw["qk_norm"] = True
         elif mt == "gemma2":
             kw.update(act="gelu_tanh", gemma_norm=True, post_norms=True,
@@ -120,6 +131,11 @@ class CausalLMConfig:
                 pat = cfg.get("sliding_window_pattern", 6)
                 layer_types = ["full_attention" if (i + 1) % pat == 0 else "sliding_attention"
                                for i in range(kw["num_layers"])]
+        rs = cfg.get("rope_scaling") or {}
+        if rs.get("rope_type", rs.get("type")) == "llama3":
+            kw["rope_llama3"] = (float(rs["factor"]), float(rs["low_freq_factor"]),
+                                 float(rs["high_freq_factor"]),
+                                 float(rs["original_max_position_embeddings"]))
         if layer_types:
             kw["layer_types"] = tuple("sliding" if t.startswith("sliding") else "full"
                                       for t in layer_types)
@@ -177,6 +193,31 @@ def _rope_cos_sin(s: int, head_dim: int, theta: float, scaling: float, device=No
     pos = np.arange(s, dtype=np.float32)
     freqs = torch.from_numpy((pos[:, None] / np.float32(scaling))
                              * _inv_freq(head_dim, theta)[None, :]).to(device)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def _llama3_inv_freq(head_dim: int, theta: float, params, device=None) -> torch.Tensor:
+    """Llama 3.1's inverse frequencies [head_dim / 2] f32, as transformers'
+    _compute_llama3_parameters computes them: wavelengths above
+    original_max / low_freq_factor divided by factor, those below
+    original_max / high_freq_factor kept, the band between smoothed."""
+    factor, low, high, old_len = params
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.int64, device=device)
+                           .float() / head_dim))
+    wavelen = 2 * math.pi / inv
+    scaled = torch.where(wavelen > old_len / low, inv / factor, inv)
+    smooth = (old_len / wavelen - low) / (high - low)
+    smoothed = (1 - smooth) * scaled / factor + smooth * scaled
+    medium = ~(wavelen < old_len / high) * ~(wavelen > old_len / low)
+    return torch.where(medium, smoothed, scaled)
+
+
+def _llama3_cos_sin(s: int, head_dim: int, theta: float, params, device=None):
+    """Rotate-half RoPE tables [S, head_dim] f32 at positions 0..S-1 from
+    Llama 3.1's scaled frequencies."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)
+    freqs = pos[:, None] * _llama3_inv_freq(head_dim, theta, params, device)[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return emb.cos(), emb.sin()
 
@@ -320,6 +361,9 @@ class CausalLM(nn.Module):
             rope_full = _mrope_cos_sin(position_ids.to(dev), cfg.head_dim, cfg.rope_theta,
                                        cfg.mrope_section)
             rope_sliding = rope_full
+        elif cfg.rope_llama3:
+            rope_full = _llama3_cos_sin(s, cfg.head_dim, cfg.rope_theta, cfg.rope_llama3, dev)
+            rope_sliding = rope_full
         else:
             rope_full = _rope_cos_sin(s, cfg.head_dim, cfg.rope_theta,
                                       cfg.rope_scaling_factor, dev)
@@ -345,13 +389,19 @@ class CausalLM(nn.Module):
         return out, hiddens
 
 
+# non-weight buffers a checkpoint may hold under the text tower's prefix
+BUFFER_SUFFIXES = ("rotary_emb.inv_freq", "rotary_emb_local.inv_freq")
+
+
 def convert_hf_causal_lm(sd: Mapping[str, torch.Tensor], cfg: CausalLMConfig,
                          prefix: str = "model.") -> Dict[str, torch.Tensor]:
     """A transformers Llama / Qwen / Mistral / Gemma state dict -> the
     port's CausalLM state dict. `prefix` is the outer module path: "model."
     for a plain LM, "model.language_model." or "language_model.model." in
     a VL checkpoint. torch's [out, in] weights keep their layout. Raises
-    KeyError naming the missing keys."""
+    KeyError naming the missing keys, and the keys under `prefix` that it
+    does not take (the non-weight buffers of BUFFER_SUFFIXES aside), as the
+    transformer loaders do (models/weights.py)."""
     names = {
         "attn_q": "self_attn.q_proj", "attn_k": "self_attn.k_proj",
         "attn_v": "self_attn.v_proj", "attn_o": "self_attn.o_proj",
@@ -374,6 +424,12 @@ def convert_hf_causal_lm(sd: Mapping[str, torch.Tensor], cfg: CausalLMConfig,
     missing = [prefix + k for k in want.values() if prefix + k not in sd]
     if missing:
         raise KeyError(f"LLM checkpoint lacks {len(missing)} keys, e.g. {missing[:5]}")
+    taken = {prefix + k for k in want.values()}
+    untaken = [k for k in sd if k.startswith(prefix) and k not in taken
+               and not k.endswith(BUFFER_SUFFIXES)]
+    if untaken:
+        raise KeyError(f"LLM checkpoint holds {len(untaken)} keys under {prefix!r} that the "
+                       f"model does not take, e.g. {untaken[:5]}")
     return {ours: sd[prefix + theirs] for ours, theirs in want.items()}
 
 
@@ -428,16 +484,20 @@ class LLMTextEncoder:
     tokenizer load at the first call from a transformers folder (a
     Mistral3ForConditionalGeneration's language model too: its nested
     text_config and longer key prefix are found; its vision tower is not
-    loaded); the text tower's prefix is found in the checkpoint."""
+    loaded); the text tower's prefix is found in the checkpoint.
+    stack_layers gives every layer's output instead, stacked along a new
+    axis: [B, num_layers, S, dim], transformers' hidden_states[1:] (HiDream's
+    Llama-3.1 states, one a block). A tokenizer without a pad token pads
+    with its EOS token, as the reference pads Llama 3.1."""
 
     def __init__(self, path: str, max_length: int, template: str = "{}",
                  crop_start: int = 0, hidden_layer: int = -1,
                  tokenizer_path: Optional[str] = None, dtype=torch.bfloat16,
                  hf_prefix: str = "model.", fp8: bool = False, device=None,
-                 hidden_layers: Tuple[int, ...] = ()):
+                 hidden_layers: Tuple[int, ...] = (), stack_layers: bool = False):
         self.path, self.max_length, self.template = Path(path), max_length, template
         self.crop_start, self.hidden_layer = crop_start, hidden_layer
-        self.hidden_layers = tuple(hidden_layers)
+        self.hidden_layers, self.stack_layers = tuple(hidden_layers), stack_layers
         self.tokenizer_path = tokenizer_path or str(path)
         self.dtype, self.hf_prefix, self.fp8 = dtype, hf_prefix, fp8
         self.device = torch.device(device) if device is not None else torch.device("cpu")
@@ -451,22 +511,27 @@ class LLMTextEncoder:
         self.model = load_causal_lm(self.path, self.dtype, self.device, self.hf_prefix,
                                     self.fp8)[0]
         self.tokenizer = AutoTokenizer.from_pretrained(str(self.tokenizer_path))
+        if self.tokenizer.pad_token is None:
+            self.tokenizer.pad_token = self.tokenizer.eos_token
 
     @torch.no_grad()
     def encode(self, captions, return_mask: bool = True):
-        """captions -> hidden states [B, max_length, dim] f32 on the CPU (and
-        the mask [B, max_length] int64) after the crop."""
+        """captions -> hidden states [B, max_length, dim] f32 on the CPU
+        ([B, num_layers, max_length, dim] under stack_layers), and the mask
+        [B, max_length] int64, after the crop."""
         self._load()
         enc = self.tokenizer([self.template.format(c) for c in captions],
                              padding="max_length", truncation=True,
                              max_length=self.max_length + self.crop_start, return_tensors="pt")
         ids, mask = enc["input_ids"].to(self.device), enc["attention_mask"].to(self.device)
         h = self.hidden_states(ids, mask)
-        h, mask = h[:, self.crop_start:].float().cpu(), mask[:, self.crop_start:].cpu()
+        h, mask = h[..., self.crop_start:, :].float().cpu(), mask[:, self.crop_start:].cpu()
         return (h, mask) if return_mask else h
 
     def hidden_states(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The state(s) that feed the DiT for token ids [B, S] and their mask."""
+        if self.stack_layers:
+            return torch.stack(self.model(ids, mask, collect_hidden=True)[1][1:], dim=1)
         layers = self.hidden_layers or (self.hidden_layer,)
         out, hiddens = self.model(ids, mask, collect_hidden=layers != (-1,))
         return torch.cat([out if k == -1 else hiddens[k] for k in layers], dim=-1)

@@ -81,6 +81,7 @@ def _check_ported(config, args):
     from .models.chroma import ChromaPipeline
     from .models.flux import FluxPipeline
     from .models.flux2 import Flux2Pipeline
+    from .models.hidream import HiDreamPipeline
     from .models.lumina_2 import Lumina2Pipeline
     from .models.qwen_image import QwenImagePipeline
     from .models.sd3 import SD3Pipeline
@@ -88,11 +89,12 @@ def _check_ported(config, args):
     from .models.wan import WanPipeline
 
     trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
-               QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline, Lumina2Pipeline)
+               QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline, Lumina2Pipeline,
+               HiDreamPipeline)
     if not issubclass(get_model_class(config["model"]["type"]), trained):
         raise NotImplementedError(
-            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow "
-            f"and Lumina 2 (with Z-Image and OmniGen2) families so far; "
+            f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, "
+            f"Lumina 2 (with Z-Image and OmniGen2) and HiDream families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 

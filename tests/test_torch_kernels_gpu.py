@@ -36,8 +36,9 @@ and without the query split, at D 64, 96, 120, 128 and 256. At D 96 and
 hold NaN (no column past D is read) and the outputs are checked whole (no
 column past D is written over the next head's); Lumina 2's and OmniGen2's
 joint sequences (4,352 keys, 60 / 200 of 256 caption keys valid; the noise
-refiner's 4,096 unmasked) at 3 heads; an unsupported head dim (32, 80,
-112) raises.
+refiner's 4,096 unmasked) at 3 heads; HiDream-I1's (B 1, 4,480 rows, 20
+heads of 128, unmasked, bf16 and fp16), K2 and K3 deterministic there; an
+unsupported head dim (32, 80, 112) raises.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
@@ -468,6 +469,23 @@ def test_lumina_shapes_match_plain(case, cuda_device):
     got = _kernels_all(q, k, v, do, mask, scale)
     _assert_near_plain(got, q, k, v, do, mask, scale)
     again = _kernels_all(q, k, v, do, mask, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_hidream_shape_matches_plain(dtype, cuda_device):
+    """K1-K3 at HiDream-I1's joint sequence at 1024 px (B 1, 4,480 rows =
+    4,096 image + 128 T5 + 2 x 128 Llama, all 20 heads of 128, unmasked)
+    against the plain versions; K2 and K3 give the same bits twice."""
+    rng = np.random.default_rng(23)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 4480, 20, 128), dtype=np.float32))
+                   .to(cuda_device, dtype) for _ in range(4))
+    scale = 128 ** -0.5
+    got = _kernels_all(q, k, v, do, None, scale)
+    _assert_near_plain(got, q, k, v, do, None, scale)
+    again = _kernels_all(q, k, v, do, None, scale)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
 

@@ -218,3 +218,150 @@ def test_mistral3_nested_config_and_stacked_layers(tmp_path):
     assert got.shape == (2, 10, 96)
     valid = MASK.astype(bool)
     np.testing.assert_allclose(got.numpy()[valid], want.numpy()[valid], atol=1e-4, rtol=1e-4)
+
+
+LLAMA31 = dict(vocab_size=96, hidden_size=256, num_hidden_layers=2, num_attention_heads=2,
+               num_key_value_heads=1, head_dim=128, intermediate_size=64, rms_norm_eps=1e-5,
+               rope_theta=500000.0, attn_implementation="eager",
+               rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                             "high_freq_factor": 4.0, "original_max_position_embeddings": 8192})
+
+
+def test_llama31_rope_scaling_matches_transformers():
+    """Llama 3.1's rope_type "llama3" (factor 8, low / high frequency factors
+    1 / 4, original length 8,192) at head dim 128 and theta 500,000 over 128
+    tokens: the port within 2e-5 of transformers' LlamaModel (f32, eager);
+    without the scaling it would differ by more than 1e-3 (3.2e-3 measured
+    before the port read it)."""
+    import transformers
+
+    cfg = transformers.LlamaConfig(**LLAMA31)
+    torch.manual_seed(1)
+    model = transformers.LlamaModel(cfg).eval()
+    hf_cfg = {**cfg.to_dict(), "model_type": "llama"}
+    tcfg = tllm.CausalLMConfig.from_hf_config(hf_cfg, dtype=torch.float32)
+    assert tcfg.rope_llama3 == (8.0, 1.0, 4.0, 8192.0)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(1, 96, (1, 128)))
+    with torch.no_grad():
+        want = model(input_ids=ids).last_hidden_state
+        outs = {}
+        for name, c in (("scaled", tcfg), ("unscaled", dataclasses.replace(tcfg, rope_llama3=()))):
+            port = tllm.CausalLM(c)
+            port.load_state_dict(tllm.convert_hf_causal_lm(model.state_dict(), c, prefix=""))
+            outs[name] = port(ids)[0]
+    np.testing.assert_allclose(outs["scaled"].numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+    assert (outs["unscaled"] - want).abs().max() > 1e-3
+
+
+def _qwen3_vl():
+    import transformers
+
+    text = {k: v for k, v in BASE.items() if k != "attn_implementation"}
+    text["rope_scaling"] = {"rope_type": "default", "mrope_section": [1, 1, 2],
+                            "mrope_interleaved": True}
+    cfg = transformers.Qwen3VLConfig(
+        text_config=text, vision_config=dict(depth=1, hidden_size=16, intermediate_size=32,
+                                             num_heads=2, out_hidden_size=32))
+    cfg.text_config._attn_implementation = "eager"
+    torch.manual_seed(0)
+    model = transformers.Qwen3VLTextModel(cfg.text_config).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape))
+    return model, cfg.to_dict()
+
+
+def test_qwen3_vl_text_tower_has_qk_norms_and_loads_them():
+    """A tiny Qwen3VLConfig (its text config nested, model_type qwen3_vl)
+    maps to qk_norm like Qwen3; its text tower, saved under
+    model.language_model. beside a vision tower and a head, loads and
+    matches transformers' Qwen3VLTextModel on text-only ids (interleaved
+    MRoPE is plain RoPE there) within 1e-4 on the valid rows. A config that
+    drops the q / k norms, or a stray key under the text prefix, raises
+    naming the untaken keys; the non-weight rotary buffer does not."""
+    model, hf_cfg = _qwen3_vl()
+    assert hf_cfg["model_type"] == "qwen3_vl"
+    tcfg = tllm.CausalLMConfig.from_hf_config(hf_cfg, dtype=torch.float32)
+    assert tcfg.qk_norm and not tcfg.mrope_section
+    sd = {"model.language_model." + k: v for k, v in model.state_dict().items()}
+    sd["model.language_model.rotary_emb.inv_freq"] = torch.ones(4)
+    sd["model.visual.patch_embed.proj.weight"] = torch.zeros(16, 3, 2, 16, 16)
+    sd["lm_head.weight"] = torch.zeros(96, 32)
+    prefix = tllm.detect_prefix(sd)
+    assert prefix == "model.language_model."
+    port = tllm.CausalLM(tcfg)
+    port.load_state_dict(tllm.convert_hf_causal_lm(sd, tcfg, prefix=prefix))
+    ids, mask = torch.from_numpy(IDS), torch.from_numpy(MASK)
+    with torch.no_grad():
+        got = port(ids, mask)[0]
+        want = model(input_ids=ids, attention_mask=mask).last_hidden_state
+    valid = MASK.astype(bool)
+    np.testing.assert_allclose(got.numpy()[valid], want.numpy()[valid], atol=1e-4, rtol=1e-4)
+    with pytest.raises(KeyError, match="q_norm"):
+        tllm.convert_hf_causal_lm(sd, dataclasses.replace(tcfg, qk_norm=False), prefix=prefix)
+    with pytest.raises(KeyError, match="does not take"):
+        tllm.convert_hf_causal_lm({**sd, "model.language_model.layers.0.mlp.bias": torch.zeros(1)},
+                                  tcfg, prefix=prefix)
+
+
+def test_stacked_layer_states_match_jax():
+    """stack_layers: [B, num_layers, S, dim], the JAX HiDream text
+    function's hiddens[1:] stacked on axis 1 (2e-5, f32, the JAX CausalLM
+    compiled once with the Llama case above)."""
+    model, hf_cfg = hf_model("llama")
+    tcfg = tllm.CausalLMConfig.from_hf_config(hf_cfg, dtype=torch.float32)
+    jcfg = jllm.CausalLMConfig.from_hf_config(hf_cfg, dtype=jnp.float32)
+    _, jh = _jax_lm(jcfg, jllm.convert_hf_causal_lm(model.state_dict(), jcfg, prefix=""),
+                    jnp.asarray(IDS), jnp.asarray(MASK), None)
+    enc = tllm.LLMTextEncoder(".", max_length=10, stack_layers=True, dtype=torch.float32)
+    enc.model = tllm.CausalLM(tcfg)
+    enc.model.load_state_dict(tllm.convert_hf_causal_lm(model.state_dict(), tcfg, prefix=""))
+    with torch.no_grad():
+        got = enc.hidden_states(torch.from_numpy(IDS), torch.from_numpy(MASK))
+    want = np.stack([np.asarray(h) for h in jh[1:]], axis=1)
+    assert got.shape == want.shape == (2, 2, 10, 32)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_llama31_encoder_pads_with_eos_and_stacks_layers(tmp_path):
+    """A Llama-3.1 folder whose tokenizer has no pad token (as Llama 3.1's
+    has none): LLMTextEncoder pads with EOS, and stack_layers gives
+    transformers' hidden_states[1:] stacked on axis 1 (1e-4 on the valid
+    rows, f32, eager attention); fp8 storage (llama3_4bit) keeps the shape."""
+    import transformers
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    from diffusion_pipe_tpu_torch import safetensors_io
+
+    words = ["<unk>", "<|begin_of_text|>", "<|eot_id|>", "a", "red", "cat", "dog"]
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>",
+                                   eos_token="<|eot_id|>")
+    assert fast.pad_token is None
+    fast.save_pretrained(str(tmp_path))
+    cfg = transformers.LlamaConfig(**LLAMA31)
+    torch.manual_seed(2)
+    model = transformers.LlamaModel(cfg).eval()
+    (tmp_path / "config.json").write_text(json.dumps({**cfg.to_dict(), "model_type": "llama"},
+                                                     default=str))
+    safetensors_io.save_file({"model." + k: v.contiguous() for k, v in model.state_dict().items()},
+                             str(tmp_path / "model.safetensors"))
+    enc = tllm.LLMTextEncoder(str(tmp_path), max_length=6, stack_layers=True,
+                              dtype=torch.float32)
+    h, mask = enc.encode(["a red cat", "dog"])
+    assert enc.tokenizer.pad_token == "<|eot_id|>"
+    assert h.shape == (2, 2, 6, 256) and mask.tolist() == [[1] * 3 + [0] * 3, [1] + [0] * 5]
+    ids = enc.tokenizer(["a red cat", "dog"], padding="max_length", max_length=6,
+                        return_tensors="pt")["input_ids"]
+    assert ids[1, 1:].eq(2).all()  # EOS pads
+    with torch.no_grad():
+        want = torch.stack(model(input_ids=ids, attention_mask=mask, output_hidden_states=True)
+                           .hidden_states[1:], dim=1)
+    valid = mask.bool()[:, None].expand(-1, 2, -1)
+    np.testing.assert_allclose(h[valid].numpy(), want[valid].numpy(), atol=1e-4, rtol=1e-4)
+    h8, _ = tllm.LLMTextEncoder(str(tmp_path), max_length=6, stack_layers=True, fp8=True,
+                                dtype=torch.float32).encode(["a red cat", "dog"])
+    assert h8.shape == h.shape and torch.isfinite(h8).all()

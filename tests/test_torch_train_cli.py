@@ -34,6 +34,9 @@ images as one-frame videos):
   `_tiny` hooks' caption draws with their masks, Z-Image's pad tokens) the
   same way, their adapters in the ComfyUI dialect (NextDiT's fused qkv,
   OmniGen2's diffusers names);
+- tiny HiDream (the seeded Flux VAE, the JAX `_tiny` hook's T5, pooled and
+  two-layer Llama draws; MoE experts with their own adapters) the same
+  way, its adapter in the ComfyUI dialect;
 - tiny Flux full fine-tuning writes model.safetensors in the diffusers
   layout;
 - a [model] checkpoint path that does not load (a wrong path, a missing
@@ -229,6 +232,13 @@ def test_lumina2_families_cache_train_eval_checkpoint_resume(root, family, pairs
     # pairs a block, OmniGen2's separate q, k, v and 4 more: lora_A, lora_B
     # and alpha each
     _cache_train_resume(root, _family_config(family), family, 4 * pairs * 3)
+
+
+def test_hidream_cache_train_eval_checkpoint_resume(root):
+    # 2 double blocks of 27 adapted linears (adaLN, 8 attention, the shared
+    # expert's 3, 4 routed experts' 3, ff_t's 3) and 2 single blocks of 20:
+    # lora_A, lora_B and alpha each
+    _cache_train_resume(root, _family_config("hidream"), "hidream", (2 * 27 + 2 * 20) * 3)
 
 
 def test_qwen_image_edit_trains_on_control_images(root):
@@ -443,7 +453,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "hidream": ("", ('type = "flux"', 'type = "hidream"'), []),
+    "cosmos_predict2": ("", ('type = "flux"', 'type = "cosmos_predict2"'), []),
 }
 
 

@@ -15,6 +15,7 @@
     python3 tools/profile_torch_step.py --slice auraflow-lora  # auraflow-v0.3-lora-1024
     python3 tools/profile_torch_step.py --slice lumina2-lokr  # lumina2-lokr-1024
     python3 tools/profile_torch_step.py --slice omnigen2-lora  # omnigen2-lora-1024
+    python3 tools/profile_torch_step.py --slice hidream-lora  # hidream-i1-lora-1024
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -43,7 +44,10 @@ Lumina-Image-2.0 at its published size as examples/lumina_2.toml trains it,
 LoKr and genericoptim, `true`, batch 2 at 1024 px with 256 masked caption
 rows, its attention at head dim 96; with chip_smoke.OMNIGEN2_LORA_CONFIG
 OmniGen2 at full width and 4 main blocks, LoRA r32, adamw8bit, batch 1,
-head dim 120), builds the kernels if needed, runs
+head dim 120; or chip_smoke.build_hidream_slice: HiDream-I1 at its
+published size in bf16, LoRA r32 on every block linear, the routed experts'
+included, adamw8bit, `true`, batch 1 at 1024 px with 128 T5 rows and 32
+Llama layers of 128 rows), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -64,7 +68,17 @@ activities). Prints one JSON line with:
   dense-product flops taken as one forward, one more for the checkpoint
   recompute when the path checkpoints, one for the input gradients and,
   under full fine-tuning, one for the weight gradients (the LoRA weight
-  gradients add under 2%), and the rate the GEMM kernels reached on them.
+  gradients add under 2%), and the rate the GEMM kernels reached on them;
+- HiDream only (moe): the dense MoE of one double block (4,096 image rows)
+  and of one single block (4,480 rows) timed alone with CUDA events, its
+  routed experts apart from the shared one, forward and forward + backward
+  (the step's backward through frozen bf16 weights with LoRA: the input
+  gradient and the factors' gradients), their product flops and rates, the
+  GEMM kernels' share of each (torch.profiler over the same calls), and
+  the routed experts' time a step reckoned from them (16 double and 32
+  single blocks, each forward twice under `true`, one backward), all of
+  it and its GEMMs alone: the figures a routed grouped GEMM would start
+  from.
 """
 
 import argparse
@@ -136,6 +150,76 @@ def unprofiled(pipeline, state, step, batch, gen, sr):
     return out
 
 
+def _event_ms(fn, n=5):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _gemm_ms(fn, n=3):
+    """The device time of fn's GEMM kernels a call (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA and category(e.name) == "gemm") / 1e3 / n
+
+
+def moe_timing(pipeline):
+    """The dense MoE of HiDream's first double and first single block, alone,
+    on random rows at the slice's counts (see the module docstring)."""
+    import chip_smoke
+
+    c = pipeline.hd_config
+    blocks = {"double": (pipeline.model.double_blocks[0].ff_i, 64 * 64),
+              "single": (pipeline.model.single_blocks[0].ff_i,
+                         chip_smoke._hidream_rows(c, 64 * 64))}
+    out = {}
+    for kind, (moe, rows) in blocks.items():
+        x = torch.randn((1, rows, c.hidden_size), device="cuda", dtype=c.dtype,
+                        requires_grad=True)
+        gate = moe.gate_weights(x.detach()).to(c.dtype)
+
+        def routed():
+            return sum(gate[..., j:j + 1] * e(x) for j, e in enumerate(moe.experts))
+
+        def fwd_bwd(fn):
+            y = fn()
+            y.backward(torch.ones_like(y))
+
+        flops = 2 * rows * c.hidden_size * c.ff_hidden * 3 * c.num_routed_experts
+        rec = dict(rows=rows, routed_forward_ms=_event_ms(lambda: routed().sum()),
+                   routed_forward_backward_ms=_event_ms(lambda: fwd_bwd(routed)),
+                   shared_forward_ms=_event_ms(lambda: moe.shared(x).sum()),
+                   whole_forward_ms=_event_ms(lambda: moe(x).sum()),
+                   routed_forward_flops=flops)
+        for name, fn in (("forward", lambda: routed().sum()),
+                         ("forward_backward", lambda: fwd_bwd(routed))):
+            rec[f"routed_{name}_gemm_ms"] = _gemm_ms(fn)
+        rec["routed_forward_tflops_per_s"] = flops / rec["routed_forward_ms"] / 1e9
+        rec["routed_forward_backward_tflops_per_s"] = (
+            2 * flops / rec["routed_forward_backward_ms"] / 1e9)
+        out[kind] = rec
+        x.grad = None
+    # `true`: each block's forward again in the backward, then its backward
+    n = {"double": c.num_double_layers, "single": c.num_single_layers}
+    for part in ("", "_gemm"):
+        out[f"routed{part}_ms_per_step"] = sum(
+            n[k] * (out[k][f"routed_forward{part}_ms"]
+                    + out[k][f"routed_forward_backward{part}_ms"]) for k in n)
+    for p in pipeline.model.parameters():
+        p.grad = None
+    return out
+
+
 def forward_matmul_flops(pipeline, batch, gen):
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -151,7 +235,8 @@ def main(argv=None):
     ap.add_argument("--slice", choices=("flux", "flux-fp8-int8", "wan", "wan-lora",
                                         "sdxl-lora", "sdxl-fullft", "sd3-lora",
                                         "chroma-lora", "qwen-lora", "flux2-lora",
-                                        "auraflow-lora", "lumina2-lokr", "omnigen2-lora"),
+                                        "auraflow-lora", "lumina2-lokr", "omnigen2-lora",
+                                        "hidream-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -186,6 +271,8 @@ def main(argv=None):
                          chip_smoke.build_lumina_slice),
         "omnigen2-lora": ("omnigen2-lora-1024", chip_smoke.OMNIGEN2_LORA_CONFIG,
                           lambda cfg: chip_smoke.build_lumina_slice(cfg, valid=(200,))),
+        "hidream-lora": ("hidream-i1-lora-1024", chip_smoke.HIDREAM_LORA_CONFIG,
+                         chip_smoke.build_hidream_slice),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing
@@ -223,6 +310,7 @@ def main(argv=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     plain = unprofiled(pipeline, state, step, batch, gen, sr)
     fwd_flops = forward_matmul_flops(pipeline, batch, gen)
+    extra = {"moe": moe_timing(pipeline)} if args.slice == "hidream-lora" else {}
     print(json.dumps(dict(
         cell=cell,
         device=torch.cuda.get_device_name(0),
@@ -239,6 +327,7 @@ def main(argv=None):
         gemm_tflops_per_s=forwards * fwd_flops / (by_cat["gemm"] / 1e6 / STEPS) / 1e12,
         top_kernels=[dict(name=n[:120], ms_per_step=v[0] / 1e3 / STEPS,
                           calls_per_step=v[1] / STEPS) for n, v in top],
+        **extra,
     )))
     return 0
 

@@ -12,7 +12,8 @@ slice-flux2-edit-lora, slice-auraflow-lora, mistral3, pile-t5, driver-flux2,
 driver-auraflow, kernels-lumina, reference-lumina2, reference-zimage,
 reference-omnigen2, slice-lumina2-lokr, slice-omnigen2-lora, driver-lumina2,
 driver-zimage (the last two with the vae phase first, whose Flux VAE they
-read). Each prints its JSON lines as in the whole smoke; a failed
+read), kernels-hidream, reference-hidream, llama31, slice-hidream-lora,
+driver-hidream (with the vae phase first). Each prints its JSON lines as in the whole smoke; a failed
 check exits non-zero.
 """
 
@@ -67,6 +68,11 @@ def main(argv):
         "slice-omnigen2-lora": lambda: cs.phase_slice_lumina("omnigen2"),
         "driver-lumina2": lambda: cs.phase_driver_family("lumina_2", cs.phase_vae()),
         "driver-zimage": lambda: cs.phase_driver_family("z_image", cs.phase_vae()),
+        "kernels-hidream": cs.phase_kernels_hidream,
+        "reference-hidream": cs.phase_reference_hidream,
+        "llama31": cs.phase_llama31,
+        "slice-hidream-lora": cs.phase_slice_hidream,
+        "driver-hidream": lambda: cs.phase_driver_family("hidream", cs.phase_vae()),
     }
     unknown = [p for p in argv if p not in phases]
     if unknown:
