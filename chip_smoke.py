@@ -281,12 +281,13 @@ Phases, each printing one JSON line (or more):
                      text function once; the first layer against f32 on the
                      CPU.
     driver-qwen    -- examples/qwen_image.toml's settings through train.main
-                     at full size and 512 px (micro batch 1, GAS 4): 8 + 2
+                     at full width and 10 of the 60 blocks (QWEN_DRIVER_DEPTH,
+                     the smoke's time limit) and 512 px (micro batch 1, GAS 4): 8 + 2
                      seeded PNGs, a seeded Wan 2.1 VAE in diffusers'
                      AutoencoderKLQwenImage layout, seeded text with its
                      mask, --cache_only, 3 steps with the evals, a resume to
                      5 with --test_sample, a re-import of the epoch export
-                     through init_from_existing, bit for bit; the 2,520
+                     through init_from_existing, bit for bit; the 420
                      adapter keys and the launches.
 
 17. kernels-flux2-auraflow -- (after the Qwen-Image phases) the ptxas registers, spills and
@@ -397,6 +398,45 @@ Phases, each printing one JSON line (or more):
                      blocks in fp8 storage at 512 px, the vae phase's Flux
                      VAE and seeded text at the cached shapes, as
                      driver-sd3.
+
+20. kernels-cosmos -- (run last) K1-K3 at the MiniTrainDIT's shapes, heads of
+                     128, unmasked: Cosmos-Predict2 / Anima at 1024 px (B 2
+                     x 4,096 x 16 heads, and its cross-attention to 512 T5
+                     rows) and Cosmos-1 at 960 x 704 (B 1 x 2,640, a ragged
+                     last tile, x 32 heads, and its cross-attention to
+                     512), against the plain versions (K2 / K3
+                     deterministic at 2,640), timed beside the bound, the
+                     plain versions and SDPA.
+    reference-cosmos / reference-cosmos-edm -- 2 blocks at 256 wide (2
+                     heads of 128, adaLN-LoRA, LoRA on the modulations too),
+                     bf16 on the card against f32 on the CPU: as Predict2
+                     with Anima's LLMAdapter in front, and under EDM.
+    qwen3-0.6b     -- Anima's text tower at its published size from a seed:
+                     the final normed states of 2 x 512 ids, timed with the
+                     peak; a narrow copy against f32 on the CPU.
+    cosmos-tokenizer -- the Cosmos tokenizer at its published widths from a
+                     seed, written as a checkpoint and read back by its
+                     converter; bf16 against f32 on the CPU on a crop; the
+                     121-frame 960 x 704 clip encoded to [1, 16, 16, 88,
+                     120] and decoded, timed with the peak.
+    slice-anima-lora -- cell anima-lora-1024: Cosmos-Predict2 at its full 2 B
+                     size with Anima's LLMAdapter (f32, trained at its own
+                     llm_adapter_lr) in bf16, LoRA r32, adamw8bit, `true`,
+                     batch 2 at 1024 px with 512 T5 ids (60 valid) and 512
+                     Qwen rows (77 valid): 112 / 56 / 56 launches a step.
+    slice-cosmos1-lora -- cell cosmos1-7b-lora-704x960: Cosmos-1 at its full
+                     7 B size in bf16, EDM, LoRA r32, adamw8bit, `true`,
+                     batch 1 at 960 x 704 with 512 T5 rows: 112 / 56 / 56.
+    driver-anima / driver-predict2 / driver-cosmos -- each family through
+                     train.main at full width and 2 blocks at 512 px, as
+                     driver-sd3: Anima and Cosmos-Predict2 from a seeded
+                     2-block checkpoint (the layout from its keys; Anima's
+                     LLMAdapter under llm_adapter.*) with the wan-vae phase's
+                     Wan 2.1 VAE, Anima's trained LLMAdapter exported
+                     beside the LoRA and re-imported bit for bit; Cosmos-1
+                     on the cosmos-tokenizer phase's checkpoint, which
+                     also encodes a 9-frame clip through the caching
+                     function.
 
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
@@ -1780,19 +1820,18 @@ def build_wan_slice(cfg=WAN_SLICE_CONFIG, device="cuda", latent_fhw=(21, 64, 64)
                     txt_len=512, batch_size=1):
     """The Wan path's trainer, its state, step and batch, through the
     entry points a user calls: get_model_class("wan") -> init_train_state
-    with predicate_from_config (full fine-tuning without [adapter], else
-    LoRA) -> make_train_step with the optimizer's stochastic_rounding. The
+    with the pipeline's trainable_predicate (full fine-tuning without
+    [adapter], else LoRA) -> make_train_step with the optimizer's stochastic_rounding. The
     batch: latents of the variant's channels, UMT5-shaped text; i2v also y
     and, with the CLIP branch, a [257, 1280] clip_context."""
     from diffusion_pipe_tpu_torch.models import get_model_class
     from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
-    from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
     from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 
     pipeline = get_model_class("wan")(cfg, device=device)
     wc = pipeline.wan_config
     gen = torch.Generator(device=device).manual_seed(SEED)
-    state = init_train_state(pipeline, get_optimizer(cfg), gen, predicate_from_config(cfg))
+    state = init_train_state(pipeline, get_optimizer(cfg), gen, pipeline.trainable_predicate())
     step = make_train_step(
         pipeline, gradient_clipping=cfg["gradient_clipping"],
         stochastic_rounding=bool(cfg["optimizer"].get("stochastic_rounding", False)))
@@ -2737,19 +2776,18 @@ def _sdxl_ids(b, gen, device):
 
 def build_sdxl_slice(cfg=SDXL_LORA_CONFIG, device="cuda", latent_hw=64, batch_size=4):
     """The SDXL trainer through the entry points a user calls:
-    get_model_class("sdxl") -> init_train_state (predicate_from_config,
+    get_model_class("sdxl") -> init_train_state (trainable_predicate,
     the optimizer with lr_scale_map's groups) -> make_train_step; a batch
     of latents and token ids."""
     from diffusion_pipe_tpu_torch.models import get_model_class
     from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
-    from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
     from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 
     pipeline = get_model_class("sdxl")(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     scales = pipeline.lr_scale_map(float(cfg["optimizer"]["lr"]))
     state = init_train_state(pipeline, get_optimizer(cfg, lr_scales=scales), gen,
-                             predicate_from_config(cfg))
+                             pipeline.trainable_predicate())
     step = make_train_step(pipeline, gradient_clipping=cfg["gradient_clipping"])
     ids = _sdxl_ids(batch_size, gen, device)
     batch = {"latents": torch.randn((batch_size, 4, latent_hw, latent_hw), generator=gen,
@@ -3265,17 +3303,19 @@ CHROMA_VALID_T5 = (60, 200)  # valid T5 tokens of each example's 512 in slice-ch
 
 
 def _build_family_slice(family, cfg, device, make_batch):
-    """A family's trainer through the entry points a user calls:
-    get_model_class -> init_train_state (predicate_from_config) ->
-    make_train_step; make_batch(pipeline, gen) gives the batch."""
+    """A family's trainer through the entry points a user calls, as
+    train.py builds it: get_model_class -> init_train_state (the
+    pipeline's trainable_predicate, the optimizer with its lr_scale_map
+    groups) -> make_train_step; make_batch(pipeline, gen) gives the batch."""
     from diffusion_pipe_tpu_torch.models import get_model_class
     from diffusion_pipe_tpu_torch.training.optimizers import get_optimizer
-    from diffusion_pipe_tpu_torch.training.train_state import predicate_from_config
     from diffusion_pipe_tpu_torch.training.trainer import init_train_state, make_train_step
 
     pipeline = get_model_class(family)(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    state = init_train_state(pipeline, get_optimizer(cfg), gen, predicate_from_config(cfg))
+    scales = pipeline.lr_scale_map(float(cfg["optimizer"]["lr"]))
+    state = init_train_state(pipeline, get_optimizer(cfg, lr_scales=scales), gen,
+                             pipeline.trainable_predicate())
     step = make_train_step(pipeline, gradient_clipping=cfg["gradient_clipping"])
     return pipeline, state, step, make_batch(pipeline, gen), gen
 
@@ -3346,7 +3386,10 @@ def _flash_step(pipeline):
 
 def _model_blocks(pipeline):
     """(attention blocks, model config) of an SD3, Chroma, Qwen-Image,
-    FLUX.2, AuraFlow, Lumina 2 family or HiDream pipeline."""
+    FLUX.2, AuraFlow, Lumina 2 family, HiDream or Cosmos pipeline (a
+    MiniTrainDIT block attends twice: to itself and to the text)."""
+    if hasattr(pipeline, "cp_config"):
+        return 2 * pipeline.cp_config.num_blocks, pipeline.cp_config
     if hasattr(pipeline, "hd_config"):
         cfg = pipeline.hd_config
         return cfg.num_double_layers + cfg.num_single_layers, cfg
@@ -3408,7 +3451,8 @@ def phase_slice_family(phase, cell, build, timed_steps=TIMED_STEPS, device="cuda
     linears, int8_real, _ = _int8_weights(pipeline.model)
     extra = after(pipeline, batch, gen) if after else {}
     emit(phase=phase, cell=cell, params=sum(p.numel() for p in pipeline.model.parameters()),
-         blocks=blocks, hidden=getattr(mc, "hidden_size", None) or mc.dim, remat=mc.remat,
+         blocks=blocks, remat=mc.remat,
+         hidden=getattr(mc, "hidden_size", None) or getattr(mc, "dim", None) or mc.model_channels,
          lora_params=sum(p.numel() for p in trainable.values()), lora_tensors=len(trainable),
          latent_shape=list(batch["latents"].shape), init_s=init_s, warmup_s=warm_s,
          warmup_loss=warm_loss, timed_steps=timed_steps, step_s=step_s,
@@ -3542,6 +3586,15 @@ def phase_driver_family(family, vae_dir=None):
         toml, stand_ins = AURAFLOW_DRIVER_TOML, _auraflow_text_stand_in
     elif family == "hidream":
         toml, stand_ins = HIDREAM_DRIVER_TOML, _hidream_text_stand_in
+    elif family in ("anima", "cosmos_predict2"):
+        anima = family == "anima"
+        toml = ANIMA_DRIVER_TOML if anima else PREDICT2_DRIVER_TOML
+        stand_ins = (_anima_text_stand_in if anima
+                     else functools.partial(_t5_text_stand_in, "t5_embed"))
+        _write_predict2_checkpoint(root / "predict2_2_blocks.safetensors", anima)
+    elif family == "cosmos":
+        toml, stand_ins = COSMOS_DRIVER_TOML, functools.partial(_t5_text_stand_in,
+                                                                "prompt_embeds")
     elif family in LUMINA_DRIVER_TOMLS:
         toml = LUMINA_DRIVER_TOMLS[family]
         stand_ins = functools.partial(_lumina_text_stand_in, family)
@@ -3638,6 +3691,16 @@ def phase_driver_family(family, vae_dir=None):
     same = set(again) == set(factors) and all(torch.equal(again[k], factors[k])
                                               for k in factors)
     fused = sum(int(".qkv." in k or ".linear1." in k) for k in factors)
+    extra = {}
+    if family == "anima":
+        from diffusion_pipe_tpu_torch.models.llm_adapter import export_llm_adapter
+
+        llm = safetensors_io.load_file(export / "llm_adapter.safetensors")
+        back = export_llm_adapter(loaded)
+        extra.update(llm_adapter_tensors=len(llm), llm_adapter_reimported_bit_identical=(
+            set(back) == set(llm) and all(torch.equal(back[k], llm[k]) for k in llm)))
+    elif family == "cosmos":
+        extra.update(cosmos_driver_clip(vae_dir))
 
     per_forward = {k: shape["blocks"] if k == "flash_fwd" else 0 for k in shape["step"]}
     eval_forwards = 9 * -(-DRIVER_EVAL_IMAGES // 2)
@@ -3662,7 +3725,8 @@ def phase_driver_family(family, vae_dir=None):
          step_times_s=step_times, samples_per_s=2 / step_s, final_step=saved_step,
          loader_state=meta.get("custom_loader"), uninterrupted_loader_state=uninterrupted,
          loader_cost=loader_cost, adapter_keys=len(adapter), adapter_factors=len(factors),
-         fused_factors=fused, reimported_bit_identical=same, example_png=list(example.size))
+         fused_factors=fused, reimported_bit_identical=same, example_png=list(example.size),
+         **extra)
     check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss: {losses}")
     check(sorted(losses) == list(range(1, DRIVER_RESUMED_STEPS + 1)), f"train/loss steps {losses}")
     check(len(quantiles) == 9, f"eval quantiles {quantiles}")
@@ -3671,7 +3735,8 @@ def phase_driver_family(family, vae_dir=None):
     check(meta.get("custom_loader") == uninterrupted,
           f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
     check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
-    may_stay = (NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image", "hidream")
+    may_stay = (NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image", "hidream", "anima",
+                                           "cosmos_predict2", "cosmos")
                 else ("none",))
     check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT) or n.endswith(may_stay)
                                                   for n in c["lora_tensors_still"])
@@ -3680,6 +3745,9 @@ def phase_driver_family(family, vae_dir=None):
     check(len(adapter) == keys and len(factors) == ADAPTER_FACTORS.get(family, 2 * keys // 3),
           f"adapter keys {len(adapter)} ({len(factors)} factors), expected {keys}")
     check(family != "chroma" or fused > 0, "no fused pair in the Chroma adapter")
+    check(family != "anima" or (extra["llm_adapter_tensors"] == ANIMA_ADAPTER_TENSORS
+                                and extra["llm_adapter_reimported_bit_identical"]),
+          f"the LLMAdapter export: {extra}")
     check(same, "the adapter loaded through init_from_existing does not export to the file")
     check(example.size == (512, 512), f"example.png is {example.size}")
     for c, want in zip(calls, expected):
@@ -3687,7 +3755,8 @@ def phase_driver_family(family, vae_dir=None):
     return {k: sum(c["launches"][k] for c in calls) for k in first["launches"]}
 
 
-DRIVER_PHASE_NAMES = {"lumina_2": "driver-lumina2", "z_image": "driver-zimage"}
+DRIVER_PHASE_NAMES = {"lumina_2": "driver-lumina2", "z_image": "driver-zimage",
+                      "cosmos_predict2": "driver-predict2"}
 # the generic keymap export at full depth: lora_A, lora_B and alpha of each
 # pair. SD3-Medium: 23 blocks x 14 linears + the final block's 11 = 333
 # pairs. Chroma: a double block's 6 linears and fused img / txt qkv (8
@@ -3707,7 +3776,13 @@ ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2),
                 # HiDream's 1 + 2 blocks: a double block's 27 adapted
                 # linears (adaLN, 8 attention, 3 shared-expert, 4 x 3 routed
                 # experts, 3 ff_t), a single block's 20
-                "hidream": 3 * (1 * 27 + 2 * 20)}
+                "hidream": 3 * (1 * 27 + 2 * 20),
+                # the Cosmos families' 2 blocks of 16 adapted linears (10
+                # attention and MLP, 6 modulation)
+                "anima": 3 * 2 * 16, "cosmos_predict2": 3 * 2 * 16, "cosmos": 3 * 2 * 16}
+# Anima's LLMAdapter (6 layers with self-attention) as exported: the
+# embedding, 19 tensors a layer, out_proj's two and the norm
+ANIMA_ADAPTER_TENSORS = 1 + 6 * 19 + 3
 # adapter tensors other than the alphas, where not 2 / 3 of them
 ADAPTER_FACTORS = {"lumina_2": 3 * 6 * 7}
 
@@ -4063,6 +4138,7 @@ dtype = "bfloat16"
 transformer_dtype = "float8"
 int8_matmul = "fwd_bwd"
 timestep_sample_method = "logit_normal"
+num_layers = {depth}
 _random_init = true
 
 [adapter]
@@ -4077,7 +4153,11 @@ betas = [0.9, 0.99]
 weight_decay = 0.01
 """
 QWEN_GAS = 4
-QWEN_ADAPTER_KEYS = 3 * 60 * 14  # lora_A, lora_B and alpha of the 840 block linears
+# driver-qwen's depth: 10 of the 60 blocks (the smoke's time limit; the
+# slice-qwen-image-lora cell keeps all 60)
+QWEN_DRIVER_DEPTH = 10
+# lora_A, lora_B and alpha of the 140 block linears
+QWEN_ADAPTER_KEYS = 3 * QWEN_DRIVER_DEPTH * 14
 
 
 def _qwen_text_stand_in():
@@ -4118,14 +4198,15 @@ def phase_driver_qwen():
     """examples/qwen_image.toml's settings (fp8 storage pre-quantized to
     int8, int8_matmul "fwd_bwd", LoRA r32, adamw8bit, `true`
     checkpointing, micro batch 1 and GAS 4, eval every epoch) at full width
-    and depth through train.main at 512 px: 8 seeded PNGs and 2 for eval, a
+    and QWEN_DRIVER_DEPTH of the 60 blocks through train.main at 512 px: 8
+    seeded PNGs and 2 for eval, a
     diffusers folder holding a seeded Wan 2.1 VAE in the
     AutoencoderKLQwenImage layout (the transformer from random init: the
     `_random_init` hook) and the seeded text stand-in with its mask;
     --cache_only, 3 steps with the evals, a resume to 5 with --test_sample,
     then a third call whose adapter.init_from_existing loads the epoch
     export: exported again, the same tensors bit for bit. Checks as
-    driver-sd3, the 2,520 adapter keys, the launches (each call's
+    driver-sd3, the 420 adapter keys, the launches (each call's
     pre-quantization, GAS 4 micro-steps a step, 9 x 2 eval forwards an
     eval, the sample's forwards). Returns the launches of the two training
     calls."""
@@ -4149,7 +4230,8 @@ def phase_driver_qwen():
         (root / f"{name}.toml").write_text(
             f'resolutions = [512]\n[[directory]]\npath = "{root}/{folder}"\n')
     text = QWEN_DRIVER_TOML.format(root=root, out="out", model=model_dir, eval_first="true",
-                                   sample_steps=DRIVER_SAMPLE_STEPS, init="")
+                                   sample_steps=DRIVER_SAMPLE_STEPS, init="",
+                                   depth=QWEN_DRIVER_DEPTH)
     cfg_path = root / "qwen_image_lora.toml"
     cfg_path.write_text(text)
     argv = ["--config", str(cfg_path)]
@@ -4210,7 +4292,8 @@ def phase_driver_qwen():
         reimport_path = root / "qwen_image_reimport.toml"
         reimport_path.write_text(QWEN_DRIVER_TOML.format(
             root=root, out="reimport", model=model_dir, eval_first="false",
-            sample_steps=DRIVER_SAMPLE_STEPS, init=f'init_from_existing = "{export}"\n'))
+            sample_steps=DRIVER_SAMPLE_STEPS, init=f'init_from_existing = "{export}"\n',
+            depth=QWEN_DRIVER_DEPTH))
         loaded, keymap = {}, []
 
         def init_and_copy(pipeline, *a, **kw):
@@ -4272,7 +4355,8 @@ def phase_driver_qwen():
           f"step counter {saved_step}")
     check(meta.get("custom_loader") == uninterrupted,
           f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
-    check(all(c["int8_unchanged"] and c["int8_weights"] == 840 for c in calls),
+    check(all(c["int8_unchanged"] and c["int8_weights"] == 14 * QWEN_DRIVER_DEPTH
+              for c in calls),
           "int8 weights changed")
     check(all(c["lora_tensors"] == n_lora and all(n.startswith(shape["no_gradient"])
                                                   or n.endswith(QWEN_MAY_STAY)
@@ -5301,6 +5385,478 @@ def _hidream_text_stand_in():
                 caps, "llama", (HIDREAM_LLAMA_LAYERS, HIDREAM_LLAMA_ROWS, 4096))}]
 
 
+# --- slice 17: Cosmos-Predict2, Anima and Cosmos-1 -------------------------------
+
+# K1-K3 at the MiniTrainDIT's attention in its two cells, heads of 128,
+# unmasked: Predict2 / Anima at 1024 px (B 2, 4,096 image rows, 16 heads) and
+# its cross-attention to 512 T5 rows; Cosmos-1 at 960 x 704 (B 1, 2,640 rows,
+# a ragged last tile, 32 heads) and its cross-attention to 512 rows
+# (case, (B, Sq, Skv, H), D)
+COSMOS_KERNEL_CASES = (
+    ("predict2_self_4096", (2, 4096, 4096, 16), 128),
+    ("predict2_cross_4096x512", (2, 4096, 512, 16), 128),
+    ("cosmos1_self_2640", (1, 2640, 2640, 32), 128),
+    ("cosmos1_cross_2640x512", (1, 2640, 512, 32), 128),
+)
+COSMOS_TXT = 512
+ANIMA_T5_VALID, ANIMA_LLM_VALID = 60, 77  # valid T5 ids and Qwen rows of each 512
+COSMOS_T5_VALID = 60  # Cosmos-1's valid T5 rows (the rest zeroed, as cached)
+
+
+def phase_kernels_cosmos():
+    """K1-K3 at the four Cosmos shapes against their plain versions (every
+    head), K2 / K3 deterministic at Cosmos-1's ragged 2,640 rows, each
+    timed beside its bound, its plain version and SDPA's forward and
+    backward. Returns {case: K1-K3 timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timings = {}
+    for case, (b, sq, skv, h), d in COSMOS_KERNEL_CASES:
+        errors = _check_attention(fa, case, b, sq, skv, h, d, False, gen)
+        _free()
+        splits = None
+        if case == "cosmos1_self_2640":
+            splits = _check_bwd_deterministic(fa, case, b, sq, skv, h, d, gen)
+            _free()
+        timing, sdpa_bwd_ms = _time_attention(fa, b, sq, skv, h, d, gen)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[k]["err"] for k in ERR_KEYS[name])
+        emit(phase="kernels-cosmos", case=f"timing_{case}", q_shape=[b, sq, h, d], kv_len=skv,
+             masked=False, timing=timing, sdpa_bwd_ms=sdpa_bwd_ms, k3_query_splits=splits)
+        timings[case] = timing
+        _free()
+    return timings
+
+
+def _cosmos_reference_config(dtype):
+    """2 blocks at 256 wide: 2 heads of 128, adaLN-LoRA 32, context 64, LoRA
+    rank 4 on every block linear, the modulations' included."""
+    from diffusion_pipe_tpu_torch.models.cosmos_predict2_model import CosmosPredict2Config
+
+    return CosmosPredict2Config(model_channels=256, num_blocks=2, num_heads=2,
+                                crossattn_emb_channels=64, adaln_lora_dim=32, dtype=dtype,
+                                param_dtype=dtype, lora_rank=4, lora_alpha=4.0, lora_dtype=dtype)
+
+
+class _AnimaNet(torch.nn.Module):
+    """Anima's forward: the LLMAdapter (f32), its padded rows zeroed, the DiT."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        from diffusion_pipe_tpu_torch.models.cosmos_predict2_model import CosmosPredict2Transformer
+        from diffusion_pipe_tpu_torch.models.llm_adapter import LLMAdapter, LLMAdapterConfig
+
+        adapter = LLMAdapter(LLMAdapterConfig(source_dim=64, target_dim=64, model_dim=64,
+                                              num_layers=2, num_heads=4, vocab=1000,
+                                              self_attn=True))
+        self.dit = CosmosPredict2Transformer(_cosmos_reference_config(dtype), adapter)
+
+    def forward(self, x, t, llm_hidden_states, t5_input_ids, t5_mask, llm_mask):
+        ctx = self.dit.llm_adapter(llm_hidden_states, t5_input_ids, target_mask=t5_mask,
+                                   source_mask=llm_mask)
+        return self.dit(x, t, ctx * t5_mask[..., None].to(ctx.dtype))
+
+
+class _EDMNet(torch.nn.Module):
+    """Cosmos-1's forward: c_skip x_t + c_out F(c_in x_t, c_noise) in f32."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        from diffusion_pipe_tpu_torch.models.cosmos_predict2_model import CosmosPredict2Transformer
+
+        self.dit = CosmosPredict2Transformer(_cosmos_reference_config(dtype))
+
+    def forward(self, x_t, sigma, context):
+        from diffusion_pipe_tpu_torch.training.edm import edm_scalings
+
+        c_skip, c_out, c_in, c_noise = (c.reshape(-1, 1, 1, 1, 1) for c in edm_scalings(sigma))
+        net = self.dit((x_t * c_in).to(self.dit.cfg.dtype), c_noise.flatten(), context)
+        return c_skip * x_t + c_out * net.float()
+
+
+def phase_reference_cosmos(device="cuda"):
+    """The narrow MiniTrainDIT (_cosmos_reference_config) bf16 on the card
+    against f32 on the CPU, as Predict2 with the Anima adapter in front (40
+    Qwen rows of which 30 valid, 24 T5 ids of which 20) and under EDM (sigma
+    1.7, 24 context rows): a 16 x 16 latent (64 image tokens), 4 attention
+    calls (K1-K3 once each)."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    x = torch.randn((1, 16, 1, 16, 16), generator=gen)
+    target = torch.randn(x.shape, generator=gen)
+    hs = torch.randn((1, 40, 64), generator=gen)
+    ids = torch.randint(0, 1000, (1, 24), generator=gen)
+    llm_mask = (torch.arange(40) < 30).to(torch.int32)[None]
+    t5_mask = (torch.arange(24) < 20).to(torch.int32)[None]
+    ctx = torch.randn((1, 24, 64), generator=gen)
+
+    def build_anima(dtype, dev):
+        with torch.device(dev):
+            return _AnimaNet(dtype)
+
+    def anima_inputs(dtype):
+        return dict(x=x.to(dtype), t=torch.tensor([0.4]), llm_hidden_states=hs,
+                    t5_input_ids=ids, t5_mask=t5_mask, llm_mask=llm_mask)
+
+    _reference_family("reference-cosmos", build_anima, anima_inputs, target, device, blocks=4)
+
+    def build_edm(dtype, dev):
+        with torch.device(dev):
+            return _EDMNet(dtype)
+
+    def edm_inputs(dtype):
+        return dict(x_t=x * 2.0, sigma=torch.tensor([1.7]), context=ctx.to(dtype))
+
+    _reference_family("reference-cosmos-edm", build_edm, edm_inputs, target, device, blocks=4)
+
+
+# Qwen3-0.6B's config.json (Anima's text tower), as from_hf_config reads it
+QWEN3_06B = {"model_type": "qwen3", "vocab_size": 151936, "hidden_size": 1024,
+             "num_hidden_layers": 28, "num_attention_heads": 16, "num_key_value_heads": 8,
+             "head_dim": 128, "intermediate_size": 3072, "rope_theta": 1000000.0,
+             "rms_norm_eps": 1e-6, "tie_word_embeddings": True}
+
+
+def phase_qwen3():
+    """Anima's text function on Qwen3-0.6B at its published size (QWEN3_06B:
+    28 layers, 1,024 wide, 16 heads over 8 of 128, q / k norms, FFN 3,072,
+    vocab 151,936, tied embeddings) from a seed in bf16: LLMTextEncoder's
+    final normed states (hidden_layer -1) of 2 x 512 ids (the second padded
+    after 77), [2, 512, 1,024], timed with the peak; a narrow copy (256
+    wide) bf16 on the card against f32 on the CPU (rel L2 < 3e-2)."""
+    from diffusion_pipe_tpu_torch.models.llm_encoders import (CausalLM, CausalLMConfig,
+                                                              LLMTextEncoder)
+
+    def encoder(cfg, dev, seed):
+        with torch.device("meta"):
+            lm = CausalLM(cfg)
+        lm = lm.to_empty(device=dev)
+        lm.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        enc = LLMTextEncoder(".", max_length=COSMOS_TXT, hidden_layer=-1, dtype=cfg.dtype,
+                             device=dev)
+        enc.model = lm.eval().requires_grad_(False)
+        return enc
+
+    full = CausalLMConfig.from_hf_config(QWEN3_06B, dtype=torch.bfloat16)
+    check(full.qk_norm and full.head_dim == 128 and full.num_kv_heads == 8,
+          f"Qwen3 config {full}")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    narrow = dict(vocab=1024, dim=256, num_heads=4, num_kv_heads=2, ffn_dim=512)
+    ids = torch.randint(0, 1024, (1, 64), generator=gen)
+    mask = torch.ones_like(ids)
+    ref_enc = encoder(dataclasses.replace(full, dtype=torch.float32, param_dtype=torch.float32,
+                                          **narrow), "cpu", SEED)
+    card_enc = encoder(dataclasses.replace(full, **narrow), "cpu", SEED)
+    card_enc.model.to("cuda")
+    with torch.no_grad():
+        ref = ref_enc.hidden_states(ids, mask)
+        got = card_enc.hidden_states(ids.cuda(), mask.cuda()).float().cpu()
+    narrow_err = _rel(got, ref)
+    del ref_enc, card_enc
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = encoder(full, "cuda", SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = torch.randint(0, full.vocab, (2, COSMOS_TXT), generator=gen).cuda()
+    mask = torch.ones_like(ids)
+    mask[1, ANIMA_LLM_VALID:] = 0
+    with torch.no_grad():
+        h = enc.hidden_states(ids, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            h = enc.hidden_states(ids, mask)
+        torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    finite = bool(torch.isfinite(h).all())
+    emit(phase="qwen3-0.6b", params=sum(p.numel() for p in enc.model.parameters()),
+         init_s=init_s, encode_ms=encode_ms, shape=list(h.shape), finite=finite,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), narrow_rel_l2=narrow_err)
+    check(list(h.shape) == [2, COSMOS_TXT, 1024] and finite, f"Qwen3 states {list(h.shape)}")
+    check(narrow_err < 3e-2, f"narrow Qwen3 bf16 vs f32: rel L2 {narrow_err}")
+    del enc, h
+    _free()
+
+
+# the first video bucket of examples/cosmos_dataset.toml (960 x 704, 121
+# frames) and its latents; the crop held against f32 on the CPU
+COSMOS_CLIP = (1, 3, 121, 704, 960)
+COSMOS_CLIP_LATENTS = [1, 16, 16, 88, 120]
+COSMOS_TOKENIZER_CROP = (1, 3, 17, 64, 96)
+COSMOS_TOKENIZER_REL_L2 = 5e-2
+
+
+def phase_cosmos_tokenizer():
+    """The Cosmos tokenizer at its published widths (128 channels, x (2, 4,
+    4), 2 resnets a level, z 16) from a seed (statistics away from 0 and
+    1), written as a checkpoint under build/smoke/cosmos_tokenizer and read
+    back by convert_cosmos_tokenizer (the same bits). bf16 on the card
+    against f32 on the CPU on a 17-frame 96 x 64 crop (encode, and decode
+    of the f32 latents: rel L2 < COSMOS_TOKENIZER_REL_L2); then the 121-frame
+    960 x 704 clip encoded to [1, 16, 16, 88, 120] and decoded back, timed
+    with the peak. Returns the checkpoint's path."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.cosmos_tokenizer import (CosmosTokenizerConfig,
+                                                                  CosmosVideoTokenizer,
+                                                                  convert_cosmos_tokenizer,
+                                                                  tokenizer_checkpoint)
+
+    folder = _fresh_dir(SMOKE_DIR / "cosmos_tokenizer")
+    cfg = CosmosTokenizerConfig()
+    with torch.device("meta"):
+        seeded = CosmosVideoTokenizer(cfg)
+    seeded = seeded.to_empty(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    seeded.init_weights(gen)
+    with torch.no_grad():
+        seeded.latent_mean.normal_(0.0, 0.1, generator=gen)
+        seeded.latent_std.uniform_(0.5, 1.5, generator=gen)
+    path = folder / "tokenizer.safetensors"
+    written = tokenizer_checkpoint(seeded)
+    safetensors_io.save_file(written, str(path))
+    del seeded
+    t0 = time.perf_counter()
+    read_cfg, sd = convert_cosmos_tokenizer(safetensors_io.load_file(str(path)))
+    convert_s = time.perf_counter() - t0
+    check(read_cfg == cfg, f"tokenizer layout {read_cfg}")
+    ref = CosmosVideoTokenizer(cfg)
+    ref.load_state_dict(sd)
+    same = all(torch.equal(ref.state_dict()[k], sd[k]) for k in sd)
+    with torch.device("meta"):
+        tok = CosmosVideoTokenizer(dataclasses.replace(cfg, dtype=torch.bfloat16))
+    tok = tok.to_empty(device="cuda")
+    tok.load_state_dict(sd)
+    tok.eval().requires_grad_(False)
+    cgen = torch.Generator().manual_seed(SEED + 5)
+    crop = torch.rand(COSMOS_TOKENIZER_CROP, generator=cgen) * 2 - 1
+    with torch.no_grad():
+        z_ref = ref.encode(crop)
+        y_ref = ref.decode(z_ref)
+        z = tok.encode(crop.cuda()).float().cpu()
+        y = tok.decode(z_ref.cuda()).float().cpu()
+    enc_err, dec_err = _rel(z, z_ref), _rel(y, y_ref)
+    del ref
+    _free()
+
+    clip = (torch.rand(COSMOS_CLIP, generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        tok.encode(clip[:, :, :9, :128, :128])  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = tok.encode(clip)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        encode_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        video = tok.decode(lat)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(lat).all() and torch.isfinite(video).all())
+    emit(phase="cosmos-tokenizer", params=sum(p.numel() for p in tok.parameters()),
+         checkpoint_tensors=len(written), convert_s=convert_s, read_back_bit_identical=same,
+         crop=list(COSMOS_TOKENIZER_CROP), encode_rel_l2=enc_err, decode_rel_l2=dec_err,
+         rel_l2_bound=COSMOS_TOKENIZER_REL_L2, clip=list(COSMOS_CLIP),
+         latents=list(lat.shape), decoded=list(video.shape), encode_s=encode_s,
+         decode_s=decode_s, encode_peak_memory_bytes=encode_peak,
+         decode_peak_memory_bytes=torch.cuda.max_memory_allocated(), finite=finite)
+    check(same, "the tokenizer read back from its checkpoint differs")
+    check(list(lat.shape) == COSMOS_CLIP_LATENTS and list(video.shape) == list(COSMOS_CLIP)
+          and finite, f"tokenizer shapes {list(lat.shape)} / {list(video.shape)}")
+    check(enc_err < COSMOS_TOKENIZER_REL_L2 and dec_err < COSMOS_TOKENIZER_REL_L2,
+          f"tokenizer bf16 vs f32: encode {enc_err}, decode {dec_err}")
+    del tok, clip, lat, video
+    _free()
+    return path
+
+
+ANIMA_LORA_CONFIG = {  # anima-lora-1024
+    "save_every_n_epochs": 1,
+    "model": {"type": "anima", "dtype": "bfloat16", "llm_adapter_lr": 5e-5},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+COSMOS1_LORA_CONFIG = {  # cosmos1-7b-lora-704x960
+    "save_every_n_epochs": 1,
+    "model": {"type": "cosmos", "dtype": "bfloat16"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+
+
+def build_cosmos_slice(family, cfg, device="cuda", latent_thw=(1, 128, 128), batch_size=2,
+                       txt_len=COSMOS_TXT):
+    """A Cosmos family at the config's size; a batch of latents and the
+    cached text at the model's widths: Anima's Qwen rows [txt_len, 1,024]
+    with ANIMA_LLM_VALID valid and T5 ids with ANIMA_T5_VALID; Cosmos-1's
+    T5 rows [txt_len, 1,024] with COSMOS_T5_VALID (zeros after)."""
+    def make_batch(pipeline, gen):
+        b = batch_size
+
+        def valid(n):
+            return (torch.arange(txt_len, device=device) < n).to(torch.int32).expand(b, -1)
+
+        batch = {"latents": torch.randn((b, 16, *latent_thw), generator=gen, device=device)}
+        if family == "anima":
+            ac = pipeline.adapter_config
+            ids = torch.randint(1, ac.vocab, (b, txt_len), generator=gen, device=device)
+            batch.update(llm_hidden_states=torch.randn((b, txt_len, ac.source_dim),
+                                                       generator=gen, device=device),
+                         llm_mask=valid(ANIMA_LLM_VALID),
+                         t5_input_ids=ids * valid(ANIMA_T5_VALID),
+                         t5_mask=valid(ANIMA_T5_VALID))
+        else:
+            width = pipeline.cp_config.crossattn_emb_channels
+            t5 = torch.randn((b, txt_len, width), generator=gen, device=device)
+            batch["prompt_embeds"] = t5 * valid(COSMOS_T5_VALID)[..., None]
+        return batch
+
+    return _build_family_slice(family, cfg, device, make_batch)
+
+
+def phase_slice_cosmos(family="anima"):
+    """anima-lora-1024: Cosmos-Predict2 at its full 2 B size (28 blocks,
+    2,048 wide) with Anima's LLMAdapter (f32, at llm_adapter_lr) in bf16,
+    LoRA r32 on the 16 linears of each block, adamw8bit, `true`, batch 2 at
+    1024 px (4,096 image rows, 512 T5 ids of which 60 valid, 512 Qwen rows
+    of which 77). cosmos1-7b-lora-704x960: Cosmos-1 at its full 7 B size
+    (28 blocks, 4,096 wide), EDM, batch 1 at 960 x 704 (2,640 image rows,
+    512 T5 rows). 112 / 56 / 56 launches a step in each; the output and
+    target shapes; every LoRA and adapter tensor moved (the bf16 lora_a may
+    stay, NEW_MAY_STAY), the frozen weights unchanged."""
+    anima = family == "anima"
+    cfg = ANIMA_LORA_CONFIG if anima else COSMOS1_LORA_CONFIG
+    thw, b = ((1, 128, 128), 2) if anima else ((1, 88, 120), 1)
+
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        out = out if anima else out[0]
+        c = pipeline.cp_config
+        rows = thw[0] * thw[1] * thw[2] // 4
+        check(list(out.shape) == list(target.shape) == [b, 16, *thw] and c.head_dim == 128,
+              f"output {list(out.shape)}, target {list(target.shape)}")
+        adapter = [n for n, p in pipeline.model.named_parameters()
+                   if p.requires_grad and n.startswith("llm_adapter.")]
+        check(anima == bool(adapter), f"{len(adapter)} trainable LLMAdapter tensors")
+        return dict(image_rows=rows, head_dim=c.head_dim, width=c.model_channels,
+                    output_shape=list(out.shape), adapter_tensors=len(adapter),
+                    adapter_params=sum(p.numel() for n, p in pipeline.model.named_parameters()
+                                       if n.startswith("llm_adapter.")),
+                    lr_scales=pipeline.lr_scale_map(float(cfg["optimizer"]["lr"])))
+
+    counts, _, _ = phase_slice_family(
+        "slice-anima-lora" if anima else "slice-cosmos1-lora",
+        "anima-lora-1024" if anima else "cosmos1-7b-lora-704x960",
+        lambda: build_cosmos_slice(family, cfg, latent_thw=thw, batch_size=b),
+        timed_steps=NEW_TIMED_STEPS, expected_fn=_flash_step, no_gradient=("none",),
+        after=after, may_stay=NEW_MAY_STAY)
+    return counts
+
+
+ANIMA_DRIVER_TOML = FLUX2_DRIVER_TOML.replace(
+    "flux2-dev-lora-1024-fp8-int8's trainer", "anima-lora-1024's trainer").replace(
+    "2 + 2 blocks", "2 blocks from a checkpoint").replace(
+    'type = "flux2"', 'type = "anima"\nllm_adapter_lr = 5e-5').replace(
+    'transformer_dtype = "float8"\nnum_layers = 2\nnum_single_layers = 2\n',
+    'transformer_path = "{root}/predict2_2_blocks.safetensors"\n')
+PREDICT2_DRIVER_TOML = ANIMA_DRIVER_TOML.replace(
+    "anima-lora-1024's trainer", "anima-lora-1024's trainer on Cosmos-Predict2").replace(
+    'type = "anima"\nllm_adapter_lr = 5e-5', 'type = "cosmos_predict2"')
+COSMOS_DRIVER_TOML = FLUX2_DRIVER_TOML.replace(
+    "flux2-dev-lora-1024-fp8-int8's trainer", "cosmos1-7b-lora-704x960's trainer").replace(
+    "2 + 2 blocks", "2 blocks").replace('type = "flux2"', 'type = "cosmos"').replace(
+    'transformer_dtype = "float8"\nnum_layers = 2\nnum_single_layers = 2\n', "num_blocks = 2\n")
+COSMOS_DRIVER_CLIP = (1, 3, 9, 512, 512)
+
+
+def _write_predict2_checkpoint(path, anima):
+    """Cosmos-Predict2 at full width and 2 blocks from a seed, as a
+    `net.`-prefixed checkpoint in the reference's names (bf16), for Anima
+    with its LLMAdapter under llm_adapter.* (f32): the driver's layout
+    comes from its keys."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.cosmos_predict2 import cosmos_predict2_keymap
+    from diffusion_pipe_tpu_torch.models.cosmos_predict2_model import (CosmosPredict2Config,
+                                                                       CosmosPredict2Transformer)
+    from diffusion_pipe_tpu_torch.models.keymaps import keymap_from_state_dict
+    from diffusion_pipe_tpu_torch.models.layers import init_module_weights
+    from diffusion_pipe_tpu_torch.models.llm_adapter import (LLMAdapter, LLMAdapterConfig,
+                                                             export_llm_adapter)
+
+    cfg = CosmosPredict2Config.p2b_2b(num_blocks=2)
+    with torch.device("meta"):
+        adapter = LLMAdapter(LLMAdapterConfig(self_attn=True)) if anima else None
+        model = CosmosPredict2Transformer(cfg, adapter)
+    model = model.to_empty(device="cuda")
+    init_module_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    state = model.state_dict()
+    sd = keymap_from_state_dict(state, cosmos_predict2_keymap(cfg), cfg)
+    sd = {"net." + k: v.detach().contiguous().cpu() for k, v in sd.items()}
+    sd.update({"net." + k: v for k, v in export_llm_adapter(state).items()})
+    safetensors_io.save_file(sd, str(path))
+    return len(sd)
+
+
+def _anima_text_stand_in():
+    """Seeded text at Anima's cached shapes: Qwen3's rows [512, 1,024] with
+    ANIMA_LLM_VALID valid, T5 ids [512] with ANIMA_T5_VALID valid."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    def fn(caps):
+        b = len(caps)
+        ids = (seeded_draws(caps, "t5_ids", (COSMOS_TXT,)).abs() * 1000).to(torch.int32) + 1
+        llm = (torch.arange(COSMOS_TXT) < ANIMA_LLM_VALID).to(torch.int32).expand(b, -1)
+        t5 = (torch.arange(COSMOS_TXT) < ANIMA_T5_VALID).to(torch.int32).expand(b, -1)
+        return {"llm_hidden_states": seeded_draws(caps, "qwen3", (COSMOS_TXT, 1024)),
+                "llm_mask": llm.clone(), "t5_input_ids": ids * t5, "t5_mask": t5.clone()}
+
+    return [fn]
+
+
+def _t5_text_stand_in(key):
+    """Seeded old-T5 rows [512, 1,024] under key (Predict2's t5_embed,
+    Cosmos-1's prompt_embeds), COSMOS_T5_VALID valid, zeros after."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    def fn(caps):
+        valid = (torch.arange(COSMOS_TXT) < COSMOS_T5_VALID).float()[None, :, None]
+        return {key: seeded_draws(caps, "t5", (COSMOS_TXT, 1024)) * valid}
+
+    return [fn]
+
+
+def cosmos_driver_clip(vae_path):
+    """A seeded 9-frame 512 px clip through Cosmos-1's caching function
+    (get_call_vae_fn, the tokenizer of vae_path in bf16): [1, 16, 2, 64, 64]
+    latents. (A video file would go through imageio, which the card's
+    machine lacks.)"""
+    import numpy as np
+
+    from diffusion_pipe_tpu_torch.models import get_model_class
+
+    config = {"model": {"type": "cosmos", "dtype": "bfloat16", "vae_path": str(vae_path)}}
+    fn = get_model_class("cosmos")(config, device="cuda").get_call_vae_fn()
+    clip = np.random.default_rng(SEED).uniform(-1, 1, COSMOS_DRIVER_CLIP).astype(np.float32)
+    t0 = time.perf_counter()
+    lat = fn(clip)["latents"]
+    torch.cuda.synchronize()
+    shape = list(lat.shape)
+    check(shape == [1, 16, 2, 64, 64] and bool(torch.isfinite(lat).all()),
+          f"the clip's latents {shape}")
+    return dict(clip=list(COSMOS_DRIVER_CLIP), clip_latents=shape,
+                clip_encode_s=time.perf_counter() - t0)
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5327,7 +5883,7 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
     and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow (D 256),
-    Lumina 2 (D 96), OmniGen2 (D 120) and HiDream, and the source and ptxas
+    Lumina 2 (D 96), OmniGen2 (D 120), HiDream and the Cosmos families, and the source and ptxas
     record of their bf16 D 256 build (d256) and of the bf16 D 128 instance that
     runs D 96 and 120 (padded); H1 and H2 theirs at Qwen-Image's ff_in
     (qwen_int8_timing) and FLUX.2's linear1 (flux2_int8_timing)."""
@@ -5366,7 +5922,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                       + tuple(c[0] for c in QWEN_KERNEL_CASES)
                       + tuple(c[0] for c in FLUX2_AURAFLOW_KERNEL_CASES)
                       + tuple(c[0] for c in LUMINA_KERNEL_CASES)
-                      + tuple(c[0] for c in HIDREAM_KERNEL_CASES)}
+                      + tuple(c[0] for c in HIDREAM_KERNEL_CASES)
+                      + tuple(c[0] for c in COSMOS_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -5520,6 +6077,22 @@ def main():
     driver_hidream_counts = phase_driver_family("hidream", vae_dir)
     _free()
     emit(phase="hidream-phases", seconds=time.perf_counter() - hidream_t0)
+    cosmos_t0 = time.perf_counter()
+    timings.update(phase_kernels_cosmos())
+    phase_reference_cosmos()
+    phase_qwen3()
+    tokenizer_path = phase_cosmos_tokenizer()
+    anima_counts = phase_slice_cosmos("anima")
+    _free()
+    cosmos1_counts = phase_slice_cosmos("cosmos")
+    _free()
+    driver_anima_counts = phase_driver_family("anima", wan_vae_path)
+    _free()
+    driver_predict2_counts = phase_driver_family("cosmos_predict2", wan_vae_path)
+    _free()
+    driver_cosmos_counts = phase_driver_family("cosmos", tokenizer_path)
+    _free()
+    emit(phase="cosmos-phases", seconds=time.perf_counter() - cosmos_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -5539,7 +6112,11 @@ def main():
             "launches_driver_lumina2": driver_lumina2_counts,
             "launches_driver_zimage": driver_zimage_counts,
             "launches_hidream_lora": hidream_counts,
-            "launches_driver_hidream": driver_hidream_counts}
+            "launches_driver_hidream": driver_hidream_counts,
+            "launches_anima_lora": anima_counts, "launches_cosmos1_lora": cosmos1_counts,
+            "launches_driver_anima": driver_anima_counts,
+            "launches_driver_predict2": driver_predict2_counts,
+            "launches_driver_cosmos": driver_cosmos_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more, qwen_int8, flux2_int8, d256, padded))
     print(card)

@@ -1,7 +1,7 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, Lumina 2 or HiDream
-parameter tree as the JAX
+Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, Lumina 2, HiDream
+or Cosmos parameter tree as the JAX
 package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
@@ -40,6 +40,13 @@ RoPE ((32, 48, 48)), and its stacked `experts_w1 / w2 / w3` [E, in, out]
 and `caption_projection` [blocks, llama_dim, dim] split into the port's
 per-expert and per-block linears.
 
+cosmos_predict2_config / cosmos_predict2_state_dict do it for the JAX
+CosmosPredict2Transformer (Cosmos-Predict2, Anima, Cosmos-1): the scanned
+`blocks` stack becomes `blocks.{i}.*` under the JAX module's own names, and
+Anima's `llm_adapter` subtree goes through llm_adapter_state_dict into the
+port's (the reference's) names: `blocks_{i}_cross_attn` as
+`blocks.{i}.cross_attn`, `blocks_{i}_mlp1` as `blocks.{i}.mlp.0`.
+
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
 (models/autoencoder_kl.py, umt5.py, wan_vae.py, wan_vae22.py, wan_clip.py,
@@ -49,7 +56,8 @@ any rank becomes torch's `weight` [out, in, ...], a Dense `kernel` is
 transposed, an Embed `embedding` and a norm `scale` become `weight`, and
 the unrolled `block_{i}` / `layer_{i}` modules become the ModuleList
 entries `blocks.{i}` / `layers.{i}` (also the LLM text towers and the
-Qwen2.5-VL vision tower, models/llm_encoders.py, vision_encoders.py).
+Qwen2.5-VL vision tower, models/llm_encoders.py, vision_encoders.py; the
+Cosmos tokenizer, models/cosmos_tokenizer.py).
 
 Only numpy and torch are used here.
 """
@@ -314,4 +322,53 @@ def hidream_state_dict(params: Mapping[str, Any],
                 out[f"caption_projection.{i}.weight"] = val[i].t().contiguous()
         else:
             out[key] = val
+    return out
+
+
+def cosmos_predict2_config(jax_config, **over):
+    """The port's CosmosPredict2Config of a JAX CosmosPredict2Config (the
+    same fields, its RoPE ratios and adapter included)."""
+    from .models.cosmos_predict2_model import CosmosPredict2Config
+
+    return CosmosPredict2Config(**_shared_fields(jax_config, CosmosPredict2Config, **over))
+
+
+# the JAX LLMAdapter's unrolled block leaves -> the port's (the reference's) names
+_ADAPTER_NAMES = ((r"^blocks_(\d+)_norm_self\.", r"blocks.\1.norm_self_attn."),
+                  (r"^blocks_(\d+)_norm_cross\.", r"blocks.\1.norm_cross_attn."),
+                  (r"^blocks_(\d+)_norm_mlp\.", r"blocks.\1.norm_mlp."),
+                  (r"^blocks_(\d+)_mlp1\.", r"blocks.\1.mlp.0."),
+                  (r"^blocks_(\d+)_mlp2\.", r"blocks.\1.mlp.2."),
+                  (r"^blocks_(\d+)_(self_attn|cross_attn)\.", r"blocks.\1.\2."),
+                  (r"^embed\.embedding$", "embed.weight"))
+
+
+def llm_adapter_state_dict(params: Mapping[str, Any],
+                           dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX LLMAdapter tree as the port module's names:
+    `blocks_{i}_cross_attn/q_proj` as `blocks.{i}.cross_attn.q_proj`,
+    `blocks_{i}_norm_mlp` as `blocks.{i}.norm_mlp`, `blocks_{i}_mlp1 /
+    mlp2` as `blocks.{i}.mlp.0 / .2`, the Embed's `embedding` as
+    `embed.weight`."""
+    out = {}
+    for key, val in jax_to_state_dict(params, dtype).items():
+        for pat, rep in _ADAPTER_NAMES:
+            key = re.sub(pat, rep, key)
+        out[key] = val
+    return out
+
+
+def cosmos_predict2_state_dict(params: Mapping[str, Any],
+                               dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX Cosmos-Predict2 / Anima / Cosmos-1 tree (or
+    a subtree such as its LoRA factors): the scanned `blocks` stack split
+    into `blocks.{i}.*` (the port keeps the JAX module's names), Anima's
+    `llm_adapter` subtree through llm_adapter_state_dict under
+    `llm_adapter.`."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    out = jax_to_state_dict({k: v for k, v in params.items() if k != "llm_adapter"}, dtype)
+    if params.get("llm_adapter") is not None:
+        out.update({f"llm_adapter.{k}": v
+                    for k, v in llm_adapter_state_dict(params["llm_adapter"], dtype).items()})
     return out

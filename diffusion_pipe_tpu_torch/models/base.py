@@ -9,6 +9,7 @@ A pipeline owns its nn.Module on one device and adapts it to the trainer:
 
 and to the training driver (train.py) and the data pipeline:
 
+  trainable_predicate()          -> predicate(name, param) of what trains
   load_weights()                 -> state dict of pretrained weights
   get_call_vae_fn()              -> fn(pixels) -> {"latents": ...}
   get_call_text_encoder_fns()    -> [fn(captions) -> {name: embeddings}]
@@ -63,6 +64,13 @@ class BasePipeline:
     def lr_scale_map(self, base_lr) -> Dict[str, float]:
         """Per-module LR multipliers by parameter-name substring."""
         return {}
+
+    def trainable_predicate(self):
+        """predicate(name, param) -> whether the parameter trains: the
+        adapter factors under `[adapter]`, else every parameter."""
+        from ..training.train_state import predicate_from_config
+
+        return predicate_from_config(self.config)
 
     def load_weights(self) -> Dict[str, torch.Tensor]:
         raise NotImplementedError(f"{self.name}: loading pretrained weights is not ported yet")

@@ -32,6 +32,38 @@ def cast_te_params_fp8(sd: Mapping[str, torch.Tensor],
             for k, v in sd.items()}
 
 
+class _Fp8Linear(torch.nn.Module):
+    """A linear whose weight is stored in float8_e4m3fn, cast to the input's
+    dtype at use."""
+
+    def __init__(self, linear: torch.nn.Linear):
+        super().__init__()
+        self.weight = torch.nn.Parameter(linear.weight.detach().to(torch.float8_e4m3fn),
+                                         requires_grad=False)
+        self.bias = linear.bias
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return torch.nn.functional.linear(x, self.weight.to(x.dtype), bias)
+
+
+def store_linears_fp8(model: torch.nn.Module, skip=_FP8_SKIP) -> int:
+    """`text_encoder_fp8` for a transformers model: every nn.Linear whose
+    name holds none of `skip` replaced in place by one with its weight in
+    float8_e4m3fn (the weights cast_te_params_fp8 casts), but the modules
+    the model keeps in f32 (its `_keep_in_fp32_modules`: T5's feed-forward
+    `wo`, whose input it casts to the weight's dtype). Returns the count."""
+    keep = set(getattr(model, "_keep_in_fp32_modules", None) or ())
+    names = [n for n, m in model.named_modules()
+             if isinstance(m, torch.nn.Linear) and not any(s in n for s in skip)
+             and n.rpartition(".")[2] not in keep]
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        parent = model.get_submodule(owner) if owner else model
+        setattr(parent, leaf, _Fp8Linear(getattr(parent, leaf)))
+    return len(names)
+
+
 def seeded_draws(captions: List[str], suffix: str, shape) -> torch.Tensor:
     """[B, *shape] f32: each caption's normal draws from numpy's generator
     seeded with the hash of caption + suffix, the JAX `_tiny` hooks' values
@@ -76,14 +108,15 @@ class HFTextEncoder:
 
     kind: 't5' | 'clip' | 'clip_pooled'; path: a folder with the weights
     (tokenizer_path overrides where the tokenizer is); a 't5' folder whose
-    config names umt5 (Pile-T5) loads UMT5's encoder. encode(captions)
+    config names umt5 (Pile-T5) loads UMT5's encoder; with fp8 its linears
+    are stored in float8 (store_linears_fp8). encode(captions)
     returns the last hidden state [B, max_length, D] (or CLIP's pooled
     output [B, D]) as f32 CPU tensors.
     """
 
     def __init__(self, kind: str, path: str, max_length: int,
                  tokenizer_path: Optional[str] = None, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fp8: bool = False):
         if kind not in ("t5", "clip", "clip_pooled"):
             raise NotImplementedError(kind)
         self.kind = kind
@@ -92,6 +125,7 @@ class HFTextEncoder:
         self.tokenizer_path = tokenizer_path or path
         self.device = device
         self.dtype = dtype
+        self.fp8 = fp8
         self._model = None
         self._tokenizer = None
 
@@ -109,6 +143,8 @@ class HFTextEncoder:
         else:
             from transformers import CLIPTextModel as cls
         self._model = cls.from_pretrained(self.path, dtype=self.dtype).to(self.device).eval()
+        if self.fp8:
+            store_linears_fp8(self._model)
 
     @torch.no_grad()
     def encode(self, captions: List[str], return_mask: bool = False):

@@ -28,7 +28,8 @@ output_dir/example.png before training.
 Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
 optimizer (A10), and families other than Flux, Wan, SDXL, SD3, Chroma,
-Qwen-Image, FLUX.2, AuraFlow, Lumina 2, Z-Image and OmniGen2 (A9).
+Qwen-Image, FLUX.2, AuraFlow, Lumina 2, Z-Image, OmniGen2, HiDream,
+Cosmos-Predict2, Anima and Cosmos-1 (A9).
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ def _check_ported(config, args):
     from .models import get_model_class
     from .models.auraflow import AuraFlowPipeline
     from .models.chroma import ChromaPipeline
+    from .models.cosmos_predict2 import CosmosPredict2Pipeline
     from .models.flux import FluxPipeline
     from .models.flux2 import Flux2Pipeline
     from .models.hidream import HiDreamPipeline
@@ -90,11 +92,12 @@ def _check_ported(config, args):
 
     trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
                QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline, Lumina2Pipeline,
-               HiDreamPipeline)
+               HiDreamPipeline, CosmosPredict2Pipeline)
     if not issubclass(get_model_class(config["model"]["type"]), trained):
         raise NotImplementedError(
             f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, "
-            f"Lumina 2 (with Z-Image and OmniGen2) and HiDream families so far; "
+            f"Lumina 2 (with Z-Image and OmniGen2), HiDream and Cosmos (Cosmos-Predict2, Anima "
+            f"and Cosmos-1) families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 
@@ -187,7 +190,6 @@ def main(argv=None):
     from .training.metrics import MetricsWriter
     from .training.optimizers import get_optimizer
     from .training.saver import Saver, get_most_recent_run_dir
-    from .training.train_state import predicate_from_config
     from .training.trainer import init_train_state, make_eval_step, make_train_step
 
     config = load_config(args.config)
@@ -265,7 +267,7 @@ def main(argv=None):
         print(f"initialized adapter from {init_from_existing}")
     gen = torch.Generator(device=device)
     state = init_train_state(pipeline, optimizer, gen.manual_seed(config["seed"]),
-                             predicate_from_config(config), state_dict=state_dict,
+                             pipeline.trainable_predicate(), state_dict=state_dict,
                              partial=True)
     del state_dict
     if args.test_sample is not None:

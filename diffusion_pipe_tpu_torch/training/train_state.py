@@ -25,7 +25,9 @@ def full_ft_predicate(name: str, _param=None) -> bool:
 
 
 def predicate_from_config(config: dict) -> Callable:
-    """lora_predicate under an `[adapter]` section, else full fine-tuning."""
+    """lora_predicate under an `[adapter]` section, else full fine-tuning.
+    A pipeline that trains more than the factors under an adapter says so
+    in its trainable_predicate."""
     return lora_predicate if "adapter" in config else full_ft_predicate
 
 

@@ -490,6 +490,32 @@ def test_hidream_shape_matches_plain(dtype, cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
 
 
+# The Cosmos families' attention at heads of 128, unmasked, on 4 heads:
+# Cosmos-1's self-attention at 960 x 704 (2,640 rows, a ragged last tile)
+# and Predict2 / Anima's cross-attention at 1024 px (4,096 image rows to 512
+# T5 rows): name: (B, Sq, Skv)
+COSMOS_CASES = {"cosmos1_self_2640": (1, 2640, 2640),
+                "predict2_cross_4096x512": (2, 4096, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(COSMOS_CASES))
+def test_cosmos_shapes_match_plain(case, dtype, cuda_device):
+    """K1-K3 at the Cosmos shapes against the plain versions; K2 and K3
+    give the same bits twice."""
+    b, sq, skv = COSMOS_CASES[case]
+    rng = np.random.default_rng(29)
+    q, do, k, v = (torch.from_numpy(rng.standard_normal((b, s, 4, 128), dtype=np.float32))
+                   .to(cuda_device, dtype) for s in (sq, sq, skv, skv))
+    scale = 128 ** -0.5
+    got = _kernels_all(q, k, v, do, None, scale)
+    _assert_near_plain(got, q, k, v, do, None, scale)
+    again = _kernels_all(q, k, v, do, None, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 80, 112])
 def test_unsupported_head_dims_raise_on_the_card(d, cuda_device):

@@ -104,3 +104,31 @@ def test_umt5_folder_loads_umt5(models):
         ref = UMT5EncoderModel.from_pretrained(models / "umt5")(
             input_ids=tok["input_ids"], attention_mask=tok["attention_mask"]).last_hidden_state
     assert torch.equal(ours, ref)
+
+
+def test_t5_fp8_storage(models):
+    """text_encoder_fp8: every T5 linear but the feed-forward's `wo` (which
+    T5 keeps in f32) holds its weight in float8_e4m3fn and computes with it
+    cast to the input's dtype, so the states are those of the model whose
+    linear weights are rounded through float8; the relative-position table
+    and the embedding keep their dtype."""
+    from transformers import AutoTokenizer, T5EncoderModel
+
+    enc = HFTextEncoder("t5", str(models / "t5"), 8, tokenizer_path=str(models / "tok"),
+                        device="cpu", fp8=True)
+    ours = enc.encode(CAPTIONS)
+    weights = {n: p.dtype for n, p in enc._model.named_parameters()}
+    assert weights["encoder.block.0.layer.0.SelfAttention.q.weight"] == torch.float8_e4m3fn
+    assert weights["encoder.block.1.layer.1.DenseReluDense.wi.weight"] == torch.float8_e4m3fn
+    assert weights["encoder.block.1.layer.1.DenseReluDense.wo.weight"] == torch.float32
+    assert weights["shared.weight"] == torch.float32
+    ref_model = T5EncoderModel.from_pretrained(models / "t5")
+    with torch.no_grad():
+        for name, m in ref_model.named_modules():
+            if isinstance(m, torch.nn.Linear) and not name.endswith(".wo"):
+                m.weight.copy_(m.weight.to(torch.float8_e4m3fn).float())
+        tok = AutoTokenizer.from_pretrained(models / "tok")(
+            CAPTIONS, padding="max_length", truncation=True, max_length=8, return_tensors="pt")
+        ref = ref_model(input_ids=tok["input_ids"],
+                        attention_mask=tok["attention_mask"]).last_hidden_state
+    assert torch.equal(ours, ref)

@@ -241,6 +241,22 @@ def test_hidream_cache_train_eval_checkpoint_resume(root):
     _cache_train_resume(root, _family_config("hidream"), "hidream", (2 * 27 + 2 * 20) * 3)
 
 
+@pytest.mark.parametrize("family, pairs", [("cosmos_predict2", 16), ("anima", 16),
+                                           ("cosmos", 16)])
+def test_cosmos_families_cache_train_eval_checkpoint_resume(root, family, pairs):
+    # 2 blocks of 16 LoRA linears (10 attention and MLP, 6 modulation):
+    # lora_A, lora_B and alpha each; Anima's trained LLMAdapter beside them
+    _cache_train_resume(root, _family_config(family), family, 2 * pairs * 3)
+    if family == "anima":
+        from safetensors.numpy import load_file
+
+        run = _run_dir(root, "anima_resumed")
+        adapter = load_file(str(run / "epoch1" / "llm_adapter.safetensors"))
+        trained = torch.load(run / "global_step6" / "state.pt", weights_only=True)["trainable"]
+        assert adapter and all(k.startswith("llm_adapter.") for k in adapter)
+        assert sum(k.startswith("llm_adapter.") for k in trained) == len(adapter)
+
+
 def test_qwen_image_edit_trains_on_control_images(root):
     """qwen_image_edit with a control_path dataset: the control images'
     latents are cached beside the targets' and ride in the batch, the
@@ -453,7 +469,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "cosmos_predict2": ("", ('type = "flux"', 'type = "cosmos_predict2"'), []),
+    "hunyuan-video": ("", ('type = "flux"', 'type = "hunyuan-video"'), []),
 }
 
 

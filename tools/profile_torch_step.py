@@ -16,6 +16,8 @@
     python3 tools/profile_torch_step.py --slice lumina2-lokr  # lumina2-lokr-1024
     python3 tools/profile_torch_step.py --slice omnigen2-lora  # omnigen2-lora-1024
     python3 tools/profile_torch_step.py --slice hidream-lora  # hidream-i1-lora-1024
+    python3 tools/profile_torch_step.py --slice anima-lora  # anima-lora-1024
+    python3 tools/profile_torch_step.py --slice cosmos1-lora  # cosmos1-7b-lora-704x960
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -47,7 +49,10 @@ OmniGen2 at full width and 4 main blocks, LoRA r32, adamw8bit, batch 1,
 head dim 120; or chip_smoke.build_hidream_slice: HiDream-I1 at its
 published size in bf16, LoRA r32 on every block linear, the routed experts'
 included, adamw8bit, `true`, batch 1 at 1024 px with 128 T5 rows and 32
-Llama layers of 128 rows), builds the kernels if needed, runs
+Llama layers of 128 rows; or chip_smoke.build_cosmos_slice: Cosmos-Predict2
+at its full 2 B size with Anima's LLMAdapter, LoRA r32, adamw8bit, `true`,
+batch 2 at 1024 px with 512 T5 ids and 512 Qwen rows, or Cosmos-1 at its
+full 7 B size under EDM, batch 1 at 960 x 704), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -61,8 +66,12 @@ activities). Prints one JSON line with:
   (H1, H2), GEMMs (cuBLAS/CUTLASS names, the int8 ones included),
   everything else;
 - the top 15 kernels by device time;
-- unprofiled host-clock times (each ended by a synchronize) of a whole step,
-  of forward + backward alone, and of optimizer.step() alone;
+- the top 15 host operators by their own CPU time (torch.profiler's
+  self_cpu_time_total) per step, with their calls per step;
+- unprofiled host-clock times (each ended by a synchronize) of a whole step
+  (the mean of three, and each),
+  of forward + backward alone, of the global norm and clip alone, and of
+  optimizer.step() alone;
 - the matmul flops of one forward (torch.utils.flop_counter; the attention
   kernels are outside it; SDXL's convolutions are in it), the step's
   dense-product flops taken as one forward, one more for the checkpoint
@@ -137,13 +146,18 @@ def _host_ms(fn, n=3):
 
 def unprofiled(pipeline, state, step, batch, gen, sr):
     """Host-clock times without the profiler: a whole step, forward + backward
-    alone, optimizer.step() alone (on the grads that backward left, with
-    stochastic rounding when the path has it)."""
-    from diffusion_pipe_tpu_torch.training.trainer import make_loss_fn
+    alone, the global norm and clip alone and optimizer.step() alone (on the
+    grads that backward left, with stochastic rounding when the path has
+    it)."""
+    from diffusion_pipe_tpu_torch.training.trainer import (clip_by_global_norm, global_norm,
+                                                           make_loss_fn)
 
     loss_fn = make_loss_fn(pipeline)
-    out = dict(step=_host_ms(lambda: step(state, batch, gen)))
+    each = [_host_ms(lambda: step(state, batch, gen), n=1) for _ in range(3)]
+    out = dict(step=sum(each) / len(each), step_each=each)
     out["forward_backward"] = _host_ms(lambda: loss_fn(batch, gen).backward())
+    grads = [p.grad for p in state.trainable.values() if p.grad is not None]
+    out["norm_and_clip"] = _host_ms(lambda: clip_by_global_norm(grads, global_norm(grads), 1.0))
     out["optimizer_step"] = _host_ms(
         lambda: state.optimizer.step(sr_step=state.step if sr else None))
     state.optimizer.zero_grad(set_to_none=True)
@@ -236,7 +250,7 @@ def main(argv=None):
                                         "sdxl-lora", "sdxl-fullft", "sd3-lora",
                                         "chroma-lora", "qwen-lora", "flux2-lora",
                                         "auraflow-lora", "lumina2-lokr", "omnigen2-lora",
-                                        "hidream-lora"),
+                                        "hidream-lora", "anima-lora", "cosmos1-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -273,6 +287,11 @@ def main(argv=None):
                           lambda cfg: chip_smoke.build_lumina_slice(cfg, valid=(200,))),
         "hidream-lora": ("hidream-i1-lora-1024", chip_smoke.HIDREAM_LORA_CONFIG,
                          chip_smoke.build_hidream_slice),
+        "anima-lora": ("anima-lora-1024", chip_smoke.ANIMA_LORA_CONFIG,
+                       lambda cfg: chip_smoke.build_cosmos_slice("anima", cfg)),
+        "cosmos1-lora": ("cosmos1-7b-lora-704x960", chip_smoke.COSMOS1_LORA_CONFIG,
+                         lambda cfg: chip_smoke.build_cosmos_slice(
+                             "cosmos", cfg, latent_thw=(1, 88, 120), batch_size=1)),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing
@@ -308,6 +327,7 @@ def main(argv=None):
         by_name[e.name][1] += 1
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    host_top = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:15]
     plain = unprofiled(pipeline, state, step, batch, gen, sr)
     fwd_flops = forward_matmul_flops(pipeline, batch, gen)
     extra = {"moe": moe_timing(pipeline)} if args.slice == "hidream-lora" else {}
@@ -327,6 +347,8 @@ def main(argv=None):
         gemm_tflops_per_s=forwards * fwd_flops / (by_cat["gemm"] / 1e6 / STEPS) / 1e12,
         top_kernels=[dict(name=n[:120], ms_per_step=v[0] / 1e3 / STEPS,
                           calls_per_step=v[1] / STEPS) for n, v in top],
+        host_top_ops=[dict(name=a.key[:120], self_cpu_ms_per_step=a.self_cpu_time_total
+                           / 1e3 / STEPS, calls_per_step=a.count / STEPS) for a in host_top],
         **extra,
     )))
     return 0

@@ -13,7 +13,12 @@ driver-auraflow, kernels-lumina, reference-lumina2, reference-zimage,
 reference-omnigen2, slice-lumina2-lokr, slice-omnigen2-lora, driver-lumina2,
 driver-zimage (the last two with the vae phase first, whose Flux VAE they
 read), kernels-hidream, reference-hidream, llama31, slice-hidream-lora,
-driver-hidream (with the vae phase first). Each prints its JSON lines as in the whole smoke; a failed
+driver-hidream (with the vae phase first), kernels-cosmos, reference-cosmos,
+qwen3-0.6b, cosmos-tokenizer, slice-anima-lora, slice-cosmos1-lora,
+driver-anima, driver-predict2 (each with the wan-vae phase first, whose Wan
+2.1 VAE it reads),
+driver-cosmos (with the cosmos-tokenizer phase first, whose checkpoint it
+reads). Each prints its JSON lines as in the whole smoke; a failed
 check exits non-zero.
 """
 
@@ -73,6 +78,15 @@ def main(argv):
         "llama31": cs.phase_llama31,
         "slice-hidream-lora": cs.phase_slice_hidream,
         "driver-hidream": lambda: cs.phase_driver_family("hidream", cs.phase_vae()),
+        "kernels-cosmos": cs.phase_kernels_cosmos,
+        "reference-cosmos": cs.phase_reference_cosmos,
+        "qwen3-0.6b": cs.phase_qwen3,
+        "cosmos-tokenizer": cs.phase_cosmos_tokenizer,
+        "slice-anima-lora": lambda: cs.phase_slice_cosmos("anima"),
+        "slice-cosmos1-lora": lambda: cs.phase_slice_cosmos("cosmos"),
+        "driver-anima": lambda: cs.phase_driver_family("anima", cs.phase_wan_vae()),
+        "driver-predict2": lambda: cs.phase_driver_family("cosmos_predict2", cs.phase_wan_vae()),
+        "driver-cosmos": lambda: cs.phase_driver_family("cosmos", cs.phase_cosmos_tokenizer()),
     }
     unknown = [p for p in argv if p not in phases]
     if unknown:
