@@ -438,6 +438,48 @@ Phases, each printing one JSON line (or more):
                      also encodes a 9-frame clip through the caching
                      function.
 
+21. kernels-hunyuan -- (run last) K1-K3 at HunyuanVideo's joint sequence (B 1
+                     x 9,472 = 9,216 image rows of a 33-frame 512 px clip +
+                     256 LLaVA rows, 60 valid; 24 heads of 128) and its
+                     refiner's (256, 60 valid), HunyuanImage-2.1's at 2048
+                     px (B 1 x 5,190 = 4,096 + 128 byT5 rows, 12 valid, +
+                     966 Qwen rows, 80 valid; 28 heads) and its refiner's
+                     (966, 80 valid), against the plain versions (K2 / K3
+                     deterministic at the video joint shape), timed beside
+                     the bound on the valid keys, the plain versions and
+                     SDPA with the same mask.
+    reference-hunyuan-video / reference-hunyuan-image -- 1 + 1 blocks and a
+                     1-block refiner at 256 wide (2 heads of 128), bf16 on
+                     the card against f32 on the CPU: 3 / 2 / 2 launches.
+    hunyuan-vae    -- the published causal 3D VAE at its full widths from a
+                     seed, written in diffusers' layout and read back: a
+                     33-frame 512 px clip encoded to [1, 16, 9, 64, 64] and
+                     decoded, bf16 timed with the peak; a 9-frame 256 px
+                     crop against f32 on the card.
+    llava-llama3   -- HunyuanVideo's LLaVA text function (video template,
+                     crop 95, hidden_states[-3]) on Llama-3-8B's shapes from
+                     a seed: 2 x (95 + 256) ids, the crop checked, timed;
+                     a narrow copy against f32 on the CPU.
+    byt5           -- HunyuanImage-2.1's glyph function on byT5-small's
+                     encoder from a seed: 2 x 128 byte ids, a caption
+                     without a quoted span zeroed, bf16 against f32.
+    slice-hunyuan-video-lora -- cell hunyuan-video-lora-512x33: HunyuanVideo at
+                     its published size (20 + 40 blocks, 12.8 B) in fp8
+                     storage, LoRA r32 in bf16, adamw8bit, `true`, one
+                     33-frame 512 px clip and 256 LLaVA rows (60 valid):
+                     122 / 60 / 60 launches a step.
+    slice-hunyuan-image-2.1-lora -- cell hunyuan-image-2.1-lora-2048:
+                     HunyuanImage-2.1 at its published size (17.4 B) in
+                     bf16, LoRA r32, adamw8bit, `true`, batch 1 at 2048 px
+                     with 966 Qwen rows (80 valid) and 128 byT5 rows (12
+                     valid): 122 / 60 / 60.
+    driver-hunyuan-video / driver-hunyuan-image -- each family through
+                     train.main at full width and 1 + 1 blocks at 512 px,
+                     as driver-sd3: HunyuanVideo in fp8 storage with the
+                     hunyuan-vae phase's VAE, HunyuanImage-2.1 with a
+                     seeded 32x KL VAE of 64 latent channels; seeded text
+                     at the cached shapes.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -800,10 +842,12 @@ def _time_attention(fa, b, sq, skv, h, d, gen, with_plain=True, masked=False):
     rows = b * h * sq
     valid = b * skv if mask is None else int(mask.sum().item())  # valid (element, key) pairs
     pair = h * sq * valid * d
-    work = {  # flops, bytes (each input read once, each output written once)
-        "flash_fwd": (4 * pair, 2 * (2 * nq + 2 * nk) + 4 * rows),
-        "flash_bwd_dq": (6 * pair, 2 * (3 * nq + 2 * nk) + 2 * 4 * rows),
-        "flash_bwd_dkv": (8 * pair, 2 * (2 * nq + 4 * nk) + 2 * 4 * rows),
+    nkv = valid * h * d  # elements of K or V that the valid keys need read
+    work = {  # flops, bytes (each input read once, each output written once; K and V
+        # read on the valid keys, K3's dK and dV written whole: masked keys get zeros)
+        "flash_fwd": (4 * pair, 2 * (2 * nq + 2 * nkv) + 4 * rows),
+        "flash_bwd_dq": (6 * pair, 2 * (3 * nq + 2 * nkv) + 2 * 4 * rows),
+        "flash_bwd_dkv": (8 * pair, 2 * (2 * nq + 2 * nkv + 2 * nk) + 2 * 4 * rows),
     }
     for name, (flops, nbytes) in work.items():
         t, by = bound(flops, nbytes)
@@ -3193,10 +3237,11 @@ def _small_run(model, inputs, target, dev):
              if p.requires_grad and p.grad is not None})
 
 
-def _reference_family(phase, build, inputs, target, device, blocks=None):
+def _reference_family(phase, build, inputs, target, device, blocks=None, expected=None):
     """A narrow model in bf16 on the card against the same weights in f32
     on the CPU (LoRA B nonzero): output, loss and LoRA gradients; K1-K3
-    once a block (`blocks`, else SD3's and Chroma's count)."""
+    once a block (`blocks`, else SD3's and Chroma's count), or the
+    `expected` launches."""
     from diffusion_pipe_tpu_torch.models.layers import init_module_weights
 
     cpu = build(torch.float32, "cpu")
@@ -3220,8 +3265,9 @@ def _reference_family(phase, build, inputs, target, device, blocks=None):
                                                                      + len(gpu.single_blocks))
     emit(phase=phase, out_rel_l2=out_err, loss_rel=loss_err, lora_grads_rel_l2=grad_err,
          worst_lora_tensor_rel_l2=worst, tensors=len(grads), launches=counts)
-    check(torch.device(device).type != "cuda" or all(c == blocks for c in counts.values()),
-          f"{phase} launches {counts}, expected {blocks} each")
+    want = expected or {k: blocks for k in FLASH}
+    check(torch.device(device).type != "cuda" or counts == want,
+          f"{phase} launches {counts}, expected {want}")
     check(out_err < 3e-2 and loss_err < 3e-2 and grad_err < 5e-2,
           f"{phase} mismatch: out {out_err}, loss {loss_err}, grads {grad_err}")
 
@@ -3377,6 +3423,11 @@ def _flash_step(pipeline):
     main blocks recompute K1 under "full", the 2 x num_refiner_layers
     refiner blocks do not."""
     blocks, mc = _model_blocks(pipeline)
+    if hasattr(pipeline, "hv_config") or hasattr(pipeline, "hi_config"):
+        # the Hunyuan refiners train nothing and take no gradient: K1 alone
+        step = _flash_per_step(blocks - mc.refiner_layers, mc.remat)
+        step["flash_fwd"] += mc.refiner_layers
+        return step
     if not hasattr(pipeline, "lumina_config"):
         return _flash_per_step(blocks, mc.remat)
     step = _flash_per_step(blocks, "")
@@ -3386,8 +3437,13 @@ def _flash_step(pipeline):
 
 def _model_blocks(pipeline):
     """(attention blocks, model config) of an SD3, Chroma, Qwen-Image,
-    FLUX.2, AuraFlow, Lumina 2 family, HiDream or Cosmos pipeline (a
-    MiniTrainDIT block attends twice: to itself and to the text)."""
+    FLUX.2, AuraFlow, Lumina 2 family, HiDream, Cosmos or Hunyuan pipeline
+    (a MiniTrainDIT block attends twice: to itself and to the text; the
+    Hunyuan refiner's blocks count)."""
+    for attr in ("hv_config", "hi_config"):
+        if hasattr(pipeline, attr):
+            cfg = getattr(pipeline, attr)
+            return cfg.num_layers + cfg.num_single_layers + cfg.refiner_layers, cfg
     if hasattr(pipeline, "cp_config"):
         return 2 * pipeline.cp_config.num_blocks, pipeline.cp_config
     if hasattr(pipeline, "hd_config"):
@@ -3595,6 +3651,12 @@ def phase_driver_family(family, vae_dir=None):
     elif family == "cosmos":
         toml, stand_ins = COSMOS_DRIVER_TOML, functools.partial(_t5_text_stand_in,
                                                                 "prompt_embeds")
+    elif family in ("hunyuan-video", "hunyuan_image"):
+        toml = (HUNYUAN_VIDEO_DRIVER_TOML if family == "hunyuan-video"
+                else HUNYUAN_IMAGE_DRIVER_TOML)
+        stand_ins = functools.partial(_hunyuan_text_stand_in, family)
+        if family == "hunyuan_image":
+            vae_dir = _write_hunyuan_image_vae(root / "vae")
     elif family in LUMINA_DRIVER_TOMLS:
         toml = LUMINA_DRIVER_TOMLS[family]
         stand_ins = functools.partial(_lumina_text_stand_in, family)
@@ -3736,7 +3798,8 @@ def phase_driver_family(family, vae_dir=None):
           f"loader {meta.get('custom_loader')} against an uninterrupted run's {uninterrupted}")
     check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
     may_stay = (NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image", "hidream", "anima",
-                                           "cosmos_predict2", "cosmos")
+                                           "cosmos_predict2", "cosmos", "hunyuan-video",
+                                           "hunyuan_image")
                 else ("none",))
     check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT) or n.endswith(may_stay)
                                                   for n in c["lora_tensors_still"])
@@ -3756,7 +3819,9 @@ def phase_driver_family(family, vae_dir=None):
 
 
 DRIVER_PHASE_NAMES = {"lumina_2": "driver-lumina2", "z_image": "driver-zimage",
-                      "cosmos_predict2": "driver-predict2"}
+                      "cosmos_predict2": "driver-predict2",
+                      "hunyuan-video": "driver-hunyuan-video",
+                      "hunyuan_image": "driver-hunyuan-image"}
 # the generic keymap export at full depth: lora_A, lora_B and alpha of each
 # pair. SD3-Medium: 23 blocks x 14 linears + the final block's 11 = 333
 # pairs. Chroma: a double block's 6 linears and fused img / txt qkv (8
@@ -3779,7 +3844,11 @@ ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2),
                 "hidream": 3 * (1 * 27 + 2 * 20),
                 # the Cosmos families' 2 blocks of 16 adapted linears (10
                 # attention and MLP, 6 modulation)
-                "anima": 3 * 2 * 16, "cosmos_predict2": 3 * 2 * 16, "cosmos": 3 * 2 * 16}
+                "anima": 3 * 2 * 16, "cosmos_predict2": 3 * 2 * 16, "cosmos": 3 * 2 * 16,
+                # the Hunyuan families' 1 + 1 blocks: a double block's 10
+                # adapted linears (fused qkv, proj, MLP, modulation of each
+                # stream) and a single block's 3
+                "hunyuan-video": 3 * (10 + 3), "hunyuan_image": 3 * (10 + 3)}
 # Anima's LLMAdapter (6 layers with self-attention) as exported: the
 # embedding, 19 tensors a layer, out_proj's two and the norm
 ANIMA_ADAPTER_TENSORS = 1 + 6 * 19 + 3
@@ -5857,6 +5926,450 @@ def cosmos_driver_clip(vae_path):
                 clip_encode_s=time.perf_counter() - t0)
 
 
+# --- slice 18: HunyuanVideo and HunyuanImage-2.1 --------------------------------
+
+# K1-K3 at the two families' attention, heads of 128, the padded text keys
+# masked: HunyuanVideo's joint sequence for a 33-frame 512 px clip (9 x 32 x
+# 32 = 9,216 image rows + 256 LLaVA rows, 60 valid; 24 heads) and its token
+# refiner over the 256 rows (K1 alone on the path: the refiner trains no
+# weight and its input needs no gradient); HunyuanImage-2.1's at 2048 px
+# (4,096 image rows + 128 byT5 rows, 12 valid, + 966 Qwen rows, 80 valid;
+# 28 heads) and its refiner over the 966.
+# (case, (B, S, H), masked keys of the batch element, checked heads)
+HV_TXT, HV_VALID = 256, 60
+HI_BYT5, HI_BYT5_VALID, HI_TXT, HI_VALID = 128, 12, 966, 80
+HV_IMAGE_ROWS, HI_IMAGE_ROWS = 9 * 32 * 32, 64 * 64
+HUNYUAN_KERNEL_CASES = (
+    ("hunyuan_video_joint_9472", (1, HV_IMAGE_ROWS + HV_TXT, 24),
+     (slice(HV_IMAGE_ROWS + HV_VALID, HV_IMAGE_ROWS + HV_TXT),), slice(0, 4)),
+    ("hunyuan_video_refiner_256", (1, HV_TXT, 24), (slice(HV_VALID, HV_TXT),), None),
+    ("hunyuan_image_joint_5190", (1, HI_IMAGE_ROWS + HI_BYT5 + HI_TXT, 28),
+     (list(range(HI_IMAGE_ROWS + HI_BYT5_VALID, HI_IMAGE_ROWS + HI_BYT5))
+      + list(range(HI_IMAGE_ROWS + HI_BYT5 + HI_VALID, HI_IMAGE_ROWS + HI_BYT5 + HI_TXT)),),
+     slice(0, 4)),
+    ("hunyuan_image_refiner_966", (1, HI_TXT, 28), (slice(HI_VALID, HI_TXT),), None),
+)
+
+
+def phase_kernels_hunyuan():
+    """K1-K3 at the four HunyuanVideo / HunyuanImage-2.1 shapes against their
+    plain versions (4 heads of the joint sequences: the plain versions' f32
+    logits grow with each), K2 / K3 deterministic at the video joint
+    shape, each timed beside its bound on the valid keys, its plain version
+    and SDPA with the same mask. Returns {case: K1-K3 timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timings = {}
+    for case, (b, s, h), masked, heads in HUNYUAN_KERNEL_CASES:
+        errors = _check_attention(fa, case, b, s, s, h, 128, masked, gen, heads=heads)
+        _free()
+        splits = None
+        if case == "hunyuan_video_joint_9472":
+            splits = _check_bwd_deterministic(fa, case, b, s, s, h, 128, gen, masked=masked)
+            _free()
+        timing, sdpa_bwd_ms = _time_attention(fa, b, s, s, h, 128, gen, masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[k]["err"] for k in ERR_KEYS[name])
+        masked_keys = masked[0]
+        n_masked = (len(range(s)[masked_keys]) if isinstance(masked_keys, slice)
+                    else len(masked_keys))
+        emit(phase="kernels-hunyuan", case=f"timing_{case}", q_shape=[b, s, h, 128], kv_len=s,
+             valid_keys=s - n_masked, masked=True, timing=timing, sdpa_bwd_ms=sdpa_bwd_ms,
+             k3_query_splits=splits, on_path="K1" if "refiner" in case else "K1-K3")
+        timings[case] = timing
+        _free()
+    return timings
+
+
+def _hunyuan_reference(family, dtype, dev):
+    """1 + 1 blocks and a 1-block refiner at 256 wide (2 heads of 128), LoRA
+    rank 4 on every block linear: HunyuanVideo with text 64 and CLIP 32
+    wide, HunyuanImage-2.1 with 64 latent channels, Qwen 64 and byT5 32
+    through a mapper of 48."""
+    from diffusion_pipe_tpu_torch.models.hunyuan_image import (HunyuanImageConfig,
+                                                               HunyuanImageTransformer)
+    from diffusion_pipe_tpu_torch.models.hunyuan_video_model import (HunyuanVideoConfig,
+                                                                     HunyuanVideoTransformer)
+
+    kw = dict(num_attention_heads=2, num_layers=1, num_single_layers=1, refiner_layers=1,
+              text_dim=64, dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0,
+              lora_dtype=dtype)
+    with torch.device(dev):
+        if family == "hunyuan-video":
+            return HunyuanVideoTransformer(HunyuanVideoConfig(pooled_projection_dim=32, **kw))
+        return HunyuanImageTransformer(HunyuanImageConfig(byt5_dim=32, byt5_mapper_dim=48, **kw))
+
+
+def phase_reference_hunyuan(family, device="cuda"):
+    """The narrow model (_hunyuan_reference) bf16 on the card against f32 on
+    the CPU: HunyuanVideo on 3 x 8 x 8 latents (48 image tokens) with 12
+    LLaVA rows (8 valid), HunyuanImage-2.1 on 8 x 8 latents with 12 Qwen
+    rows (8 valid) and 6 byT5 rows (3 valid). K1 three times (2 blocks
+    and the refiner), K2 and K3 twice."""
+    video = family == "hunyuan-video"
+    gen = torch.Generator().manual_seed(SEED + 18)
+    x = torch.randn((1, 16, 3, 8, 8) if video else (1, 64, 8, 8), generator=gen)
+    txt = torch.randn((1, 12, 64), generator=gen)
+    mask = (torch.arange(12) < 8).to(torch.int32)[None]
+    extra = torch.randn((1, 32) if video else (1, 6, 32), generator=gen)
+    target = torch.randn(x.shape, generator=gen)
+
+    def inputs(dtype):
+        common = dict(x=x.to(dtype), t=torch.tensor([400.0]), text_states=txt.to(dtype),
+                      text_mask=mask)
+        if video:
+            return dict(common, pooled=extra.to(dtype), guidance=torch.tensor([1000.0]))
+        return dict(common, byt5_states=extra.to(dtype),
+                    byt5_mask=(torch.arange(6) < 3).to(torch.int32)[None])
+
+    _reference_family(f"reference-{'hunyuan-video' if video else 'hunyuan-image'}",
+                      functools.partial(_hunyuan_reference, family), inputs, target, device,
+                      expected={"flash_fwd": 3, "flash_bwd_dq": 2, "flash_bwd_dkv": 2})
+
+
+HV_VAE_CLIP = (1, 3, 33, 512, 512)      # -> [1, 16, 9, 64, 64]
+HV_VAE_LATENTS = [1, 16, 9, 64, 64]
+HV_VAE_CROP = (1, 3, 9, 256, 256)       # bf16 against f32 on the card
+
+
+def phase_hunyuan_vae():
+    """The published causal 3D VAE at its full widths (128 / 256 / 512 / 512,
+    2 resnets a block, 16 latent channels, the quant convolutions) from a
+    seed, its weights written in diffusers' layout to build/smoke/hunyuan_vae/
+    and read back by load_hunyuan_vae (driver-hunyuan-video caches with it).
+    In bf16 on the card: a 33-frame 512 px clip encoded to [1, 16, 9, 64,
+    64] and decoded back to the clip's shape, each timed with the peak;
+    then a 9-frame 256 px crop encoded and decoded in bf16 and by the same
+    weights in f32 on the card (TF32 off): the latents' and the decode's
+    relative L2 (WAN_VAE_REL_L2). Returns the folder."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.hunyuan_vae import (HunyuanVAE, HunyuanVAEConfig,
+                                                             load_hunyuan_vae)
+
+    folder = _fresh_dir(SMOKE_DIR / "hunyuan_vae")
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        src = HunyuanVAE(HunyuanVAEConfig())
+    src.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    safetensors_io.save_file({k: v.cpu() for k, v in src.state_dict().items()},
+                             folder / "diffusion_pytorch_model.safetensors")
+    del src
+    vae = load_hunyuan_vae(folder, dtype=torch.bfloat16, device="cuda")
+    write_read_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    clip = torch.rand(HV_VAE_CLIP, generator=gen, device="cuda").mul_(2).sub_(1)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        z = vae.encode(clip)
+        torch.cuda.synchronize()
+        encode_ms = cuda_ms(lambda: vae.encode(clip), iters=1)
+        encode_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        x = vae.decode(z)
+        torch.cuda.synchronize()
+        decode_ms = cuda_ms(lambda: vae.decode(z), iters=1)
+        decode_peak = torch.cuda.max_memory_allocated()
+    shapes = (list(z.shape), list(x.shape))
+    finite = bool(torch.isfinite(z).all() and torch.isfinite(x).all())
+    del clip, z, x
+    _free()
+    crop = torch.rand(HV_VAE_CROP, generator=gen, device="cuda").mul_(2).sub_(1)
+    with torch.no_grad():
+        z = vae.encode(crop)
+        x = vae.decode(z)
+        vae.float()
+        vae.config = dataclasses.replace(vae.config, dtype=torch.float32)
+        z_ref = vae.encode(crop)
+        x_ref = vae.decode(z_ref)
+    rec = dict(clip_shape=list(HV_VAE_CLIP), latent_shape=shapes[0], decoded_shape=shapes[1],
+               encode_ms=encode_ms, decode_ms=decode_ms, encode_peak_memory_bytes=encode_peak,
+               decode_peak_memory_bytes=decode_peak, write_read_s=write_read_s, finite=finite,
+               crop_shape=list(HV_VAE_CROP), encode_rel_l2=_rel_l2(z, z_ref),
+               decode_rel_l2=_rel_l2(x, x_ref))
+    del vae, crop, z, x, z_ref, x_ref
+    _free()
+    emit(phase="hunyuan-vae", **rec)
+    check(rec["latent_shape"] == HV_VAE_LATENTS and rec["decoded_shape"] == list(HV_VAE_CLIP)
+          and finite, f"hunyuan-vae shapes {rec['latent_shape']} / {rec['decoded_shape']}")
+    check(rec["encode_rel_l2"] <= WAN_VAE_REL_L2 and rec["decode_rel_l2"] <= WAN_VAE_REL_L2,
+          f"hunyuan-vae bf16 off f32: {rec['encode_rel_l2']}, {rec['decode_rel_l2']}")
+    return folder
+
+
+# LLaVA-Llama-3-8B's text tower (Llama-3-8B's shapes, no RoPE scaling)
+LLAVA_LLAMA3_8B = {k: v for k, v in LLAMA31_8B.items() if k != "rope_scaling"}
+
+
+def phase_llava_llama3():
+    """HunyuanVideo's LLaVA text function (LLMTextEncoder with hyvideo's video
+    template, crop 95, hidden_states[-3], 256 rows) on Llama-3-8B's shapes
+    (32 layers, 4,096 wide) from a seed, bf16, with a word-level tokenizer
+    (the template's header tokens special): two captions through encode,
+    [2, 256, 4,096] with the mask, equal to the uncropped states of the
+    same ids from row 95 on; 2 x (95 + 256) ids timed with the peak. A
+    narrow 32-layer copy on the card against f32 on the CPU."""
+    from diffusion_pipe_tpu_torch.models.hunyuan_video import VIDEO_CROP_START, VIDEO_TEMPLATE
+    from diffusion_pipe_tpu_torch.models.llm_encoders import (CausalLM, CausalLMConfig,
+                                                              LLMTextEncoder)
+
+    def encoder(cfg, dev, seed):
+        with torch.device("meta"):
+            lm = CausalLM(cfg)
+        lm = lm.to_empty(device=dev)
+        lm.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        enc = LLMTextEncoder(".", max_length=HV_TXT, template=VIDEO_TEMPLATE,
+                             crop_start=VIDEO_CROP_START, hidden_layer=-3, dtype=cfg.dtype,
+                             device=dev)
+        enc.model = lm.eval().requires_grad_(False)
+        return enc
+
+    full = CausalLMConfig.from_hf_config(LLAVA_LLAMA3_8B, dtype=torch.bfloat16)
+    check(not full.rope_llama3 and full.num_layers == 32, f"LLaVA config {full}")
+    gen = torch.Generator().manual_seed(SEED + 95)
+    narrow = dict(vocab=1024, dim=256, num_heads=4, num_kv_heads=1, ffn_dim=512)
+    ids = torch.randint(0, 1024, (1, 128), generator=gen)
+    mask = torch.ones_like(ids)
+    ref_enc = encoder(dataclasses.replace(full, dtype=torch.float32, param_dtype=torch.float32,
+                                          **narrow), "cpu", SEED)
+    card_enc = encoder(dataclasses.replace(full, **narrow), "cpu", SEED)
+    card_enc.model.to("cuda")
+    with torch.no_grad():
+        ref = ref_enc.hidden_states(ids, mask)
+        got = card_enc.hidden_states(ids.cuda(), mask.cuda()).float().cpu()
+    narrow_err = _rel(got, ref)
+    del ref_enc, card_enc
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = encoder(full, "cuda", SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    caps = ["a seeded video, number 0", "a seeded video, number 1 of a longer caption"]
+    enc.tokenizer = _word_tokenizer(
+        " ".join(caps).replace(",", " ").split(), pad="<|eot_id|>",
+        specials=["<|start_header_id|>", "<|end_header_id|>", "<|eot_id|>"])
+    h, m = enc.encode(caps)
+    tok = enc.tokenizer([VIDEO_TEMPLATE.format(c) for c in caps], padding="max_length",
+                        truncation=True, max_length=HV_TXT + VIDEO_CROP_START,
+                        return_tensors="pt")
+    with torch.no_grad():
+        whole = enc.hidden_states(tok["input_ids"].cuda(), tok["attention_mask"].cuda())
+    cropped = torch.equal(h, whole[:, VIDEO_CROP_START:].float().cpu())
+    ids = torch.randint(0, full.vocab, (2, HV_TXT + VIDEO_CROP_START), generator=gen).cuda()
+    mask = torch.ones_like(ids)
+    mask[1, VIDEO_CROP_START + HV_VALID:] = 0
+    with torch.no_grad():
+        enc.hidden_states(ids, mask)
+        torch.cuda.synchronize()
+        encode_ms = cuda_ms(lambda: enc.hidden_states(ids, mask), iters=3)
+    emit(phase="llava-llama3", params=sum(p.numel() for p in enc.model.parameters()),
+         init_s=init_s, encode_ms=encode_ms, ids=list(ids.shape), shape=list(h.shape),
+         valid_rows=m.sum(1).tolist(), crop_start=VIDEO_CROP_START, cropped_equal=cropped,
+         finite=bool(torch.isfinite(h).all()), peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         narrow_rel_l2=narrow_err)
+    check(list(h.shape) == [2, HV_TXT, 4096] and list(m.shape) == [2, HV_TXT]
+          and bool(torch.isfinite(h).all()), f"LLaVA states {list(h.shape)}")
+    check(cropped, "the LLaVA states are not the uncropped ones from row crop_start on")
+    check(narrow_err < 3e-2, f"narrow LLaVA-Llama-3 bf16 vs f32: rel L2 {narrow_err}")
+    del enc, h, whole
+    _free()
+
+
+# byT5-small (google/byt5-small's encoder: 12 layers, 1,472 wide, 6 heads of
+# 64, gated-GELU FFN 3,584, 384 byte ids)
+BYT5_SMALL = dict(vocab_size=384, d_model=1472, d_kv=64, d_ff=3584, num_layers=12,
+                  num_heads=6, feed_forward_proj="gated-gelu", is_encoder_decoder=False)
+
+
+def phase_byt5():
+    """HunyuanImage-2.1's glyph function (hunyuan_image.byt5_text_fn on an
+    HFTextEncoder "t5") on byT5-small's encoder from a seed with the byte
+    tokenizer: 2 captions, one with quoted spans and one without (its row
+    zeroed), 128 ids each, bf16 timed against f32 on the card (rel L2 <
+    5e-2 on the valid rows)."""
+    from transformers import T5Config, T5EncoderModel
+
+    from diffusion_pipe_tpu_torch.models.hunyuan_image import byt5_prompts, byt5_text_fn
+    from diffusion_pipe_tpu_torch.models.text_encoders import HFTextEncoder
+
+    try:
+        from transformers import ByT5Tokenizer
+
+        tokenizer = ByT5Tokenizer()
+    except ImportError:  # a word-level stand-in
+        tokenizer = _word_tokenizer(list("abcdefghijklmnopqrstuvwxyz"), eos="</s>")
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        model = T5EncoderModel(T5Config(**BYT5_SMALL)).eval().requires_grad_(False)
+    caps = ['a shop sign that says "OPEN 24/7" and “Hunyuan”', "a seeded picture, number 1"]
+    enc = HFTextEncoder("t5", "(seeded)", max_length=HI_BYT5, device="cuda", dtype=torch.bfloat16)
+    enc._tokenizer, enc._model = tokenizer, model
+    fn = byt5_text_fn(enc)
+    with torch.no_grad():
+        ref = fn(caps)
+    enc._model = model.to(torch.bfloat16)
+    got = fn(caps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        got = fn(caps)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    valid = got["byt5_mask"].bool()
+    valid[1] = False
+    err = _rel(got["byt5_states"][valid], ref["byt5_states"][valid])
+    states = got["byt5_states"]
+    emit(phase="byt5", params=sum(p.numel() for p in model.parameters()), encode_ms=encode_ms,
+         shape=list(states.shape), prompts=byt5_prompts(caps)[0],
+         valid_ids=got["byt5_mask"].sum(1).tolist(), rel_l2_vs_f32=err)
+    check(list(states.shape) == [2, HI_BYT5, 1472] and bool(torch.isfinite(states).all()),
+          f"byT5 states {list(states.shape)}")
+    check(bool(states[0].any()) and not bool(states[1].any()),
+          "the caption without a quoted span must give zeros, the other not")
+    check(err < 5e-2, f"byT5 bf16 vs f32: rel L2 {err}")
+    del model, enc
+    _free()
+
+
+HUNYUAN_VIDEO_LORA_CONFIG = {  # hunyuan-video-lora-512x33: examples/hunyuan_video.toml's trainer
+    "save_every_n_epochs": 1,
+    "model": {"type": "hunyuan-video", "dtype": "bfloat16", "transformer_dtype": "float8",
+              "timestep_sample_method": "logit_normal"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 2e-5},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+HUNYUAN_IMAGE_LORA_CONFIG = {  # hunyuan-image-2.1-lora-2048
+    "save_every_n_epochs": 1,
+    "model": {"type": "hunyuan_image", "dtype": "bfloat16"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 1e-4},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+
+
+def build_hunyuan_slice(family, cfg, device="cuda", latent=(9, 64, 64), txt=(HV_TXT, HV_VALID),
+                        byt5=(HI_BYT5, HI_BYT5_VALID), batch_size=1):
+    """HunyuanVideo ([B, 16, *latent] latents, txt = (rows, valid) LLaVA rows
+    of 4,096 and CLIP-L's pooled 768) or HunyuanImage-2.1 ([B, 64, *latent]
+    latents, Qwen rows of 3,584 and byt5 = (rows, valid) byT5 rows of
+    1,472) at the config's size, the padded rows zero."""
+    def make_batch(pipeline, gen):
+        c = pipeline.hv_config if family == "hunyuan-video" else pipeline.hi_config
+
+        def r(*shape):
+            return torch.randn((batch_size, *shape), generator=gen, device=device)
+
+        def rows(n, valid, width):
+            m = (torch.arange(n, device=device) < valid).to(torch.int32)
+            m = m.expand(batch_size, -1).clone()
+            return (r(n, width) * m[..., None]).to(c.dtype), m
+
+        states, mask = rows(*txt, c.text_dim)
+        batch = {"latents": r(c.in_channels, *latent), "text_states": states, "text_mask": mask}
+        if family == "hunyuan-video":
+            batch["clip_pooled"] = r(c.pooled_projection_dim).to(c.dtype)
+        else:
+            batch["byt5_states"], batch["byt5_mask"] = rows(*byt5, c.byt5_dim)
+        return batch
+
+    return _build_family_slice(family, cfg, device, make_batch)
+
+
+def phase_slice_hunyuan(family):
+    """hunyuan-video-lora-512x33: HunyuanVideo at its published size (20 + 40
+    blocks, 3,072 wide, 12.8 B) with the block weights in fp8, LoRA r32 in
+    bf16, adamw8bit, logit_normal, `true`, one 33-frame 512 px clip
+    ([1, 16, 9, 64, 64]: 9,216 image rows) with 256 LLaVA rows (60 valid);
+    or hunyuan-image-2.1-lora-2048: HunyuanImage-2.1 at its published size
+    (20 + 40 blocks, 3,584 wide, 17.4 B) in bf16, LoRA r32, adamw8bit,
+    `true`, batch 1 at 2048 px ([1, 64, 64, 64]) with 966 Qwen rows (80
+    valid) and 128 byT5 rows (12 valid). 122 / 60 / 60 launches a step:
+    60 blocks twice under `true` and the refiner's 2 forwards."""
+    video = family == "hunyuan-video"
+    cell = "hunyuan-video-lora-512x33" if video else "hunyuan-image-2.1-lora-2048"
+
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        shape = [1, 16, 9, 64, 64] if video else [1, 64, 64, 64]
+        rows = HV_IMAGE_ROWS + HV_TXT if video else HI_IMAGE_ROWS + HI_BYT5 + HI_TXT
+        check(list(out.shape) == list(target.shape) == shape and bool(torch.isfinite(out).all()),
+              f"output {list(out.shape)}")
+        return dict(sequence=rows, output_shape=list(out.shape))
+
+    if video:
+        build = functools.partial(build_hunyuan_slice, family, HUNYUAN_VIDEO_LORA_CONFIG)
+    else:
+        build = functools.partial(build_hunyuan_slice, family, HUNYUAN_IMAGE_LORA_CONFIG,
+                                  latent=(64, 64), txt=(HI_TXT, HI_VALID))
+    counts, _, _ = phase_slice_family(
+        f"slice-{cell.rsplit('-', 1)[0]}", cell, build, timed_steps=NEW_TIMED_STEPS,
+        expected_fn=_flash_step, no_gradient=("none",), after=after, may_stay=NEW_MAY_STAY)
+    return counts
+
+
+HUNYUAN_VIDEO_DRIVER_TOML = FLUX2_DRIVER_TOML.replace(
+    "flux2-dev-lora-1024-fp8-int8's trainer", "hunyuan-video-lora-512x33's trainer").replace(
+    "2 + 2 blocks", "1 + 1 blocks, fp8 storage").replace(
+    'type = "flux2"', 'type = "hunyuan-video"').replace(
+    "num_layers = 2\nnum_single_layers = 2\n", "num_layers = 1\nnum_single_layers = 1\n")
+HUNYUAN_IMAGE_DRIVER_TOML = HUNYUAN_VIDEO_DRIVER_TOML.replace(
+    "hunyuan-video-lora-512x33's trainer", "hunyuan-image-2.1-lora-2048's trainer").replace(
+    ", fp8 storage", "").replace('transformer_dtype = "float8"\n', "").replace(
+    'type = "hunyuan-video"', 'type = "hunyuan_image"')
+
+
+def _hunyuan_text_stand_in(family):
+    """Seeded text at the cached shapes: HunyuanVideo's LLaVA rows [256,
+    4,096] (60 valid) and CLIP-L's pooled [768]; HunyuanImage-2.1's Qwen
+    rows [966, 3,584] (80 valid) and byT5 rows [128, 1,472] (12 valid)."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    def rows(caps, key, n, valid, width):
+        m = (torch.arange(n) < valid).to(torch.int32).expand(len(caps), -1).clone()
+        return seeded_draws(caps, key, (n, width)) * m[..., None], m
+
+    def llm(caps):
+        n, valid, width = (HV_TXT, HV_VALID, 4096) if family == "hunyuan-video" else (
+            HI_TXT, HI_VALID, 3584)
+        states, mask = rows(caps, "llm", n, valid, width)
+        return {"text_states": states, "text_mask": mask}
+
+    if family == "hunyuan-video":
+        return [llm, lambda caps: {"clip_pooled": seeded_draws(caps, "clip", (768,))}]
+
+    def byt5(caps):
+        states, mask = rows(caps, "byt5", HI_BYT5, HI_BYT5_VALID, 1472)
+        return {"byt5_states": states, "byt5_mask": mask}
+
+    return [llm, byt5]
+
+
+def _write_hunyuan_image_vae(folder):
+    """A seeded 32x KL VAE with 64 latent channels (six blocks of 64 / 128 /
+    256 / 256 / 512 / 512, narrower than the published 32x VAE) in the
+    diffusers layout: what the AutoencoderKL loader infers HunyuanImage-2.1's
+    VAE from."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.autoencoder_kl import (AutoencoderKL, VAEConfig,
+                                                                diffusers_vae_state_dict)
+
+    folder.mkdir(parents=True)
+    vae = AutoencoderKL(VAEConfig(latent_channels=64, block_out_channels=(64, 128, 256, 256,
+                                                                          512, 512),
+                                  scaling_factor=1.0, shift_factor=0.0))
+    vae.init_weights(torch.Generator().manual_seed(SEED))
+    safetensors_io.save_file(diffusers_vae_state_dict(vae),
+                             folder / "diffusion_pytorch_model.safetensors")
+    return folder
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5883,10 +6396,11 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
     driver-wan, i2v and ti2v cells), added to each entry under its key;
     K1-K3 also carry their numbers at the i2v / flf2v image cross shapes,
     and those of SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow (D 256),
-    Lumina 2 (D 96), OmniGen2 (D 120), HiDream and the Cosmos families, and the source and ptxas
-    record of their bf16 D 256 build (d256) and of the bf16 D 128 instance that
-    runs D 96 and 120 (padded); H1 and H2 theirs at Qwen-Image's ff_in
-    (qwen_int8_timing) and FLUX.2's linear1 (flux2_int8_timing)."""
+    Lumina 2 (D 96), OmniGen2 (D 120), HiDream, the Cosmos and the Hunyuan
+    families, and the source and ptxas record of their bf16 D 256 build
+    (d256) and of the bf16 D 128 instance that runs D 96 and 120 (padded);
+    H1 and H2 theirs at Qwen-Image's ff_in (qwen_int8_timing) and FLUX.2's
+    linear1 (flux2_int8_timing)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     extra = ("bound_share", "library_factor", "k2_k3_factor_vs_sdpa_bwd", "sdpa_bwd_ms")
 
@@ -5923,7 +6437,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                       + tuple(c[0] for c in FLUX2_AURAFLOW_KERNEL_CASES)
                       + tuple(c[0] for c in LUMINA_KERNEL_CASES)
                       + tuple(c[0] for c in HIDREAM_KERNEL_CASES)
-                      + tuple(c[0] for c in COSMOS_KERNEL_CASES)}
+                      + tuple(c[0] for c in COSMOS_KERNEL_CASES)
+                      + tuple(c[0] for c in HUNYUAN_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -6093,6 +6608,22 @@ def main():
     driver_cosmos_counts = phase_driver_family("cosmos", tokenizer_path)
     _free()
     emit(phase="cosmos-phases", seconds=time.perf_counter() - cosmos_t0)
+    hunyuan_t0 = time.perf_counter()
+    timings.update(phase_kernels_hunyuan())
+    phase_reference_hunyuan("hunyuan-video")
+    phase_reference_hunyuan("hunyuan_image")
+    hunyuan_vae_path = phase_hunyuan_vae()
+    phase_llava_llama3()
+    phase_byt5()
+    hunyuan_video_counts = phase_slice_hunyuan("hunyuan-video")
+    _free()
+    hunyuan_image_counts = phase_slice_hunyuan("hunyuan_image")
+    _free()
+    driver_hunyuan_video_counts = phase_driver_family("hunyuan-video", hunyuan_vae_path)
+    _free()
+    driver_hunyuan_image_counts = phase_driver_family("hunyuan_image")
+    _free()
+    emit(phase="hunyuan-phases", seconds=time.perf_counter() - hunyuan_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -6116,7 +6647,11 @@ def main():
             "launches_anima_lora": anima_counts, "launches_cosmos1_lora": cosmos1_counts,
             "launches_driver_anima": driver_anima_counts,
             "launches_driver_predict2": driver_predict2_counts,
-            "launches_driver_cosmos": driver_cosmos_counts}
+            "launches_driver_cosmos": driver_cosmos_counts,
+            "launches_hunyuan_video_lora": hunyuan_video_counts,
+            "launches_hunyuan_image_lora": hunyuan_image_counts,
+            "launches_driver_hunyuan_video": driver_hunyuan_video_counts,
+            "launches_driver_hunyuan_image": driver_hunyuan_image_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more, qwen_int8, flux2_int8, d256, padded))
     print(card)

@@ -1,7 +1,7 @@
 """JAX-package parameter trees -> the port's state_dict.
 
-Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, Lumina 2, HiDream
-or Cosmos parameter tree as the JAX
+Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, Lumina 2, HiDream,
+Cosmos, HunyuanVideo or HunyuanImage-2.1 parameter tree as the JAX
 package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
@@ -46,6 +46,18 @@ CosmosPredict2Transformer (Cosmos-Predict2, Anima, Cosmos-1): the scanned
 Anima's `llm_adapter` subtree goes through llm_adapter_state_dict into the
 port's (the reference's) names: `blocks_{i}_cross_attn` as
 `blocks.{i}.cross_attn`, `blocks_{i}_mlp1` as `blocks.{i}.mlp.0`.
+
+hunyuan_video_config / hunyuan_video_state_dict and hunyuan_image_config /
+hunyuan_image_state_dict do it for the JAX HunyuanVideoTransformer and
+HunyuanImageTransformer: the embedders' `time_in_1` / `_2` as
+`time_in.linear_1` / `_2`, the refiner's `refiner_{i}` as `refiner.{i}`, and
+the head's rows reordered from the JAX module's (pt, ph, pw, c) patch order
+to the port's (hyvideo's) (c, pt, ph, pw); HunyuanImage's 2-D `img_in`
+kernel becomes torch's [out, in, ph, pw]. hunyuan_vae_config /
+hunyuan_vae_state_dict do it for the JAX HunyuanVAE: its form (spatial zero
+padding, attention within each frame, its time-upsampling blocks, no quant
+convolutions) and its `down_{i}_res_{j}` / `mid_attn` names as diffusers'
+`down_blocks.{i}.resnets.{j}` / `mid_block.attentions.0`.
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -371,4 +383,94 @@ def cosmos_predict2_state_dict(params: Mapping[str, Any],
     if params.get("llm_adapter") is not None:
         out.update({f"llm_adapter.{k}": v
                     for k, v in llm_adapter_state_dict(params["llm_adapter"], dtype).items()})
+    return out
+
+
+def hunyuan_video_config(jax_config, **over):
+    """The port's HunyuanVideoConfig of a JAX HunyuanVideoConfig (the same
+    fields, its adapter included)."""
+    from .models.hunyuan_video_model import HunyuanVideoConfig
+
+    return HunyuanVideoConfig(**_shared_fields(jax_config, HunyuanVideoConfig, **over))
+
+
+def hunyuan_image_config(jax_config, **over):
+    """The port's HunyuanImageConfig of a JAX HunyuanImageConfig, with the
+    JAX module's byt5_in GELU (tanh)."""
+    from .models.hunyuan_image import HunyuanImageConfig
+
+    kw = _shared_fields(jax_config, HunyuanImageConfig)
+    kw.setdefault("byt5_gelu", "tanh")
+    kw.update(over)
+    return HunyuanImageConfig(**kw)
+
+
+_HUNYUAN_NAMES = ((r"^(time_in|vector_in|guidance_in|refiner_t_embed|refiner_c_embed)_(\d)\.",
+                   r"\1.linear_\2."),
+                  (r"^refiner_(\d+)\.", r"refiner.\1."),
+                  (r"^byt5_layernorm\.(scale|bias)$", r"byt5_in.layernorm_\1"),
+                  (r"^byt5_fc(\d)\.", r"byt5_in.fc\1."))
+
+
+def _patch_rows_from_jax(t: torch.Tensor, channels: int) -> torch.Tensor:
+    """Rows (or a bias) ordered (patch..., c) -> (c, patch...)."""
+    p = t.shape[0] // channels
+    return t.reshape(p, channels, *t.shape[1:]).transpose(0, 1).reshape(t.shape).contiguous()
+
+
+def hunyuan_video_state_dict(params: Mapping[str, Any], config,
+                             dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX HunyuanVideoTransformer or
+    HunyuanImageTransformer tree (or a subtree such as its LoRA factors) as
+    the port's module names, final_linear's rows in the port's patch order
+    (see module docstring); config: the port's config of the model."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in jax_to_state_dict(params, dtype).items():
+        for pat, rep in _HUNYUAN_NAMES:
+            key = re.sub(pat, rep, key)
+        if key.startswith("final_linear.") and key.endswith(("weight", "bias")):
+            val = _patch_rows_from_jax(val, config.out_channels)
+        if key == "img_in.weight" and val.dim() == 4:  # a Conv2d kernel, as [ph, pw, out, in]
+            val = val.permute(2, 3, 0, 1).contiguous()
+        out[key] = val
+    return out
+
+
+hunyuan_image_state_dict = hunyuan_video_state_dict
+
+
+def hunyuan_vae_config(jax_config, **over):
+    """The port's HunyuanVAEConfig computing what the JAX HunyuanVAE of
+    `jax_config` computes: its sizes, its form (jax_form) and no quant
+    convolutions (models/hunyuan_vae.py)."""
+    import dataclasses
+
+    from .models.hunyuan_vae import HunyuanVAEConfig
+
+    kw = {f.name: getattr(jax_config, f.name) for f in dataclasses.fields(HunyuanVAEConfig)
+          if hasattr(jax_config, f.name)}
+    kw["dtype"] = _torch_dtype(kw["dtype"])
+    kw["block_out_channels"] = tuple(kw["block_out_channels"])
+    kw.update(jax_form=True, quant_convs=False)
+    kw.update(over)
+    return HunyuanVAEConfig(**kw)
+
+
+_HUNYUAN_VAE_NAMES = ((r"\.(down|up)_(\d+)_res_(\d+)\.", r".\1_blocks.\2.resnets.\3."),
+                      (r"\.down_(\d+)_downsample\.", r".down_blocks.\1.downsamplers.0.conv."),
+                      (r"\.up_(\d+)_upsample\.", r".up_blocks.\1.upsamplers.0.conv."),
+                      (r"\.mid_res_(\d)\.", r".mid_block.resnets.\1."),
+                      (r"\.mid_attn\.", ".mid_block.attentions.0."),
+                      (r"\.to_out\.", ".to_out.0."),
+                      (r"\.conv_shortcut\.(weight|bias)$", r".conv_shortcut.conv.\1"))
+
+
+def hunyuan_vae_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """tree_to_state_dict of a JAX HunyuanVAE tree as the port's (diffusers')
+    names."""
+    out = {}
+    for key, val in tree_to_state_dict(params).items():
+        for pat, rep in _HUNYUAN_VAE_NAMES:
+            key = re.sub(pat, rep, key)
+        out[key] = val
     return out

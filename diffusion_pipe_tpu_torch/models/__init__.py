@@ -4,7 +4,9 @@ Counterpart of diffusion_pipe_tpu/models/__init__.py; so far the Flux family,
 Wan (t2v, i2v, flf2v, i2v_v2 and ti2v), SDXL, SD3 / SD3.5, Chroma,
 Qwen-Image / Qwen-Image-Edit, FLUX.2, AuraFlow, the Lumina 2 family
 (lumina_2 / lumina2, z_image, omnigen2), HiDream-I1, Cosmos-Predict2 and
-Anima (cosmos_predict2 / anima) and Cosmos-1 (cosmos) are ported.
+Anima (cosmos_predict2 / anima), Cosmos-1 (cosmos), HunyuanVideo
+(hunyuan-video / hunyuan_video) and HunyuanImage-2.1 (hunyuan_image) are
+ported.
 """
 
 from typing import Dict
@@ -24,7 +26,8 @@ def register_model(name: str, *aliases: str):
 
 def get_model_class(name: str):
     from . import (auraflow, chroma, cosmos, cosmos_predict2, flux, flux2, hidream,  # noqa: F401
-                   lumina_2, omnigen2, qwen_image, sd3, sdxl, wan, z_image)
+                   hunyuan_image, hunyuan_video, lumina_2, omnigen2, qwen_image, sd3, sdxl, wan,
+                   z_image)
 
     if name not in _REGISTRY:
         raise NotImplementedError(f"model type {name!r} is not ported yet (ROADMAP A9)")

@@ -81,13 +81,14 @@ class BasePipeline:
     def get_call_text_encoder_fns(self):
         raise NotImplementedError(f"{self.name}: text-embedding caching is not ported yet")
 
-    def _load_generic_image_vae(self, tiny_latent_channels: int = 4):
+    def _load_generic_image_vae(self, tiny_latent_channels: int = 4, tiny_downscale: int = 2):
         """The AutoencoderKL-family VAE of the JAX
         BasePipeline._generic_image_vae_fn, loaded at the first call, in
         [model]'s dtype on the pipeline's device, frozen, as a
         NormalizedImageVAE: under `_tiny` a seeded small KL VAE at
-        tiny_latent_channels; else model.vae_path (alias `vae`) through
-        load_image_vae, its topology from the shapes."""
+        tiny_latent_channels, tiny_downscale x smaller than the pixels; else
+        model.vae_path (alias `vae`) through load_image_vae, its topology
+        from the shapes."""
         if getattr(self, "_vae", None) is None:
             from ..common import dtype_from_string
             from .autoencoder_kl import AutoencoderKL, VAEConfig, load_image_vae
@@ -95,7 +96,9 @@ class BasePipeline:
             mc = self.model_config
             dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
             if mc.get("_tiny", False):
-                vae = AutoencoderKL(VAEConfig.tiny(latent_channels=tiny_latent_channels))
+                blocks = (8,) + (16,) * (tiny_downscale.bit_length() - 1)
+                vae = AutoencoderKL(VAEConfig.tiny(latent_channels=tiny_latent_channels,
+                                                   block_out_channels=blocks))
                 vae = vae.to(self.device)
                 vae.init_weights(torch.Generator(device=self.device).manual_seed(0))
                 vae = vae.eval().requires_grad_(False)
@@ -108,7 +111,7 @@ class BasePipeline:
             self._vae = NormalizedImageVAE(vae)
         return self._vae
 
-    def _generic_image_vae_fn(self, tiny_latent_channels: int = 4):
+    def _generic_image_vae_fn(self, tiny_latent_channels: int = 4, tiny_downscale: int = 2):
         """get_call_vae_fn of the AutoencoderKL families:
         fn(pixels [B, 3, H, W] or [B, 3, 1, H, W] in [-1, 1], numpy) ->
         {"latents": [B, C, H/8, W/8] f32 CPU tensor}, through
@@ -117,7 +120,7 @@ class BasePipeline:
         def fn(pixels):
             import numpy as np
 
-            vae = self._load_generic_image_vae(tiny_latent_channels)
+            vae = self._load_generic_image_vae(tiny_latent_channels, tiny_downscale)
             x = torch.from_numpy(np.asarray(pixels, np.float32))
             if x.dim() == 5:
                 x = x[:, :, 0]

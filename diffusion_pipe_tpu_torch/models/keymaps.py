@@ -109,6 +109,16 @@ class KeyMap:
     # conversion, kept on the pipeline at load, written back verbatim by
     # save_model so a full-model export stays a complete checkpoint
     passthrough_patterns: Sequence[str] = ()
+    # (LoRA-file name, torch name) parts of a family's own LoRA dialect
+    # (HunyuanImage-2.1's ComfyUI names): the export replaces each second
+    # by its first in the keys, the import each first by its second
+    lora_renames: Sequence[Tuple[str, str]] = ()
+
+
+def _renamed(key: str, pairs) -> str:
+    for old, new in pairs:
+        key = key.replace(old, new)
+    return key
 
 
 def _dotted(path: str) -> str:
@@ -331,7 +341,7 @@ def _adapted_linears(km: KeyMap, config):
 def export_lora_keymap(trainable: Mapping[str, torch.Tensor], km: KeyMap,
                        config) -> Dict[str, torch.Tensor]:
     """The adapter factors (port names) -> `<lora_prefix><torch path>.*`
-    f32 tensors (see module docstring)."""
+    f32 tensors (see module docstring), in km.lora_renames' dialect."""
     out: Dict[str, torch.Tensor] = {}
     for ours, theirs, fused in _adapted_linears(km, config):
         dst = f"{km.lora_prefix}{theirs}"
@@ -355,7 +365,8 @@ def export_lora_keymap(trainable: Mapping[str, torch.Tensor], km: KeyMap,
             for leaf in _LOKR_LEAVES:
                 if f"{k}.{leaf}" in trainable:
                     out[f"{dst}.{j}.{leaf}"] = _export(trainable[f"{k}.{leaf}"])
-    return out
+    back = [(new, old) for old, new in km.lora_renames]
+    return {_renamed(k, back): v for k, v in out.items()}
 
 
 def save_lora_safetensors(path, sd: Mapping[str, torch.Tensor], alpha: Optional[float] = None,
@@ -438,8 +449,8 @@ def import_lora_keymap(path, km: KeyMap, config) -> Dict[str, torch.Tensor]:
     """`adapter.init_from_existing`: the adapter factors (port names, [in, r]
     / [r, out], f32) of a saved adapter folder or file. Takes the prefixes
     of km.strip_prefixes and km.lora_prefix, and the lora_A/B and
-    lora_down/up dialects; fused pairs split back into their parts. A LoRA
-    or LoKr tensor that matches no linear of the map is reported by name;
+    lora_down/up dialects and km.lora_renames'; fused pairs split back into
+    their parts. A LoRA or LoKr tensor that matches no linear of the map is reported by name;
     none matching raises."""
     raw = load_safetensors_dir(path)
     prefixes = sorted(tuple(km.strip_prefixes) + (km.lora_prefix,), key=len, reverse=True)
@@ -449,6 +460,7 @@ def import_lora_keymap(path, km: KeyMap, config) -> Dict[str, torch.Tensor]:
             if k.startswith(p):
                 k = k[len(p):]
                 break
+        k = _renamed(k, km.lora_renames)
         sd[k.replace(".lora_down.", ".lora_A.").replace(".lora_up.", ".lora_B.")] = v
     used = set()
     out: Dict[str, torch.Tensor] = {}

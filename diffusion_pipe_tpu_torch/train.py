@@ -29,7 +29,7 @@ Not ported yet, each raising NotImplementedError: pipeline_stages or
 tensor_parallel > 1 (ROADMAP A11), blocks_to_swap and the "offload"
 optimizer (A10), and families other than Flux, Wan, SDXL, SD3, Chroma,
 Qwen-Image, FLUX.2, AuraFlow, Lumina 2, Z-Image, OmniGen2, HiDream,
-Cosmos-Predict2, Anima and Cosmos-1 (A9).
+Cosmos-Predict2, Anima, Cosmos-1, HunyuanVideo and HunyuanImage-2.1 (A9).
 """
 
 from __future__ import annotations
@@ -84,6 +84,8 @@ def _check_ported(config, args):
     from .models.flux import FluxPipeline
     from .models.flux2 import Flux2Pipeline
     from .models.hidream import HiDreamPipeline
+    from .models.hunyuan_image import HunyuanImagePipeline
+    from .models.hunyuan_video import HunyuanVideoPipeline
     from .models.lumina_2 import Lumina2Pipeline
     from .models.qwen_image import QwenImagePipeline
     from .models.sd3 import SD3Pipeline
@@ -92,12 +94,13 @@ def _check_ported(config, args):
 
     trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
                QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline, Lumina2Pipeline,
-               HiDreamPipeline, CosmosPredict2Pipeline)
+               HiDreamPipeline, CosmosPredict2Pipeline, HunyuanVideoPipeline,
+               HunyuanImagePipeline)
     if not issubclass(get_model_class(config["model"]["type"]), trained):
         raise NotImplementedError(
             f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, "
-            f"Lumina 2 (with Z-Image and OmniGen2), HiDream and Cosmos (Cosmos-Predict2, Anima "
-            f"and Cosmos-1) families so far; "
+            f"Lumina 2 (with Z-Image and OmniGen2), HiDream, Cosmos (Cosmos-Predict2, Anima "
+            f"and Cosmos-1), HunyuanVideo and HunyuanImage-2.1 families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 

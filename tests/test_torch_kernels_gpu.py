@@ -37,8 +37,12 @@ hold NaN (no column past D is read) and the outputs are checked whole (no
 column past D is written over the next head's); Lumina 2's and OmniGen2's
 joint sequences (4,352 keys, 60 / 200 of 256 caption keys valid; the noise
 refiner's 4,096 unmasked) at 3 heads; HiDream-I1's (B 1, 4,480 rows, 20
-heads of 128, unmasked, bf16 and fp16), K2 and K3 deterministic there; an
-unsupported head dim (32, 80, 112) raises.
+heads of 128, unmasked, bf16 and fp16), K2 and K3 deterministic there;
+the Hunyuan families' (HunyuanVideo's 9,472-row joint sequence and 256-row
+refiner, HunyuanImage-2.1's 5,190-row joint sequence with masked keys in
+its middle and 966-row refiner; 4 heads, bf16 and fp16), the padded keys
+without dK / dV, K2 and K3 deterministic; an unsupported head dim (32, 80,
+112) raises.
 
 Stochastic rounding (K4): bit for bit equal to its plain version, with bf16
 and f32 updates, at a ragged size and with NaN, +-Inf and exact values.
@@ -512,6 +516,42 @@ def test_cosmos_shapes_match_plain(case, dtype, cuda_device):
     got = _kernels_all(q, k, v, do, None, scale)
     _assert_near_plain(got, q, k, v, do, None, scale)
     again = _kernels_all(q, k, v, do, None, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
+
+
+# The Hunyuan families' attention at heads of 128 with their padded text keys
+# masked, on 4 heads: HunyuanVideo's joint sequence for a 33-frame 512 px
+# clip (9,216 image rows + 256 LLaVA rows, 60 valid) and its refiner's 256
+# rows; HunyuanImage-2.1's at 2048 px (4,096 image rows + 128 byT5 rows, 12
+# valid, + 966 Qwen rows, 80 valid: masked keys in the middle of the
+# sequence, a ragged last tile) and its refiner's 966 rows: name: (S, the
+# valid ranges of the keys)
+HUNYUAN_CASES = {"hunyuan_video_joint_9472": (9472, ((0, 9276),)),
+                 "hunyuan_video_refiner_256": (256, ((0, 60),)),
+                 "hunyuan_image_joint_5190": (5190, ((0, 4108), (4224, 4304))),
+                 "hunyuan_image_refiner_966": (966, ((0, 80),))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(HUNYUAN_CASES))
+def test_hunyuan_shapes_match_plain(case, dtype, cuda_device):
+    """K1-K3 at the Hunyuan shapes against the plain versions; the padded
+    keys get no dK / dV; K2 and K3 give the same bits twice."""
+    s, valid = HUNYUAN_CASES[case]
+    rng = np.random.default_rng(31)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, s, 4, 128), dtype=np.float32))
+                   .to(cuda_device, dtype) for _ in range(4))
+    mask = torch.zeros((1, s), dtype=torch.int32, device=cuda_device)
+    for lo, hi in valid:
+        mask[:, lo:hi] = 1
+    scale = 128 ** -0.5
+    got = _kernels_all(q, k, v, do, mask, scale)
+    _assert_near_plain(got, q, k, v, do, mask, scale)
+    padded = mask[0] == 0
+    assert not got[3][0, padded].any() and not got[4][0, padded].any()
+    again = _kernels_all(q, k, v, do, mask, scale)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
 

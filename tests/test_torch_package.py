@@ -46,7 +46,9 @@ def test_sources_import_no_jax():
     assert len(files) >= 15 and all(
         PKG / f in files for f in ("models/hidream.py", "models/cosmos_predict2.py",
                                    "models/cosmos.py", "models/cosmos_tokenizer.py",
-                                   "models/llm_adapter.py", "training/edm.py"))
+                                   "models/llm_adapter.py", "training/edm.py",
+                                   "models/hunyuan_video_model.py", "models/hunyuan_video.py",
+                                   "models/hunyuan_vae.py", "models/hunyuan_image.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py"]
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
@@ -87,6 +89,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     bypass = get_model_class("flux")(
         dict(cfg, model=dict(cfg["model"], bypass_guidance_embedding=True)), device="cpu")
     assert bypass.device.type == "cpu" and bypass._guidance(torch.ones(1)) is None
+
+
+@pytest.mark.parametrize("family", ["hunyuan-video", "hunyuan_video", "hunyuan_image"])
+def test_hunyuan_pipelines_need_cuda_or_an_explicit_cpu(monkeypatch, family):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"save_every_n_epochs": 1, "model": {"type": family, "dtype": "float32", "_tiny": True}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model_class(family)(cfg)
+    assert get_model_class(family)(cfg, device="cpu").device.type == "cpu"
 
 
 def test_config_matches_jax_package():

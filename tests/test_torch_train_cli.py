@@ -37,6 +37,10 @@ images as one-frame videos):
 - tiny HiDream (the seeded Flux VAE, the JAX `_tiny` hook's T5, pooled and
   two-layer Llama draws; MoE experts with their own adapters) the same
   way, its adapter in the ComfyUI dialect;
+- tiny HunyuanVideo (its seeded causal 3D VAE, the JAX `_tiny` hook's
+  LLaVA and CLIP draws) and tiny HunyuanImage-2.1 (the seeded KL VAE, the
+  Qwen and byT5 draws) the same way, their adapters in the `transformer.`
+  and the ComfyUI dialects;
 - tiny Flux full fine-tuning writes model.safetensors in the diffusers
   layout;
 - a [model] checkpoint path that does not load (a wrong path, a missing
@@ -257,6 +261,13 @@ def test_cosmos_families_cache_train_eval_checkpoint_resume(root, family, pairs)
         assert sum(k.startswith("llm_adapter.") for k in trained) == len(adapter)
 
 
+@pytest.mark.parametrize("family", ["hunyuan-video", "hunyuan_image"])
+def test_hunyuan_families_cache_train_eval_checkpoint_resume(root, family):
+    # 2 double blocks of 10 LoRA linears and 2 single blocks of 3: lora_A,
+    # lora_B and alpha each
+    _cache_train_resume(root, _family_config(family), family, (2 * 10 + 2 * 3) * 3)
+
+
 def test_qwen_image_edit_trains_on_control_images(root):
     """qwen_image_edit with a control_path dataset: the control images'
     latents are cached beside the targets' and ride in the batch, the
@@ -469,7 +480,8 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "blocks_to_swap": ("blocks_to_swap = 2", None, []),
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
-    "hunyuan-video": ("", ('type = "flux"', 'type = "hunyuan-video"'), []),
+    "hunyuan-video": ("blocks_to_swap = 2", ('type = "flux"', 'type = "hunyuan-video"'), []),
+    "hunyuan_video_15": ("", ('type = "flux"', 'type = "hunyuan_video_15"'), []),
 }
 
 

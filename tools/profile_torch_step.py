@@ -18,6 +18,8 @@
     python3 tools/profile_torch_step.py --slice hidream-lora  # hidream-i1-lora-1024
     python3 tools/profile_torch_step.py --slice anima-lora  # anima-lora-1024
     python3 tools/profile_torch_step.py --slice cosmos1-lora  # cosmos1-7b-lora-704x960
+    python3 tools/profile_torch_step.py --slice hunyuan-video-lora  # hunyuan-video-lora-512x33
+    python3 tools/profile_torch_step.py --slice hunyuan-image-lora  # hunyuan-image-2.1-lora-2048
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -52,7 +54,11 @@ included, adamw8bit, `true`, batch 1 at 1024 px with 128 T5 rows and 32
 Llama layers of 128 rows; or chip_smoke.build_cosmos_slice: Cosmos-Predict2
 at its full 2 B size with Anima's LLMAdapter, LoRA r32, adamw8bit, `true`,
 batch 2 at 1024 px with 512 T5 ids and 512 Qwen rows, or Cosmos-1 at its
-full 7 B size under EDM, batch 1 at 960 x 704), builds the kernels if needed, runs
+full 7 B size under EDM, batch 1 at 960 x 704; or chip_smoke.build_hunyuan_slice:
+HunyuanVideo at its published 12.8 B size in fp8 storage, LoRA r32 in bf16,
+adamw8bit, `true`, one 33-frame 512 px clip with 256 LLaVA rows, or
+HunyuanImage-2.1 at its published 17.4 B size in bf16, batch 1 at 2048 px
+with 966 Qwen and 128 byT5 rows), builds the kernels if needed, runs
 one warm-up step, then records two steps under torch.profiler (CPU and CUDA
 activities). Prints one JSON line with:
 
@@ -250,7 +256,8 @@ def main(argv=None):
                                         "sdxl-lora", "sdxl-fullft", "sd3-lora",
                                         "chroma-lora", "qwen-lora", "flux2-lora",
                                         "auraflow-lora", "lumina2-lokr", "omnigen2-lora",
-                                        "hidream-lora", "anima-lora", "cosmos1-lora"),
+                                        "hidream-lora", "anima-lora", "cosmos1-lora",
+                                        "hunyuan-video-lora", "hunyuan-image-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -292,6 +299,13 @@ def main(argv=None):
         "cosmos1-lora": ("cosmos1-7b-lora-704x960", chip_smoke.COSMOS1_LORA_CONFIG,
                          lambda cfg: chip_smoke.build_cosmos_slice(
                              "cosmos", cfg, latent_thw=(1, 88, 120), batch_size=1)),
+        "hunyuan-video-lora": ("hunyuan-video-lora-512x33", chip_smoke.HUNYUAN_VIDEO_LORA_CONFIG,
+                               lambda cfg: chip_smoke.build_hunyuan_slice("hunyuan-video", cfg)),
+        "hunyuan-image-lora": ("hunyuan-image-2.1-lora-2048",
+                               chip_smoke.HUNYUAN_IMAGE_LORA_CONFIG,
+                               lambda cfg: chip_smoke.build_hunyuan_slice(
+                                   "hunyuan_image", cfg, latent=(64, 64),
+                                   txt=(chip_smoke.HI_TXT, chip_smoke.HI_VALID))),
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing

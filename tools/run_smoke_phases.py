@@ -18,8 +18,13 @@ qwen3-0.6b, cosmos-tokenizer, slice-anima-lora, slice-cosmos1-lora,
 driver-anima, driver-predict2 (each with the wan-vae phase first, whose Wan
 2.1 VAE it reads),
 driver-cosmos (with the cosmos-tokenizer phase first, whose checkpoint it
-reads). Each prints its JSON lines as in the whole smoke; a failed
-check exits non-zero.
+reads), kernels-hunyuan, reference-hunyuan-video, reference-hunyuan-image,
+hunyuan-vae, llava-llama3, byt5, slice-hunyuan-video-lora,
+slice-hunyuan-image-lora, driver-hunyuan-video (with the hunyuan-vae phase
+first, whose VAE it reads), driver-hunyuan-image, and `hunyuan`: the
+last ten, hunyuan-vae run by driver-hunyuan-video. Each prints its JSON
+lines as in the whole smoke, and a last line its seconds; a failed check
+exits non-zero.
 """
 
 import sys
@@ -87,16 +92,34 @@ def main(argv):
         "driver-anima": lambda: cs.phase_driver_family("anima", cs.phase_wan_vae()),
         "driver-predict2": lambda: cs.phase_driver_family("cosmos_predict2", cs.phase_wan_vae()),
         "driver-cosmos": lambda: cs.phase_driver_family("cosmos", cs.phase_cosmos_tokenizer()),
+        "kernels-hunyuan": cs.phase_kernels_hunyuan,
+        "reference-hunyuan-video": lambda: cs.phase_reference_hunyuan("hunyuan-video"),
+        "reference-hunyuan-image": lambda: cs.phase_reference_hunyuan("hunyuan_image"),
+        "hunyuan-vae": cs.phase_hunyuan_vae,
+        "llava-llama3": cs.phase_llava_llama3,
+        "byt5": cs.phase_byt5,
+        "slice-hunyuan-video-lora": lambda: cs.phase_slice_hunyuan("hunyuan-video"),
+        "slice-hunyuan-image-lora": lambda: cs.phase_slice_hunyuan("hunyuan_image"),
+        "driver-hunyuan-video": lambda: cs.phase_driver_family("hunyuan-video",
+                                                               cs.phase_hunyuan_vae()),
+        "driver-hunyuan-image": lambda: cs.phase_driver_family("hunyuan_image"),
     }
+    groups = {"hunyuan": ["kernels-hunyuan", "reference-hunyuan-video",
+                          "reference-hunyuan-image", "llava-llama3", "byt5",
+                          "slice-hunyuan-video-lora", "slice-hunyuan-image-lora",
+                          "driver-hunyuan-video", "driver-hunyuan-image"]}
+    argv = [p for name in argv for p in groups.get(name, [name])]
     unknown = [p for p in argv if p not in phases]
     if unknown:
         print(f"run_smoke_phases: unknown phases {unknown}", file=sys.stderr)
         return 2
     cs.emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=cs.nvidia_smi_line())
     ptxas = cs.phase_build()
+    t0 = cs.time.perf_counter()
     for name in argv:
         phases[name]()
         cs._free()
+    cs.emit(phase="phases", names=argv, seconds=cs.time.perf_counter() - t0)
     return 0
 
 
