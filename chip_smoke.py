@@ -480,6 +480,44 @@ Phases, each printing one JSON line (or more):
                      seeded 32x KL VAE of 64 latent channels; seeded text
                      at the cached shapes.
 
+22. kernels-ltx-hv15 -- (run last) K1-K3 at HunyuanVideo-1.5's joint sequence
+                     (B 1 x 10,310 = 9,216 image rows of a 33-frame 512 px
+                     clip + 128 byT5 rows, 12 valid, + 966 Qwen rows, 80
+                     valid; 16 heads of 128) and its refiner's (966, K1
+                     alone on the path), LTX-Video's self-attention over the
+                     6,144 tokens of a 121-frame 768 x 512 clip (32 heads
+                     of 64) and its cross-attention to 128 T5 rows (40
+                     valid), LTX-2's self-attention (32 heads of 128), its
+                     cross-attention to the connector's 1,024 rows and the
+                     connector's own (64 heads of 64, K1 alone), against the
+                     plain versions, timed beside the bound on the valid
+                     keys, the plain versions and SDPA with the same mask.
+    reference-hunyuan-video-15 / reference-ltx-video / reference-ltx2 --
+                     narrow models bf16 on the card against f32 on the CPU
+                     (LTX-Video with a per-token t, 0 on its first frame).
+    ltx-vae        -- the published LTX encoder at the 0.9.0 widths from a
+                     seed, written in Lightricks' layout and read back: the
+                     121-frame 768 x 512 clip encoded to [1, 128, 16, 16,
+                     24] and decoded once, timed with the peak; a 9-frame
+                     256 px crop against f32 on the card.
+    gemma3-12b     -- LTX-2's text function on Gemma-3-12B's published
+                     shapes from a seed: 2 x 512 ids, the last hidden
+                     state, timed with the peak; a narrow copy against f32.
+    slice-hunyuan-video-15-lora / slice-ltx-video-lora / slice-ltx2-lora --
+                     cells hunyuan-video-15-lora-512x33 (8.3 B in bf16, a
+                     33-frame 512 px clip: 110 / 54 / 54 launches a step),
+                     ltx-video-2b-lora-768x512x121 (1.9 B in bf16,
+                     first_frame_conditioning_p 0.5: 112 / 56 / 56) and
+                     ltx2-lora-768x512x121-fp8 (12.9 B of blocks in fp8
+                     storage, 512 Gemma rows: 194 / 96 / 96), LoRA r32,
+                     adamw8bit, `true`.
+    driver-hunyuan-video-15 / driver-ltx-video / driver-ltx2 -- each family
+                     through train.main at full width and 2 blocks, each
+                     512 px picture cached as a 9-frame clip: HunyuanVideo-
+                     1.5 with a seeded 16x causal VAE of 32 latent channels,
+                     LTX-Video (first_frame_conditioning_p 1) and LTX-2 (fp8
+                     storage) with the ltx-vae phase's VAE.
+
 Then it prints the kernels' JSON line (K1-K4 at the Wan path's shape, with
 their numbers at the other shapes beside; H1 and H2, which replace no
 Pallas kernel, at the Flux fp8-int8 path's; each with its launches in the
@@ -3423,7 +3461,12 @@ def _flash_step(pipeline):
     main blocks recompute K1 under "full", the 2 x num_refiner_layers
     refiner blocks do not."""
     blocks, mc = _model_blocks(pipeline)
-    if hasattr(pipeline, "hv_config") or hasattr(pipeline, "hi_config"):
+    if hasattr(pipeline, "ltx2_config"):
+        # LTX-2's connector trains nothing and takes no gradient: K1 alone
+        step = _flash_per_step(blocks - mc.connector_blocks, mc.remat)
+        step["flash_fwd"] += mc.connector_blocks
+        return step
+    if any(hasattr(pipeline, a) for a in ("hv_config", "hi_config", "hv15_config")):
         # the Hunyuan refiners train nothing and take no gradient: K1 alone
         step = _flash_per_step(blocks - mc.refiner_layers, mc.remat)
         step["flash_fwd"] += mc.refiner_layers
@@ -3437,13 +3480,19 @@ def _flash_step(pipeline):
 
 def _model_blocks(pipeline):
     """(attention blocks, model config) of an SD3, Chroma, Qwen-Image,
-    FLUX.2, AuraFlow, Lumina 2 family, HiDream, Cosmos or Hunyuan pipeline
-    (a MiniTrainDIT block attends twice: to itself and to the text; the
-    Hunyuan refiner's blocks count)."""
-    for attr in ("hv_config", "hi_config"):
+    FLUX.2, AuraFlow, Lumina 2 family, HiDream, Cosmos, Hunyuan or LTX
+    pipeline (a MiniTrainDIT or LTX block attends twice: to itself and to
+    the text; the Hunyuan refiner's and the LTX-2 connector's blocks
+    count)."""
+    for attr in ("hv_config", "hi_config", "hv15_config"):
         if hasattr(pipeline, attr):
             cfg = getattr(pipeline, attr)
             return cfg.num_layers + cfg.num_single_layers + cfg.refiner_layers, cfg
+    if hasattr(pipeline, "ltx_config"):
+        return 2 * pipeline.ltx_config.num_layers, pipeline.ltx_config
+    if hasattr(pipeline, "ltx2_config"):
+        cfg = pipeline.ltx2_config
+        return 2 * cfg.num_layers + cfg.connector_blocks, cfg
     if hasattr(pipeline, "cp_config"):
         return 2 * pipeline.cp_config.num_blocks, pipeline.cp_config
     if hasattr(pipeline, "hd_config"):
@@ -3657,6 +3706,11 @@ def phase_driver_family(family, vae_dir=None):
         stand_ins = functools.partial(_hunyuan_text_stand_in, family)
         if family == "hunyuan_image":
             vae_dir = _write_hunyuan_image_vae(root / "vae")
+    elif family in LTX_HV15_DRIVER_TOMLS:
+        toml = LTX_HV15_DRIVER_TOMLS[family]
+        stand_ins = functools.partial(_ltx_hv15_text_stand_in, family)
+        if family == "hunyuan_video_15":
+            vae_dir = _write_hv15_vae(root / "vae")
     elif family in LUMINA_DRIVER_TOMLS:
         toml = LUMINA_DRIVER_TOMLS[family]
         stand_ins = functools.partial(_lumina_text_stand_in, family)
@@ -3711,6 +3765,9 @@ def phase_driver_family(family, vae_dir=None):
 
     trainer.init_train_state = init_and_keep
     cls.get_call_text_encoder_fns = lambda self: stand_ins()
+    real_vae = cls.get_call_vae_fn
+    if family in LTX_HV15_DRIVER_TOMLS:
+        cls.get_call_vae_fn = lambda self: _clip_vae_fn(real_vae(self))
     try:
         t0 = time.perf_counter()
         check(train.main(argv + ["--cache_only"]) == 0, "--cache_only failed")
@@ -3746,6 +3803,7 @@ def phase_driver_family(family, vae_dir=None):
     finally:
         trainer.init_train_state = real_init
         cls.get_call_text_encoder_fns = real_te
+        cls.get_call_vae_fn = real_vae
     calls = [first, second]
     adapter = safetensors_io.load_file(export / "adapter_model.safetensors")
     factors = {k: v for k, v in adapter.items() if not k.endswith(".alpha")}
@@ -3799,9 +3857,10 @@ def phase_driver_family(family, vae_dir=None):
     check(all(c["frozen_unchanged"] for c in calls), "base weights changed")
     may_stay = (NEW_MAY_STAY if family in ("flux2", "auraflow", "z_image", "hidream", "anima",
                                            "cosmos_predict2", "cosmos", "hunyuan-video",
-                                           "hunyuan_image")
+                                           "hunyuan_image", *LTX_HV15_DRIVER_TOMLS)
                 else ("none",))
-    check(all(c["lora_tensors"] == n_lora and all(n.startswith(NO_GRADIENT) or n.endswith(may_stay)
+    no_gradient = NO_GRADIENT + (_hv15_no_gradient(2) if family == "hunyuan_video_15" else ())
+    check(all(c["lora_tensors"] == n_lora and all(n.startswith(no_gradient) or n.endswith(may_stay)
                                                   for n in c["lora_tensors_still"])
               for c in calls), "LoRA factors did not all move")
     keys = ADAPTER_KEYS[family]
@@ -3821,7 +3880,9 @@ def phase_driver_family(family, vae_dir=None):
 DRIVER_PHASE_NAMES = {"lumina_2": "driver-lumina2", "z_image": "driver-zimage",
                       "cosmos_predict2": "driver-predict2",
                       "hunyuan-video": "driver-hunyuan-video",
-                      "hunyuan_image": "driver-hunyuan-image"}
+                      "hunyuan_image": "driver-hunyuan-image",
+                      "hunyuan_video_15": "driver-hunyuan-video-15",
+                      "ltx-video": "driver-ltx-video", "ltx2": "driver-ltx2"}
 # the generic keymap export at full depth: lora_A, lora_B and alpha of each
 # pair. SD3-Medium: 23 blocks x 14 linears + the final block's 11 = 333
 # pairs. Chroma: a double block's 6 linears and fused img / txt qkv (8
@@ -3848,7 +3909,10 @@ ADAPTER_KEYS = {"sd3": 3 * (23 * 14 + 11), "chroma": 3 * (19 * 8 + 38 * 2),
                 # the Hunyuan families' 1 + 1 blocks: a double block's 10
                 # adapted linears (fused qkv, proj, MLP, modulation of each
                 # stream) and a single block's 3
-                "hunyuan-video": 3 * (10 + 3), "hunyuan_image": 3 * (10 + 3)}
+                "hunyuan-video": 3 * (10 + 3), "hunyuan_image": 3 * (10 + 3),
+                # HunyuanVideo-1.5's 2 double blocks of 10; LTX-Video's and
+                # LTX-2's 2 blocks of 10 (q, k, v, out of both attentions, the MLP)
+                "hunyuan_video_15": 3 * 2 * 10, "ltx-video": 3 * 2 * 10, "ltx2": 3 * 2 * 10}
 # Anima's LLMAdapter (6 layers with self-attention) as exported: the
 # embedding, 19 tensors a layer, out_proj's two and the norm
 ANIMA_ADAPTER_TENSORS = 1 + 6 * 19 + 3
@@ -6370,6 +6434,496 @@ def _write_hunyuan_image_vae(folder):
     return folder
 
 
+# --- HunyuanVideo-1.5, LTX-Video and LTX-2 ------------------------------------
+
+# HunyuanVideo-1.5's joint sequence at a 33-frame 512 px clip: 9 x 32 x 32
+# image rows (16x VAE, patch 1), then 128 byT5 rows (12 valid) and 966 Qwen
+# rows (80 valid), 16 heads of 128; LTX's 121-frame 768 x 512 clip: 16 x 16
+# x 24 = 6,144 latent tokens, T5's 128 rows (40 valid), Gemma's 512 (60
+# valid) through the connector's 1,024 rows
+HV15_IMAGE_ROWS, HV15_BYT5, HV15_BYT5_VALID, HV15_TXT, HV15_VALID = 9 * 32 * 32, 128, 12, 966, 80
+LTX_LATENTS = (16, 16, 24)
+LTX_ROWS = 16 * 16 * 24
+LTX_T5, LTX_T5_VALID, LTX2_GEMMA, LTX2_GEMMA_VALID = 128, 40, 512, 60
+# (case, (B, Sq, Skv, H), D, masked keys of element 0 or False, checked heads, on the path)
+LTX_HV15_KERNEL_CASES = (
+    ("hv15_joint_10310", (1, HV15_IMAGE_ROWS + HV15_BYT5 + HV15_TXT,
+                          HV15_IMAGE_ROWS + HV15_BYT5 + HV15_TXT, 16), 128,
+     list(range(HV15_IMAGE_ROWS + HV15_BYT5_VALID, HV15_IMAGE_ROWS + HV15_BYT5))
+     + list(range(HV15_IMAGE_ROWS + HV15_BYT5 + HV15_VALID,
+                  HV15_IMAGE_ROWS + HV15_BYT5 + HV15_TXT)), slice(0, 4), "K1-K3"),
+    ("hv15_refiner_966", (1, HV15_TXT, HV15_TXT, 16), 128, slice(HV15_VALID, HV15_TXT), None,
+     "K1"),
+    ("ltx_self_6144", (1, LTX_ROWS, LTX_ROWS, 32), 64, False, slice(0, 8), "K1-K3"),
+    ("ltx_cross_6144x128", (1, LTX_ROWS, LTX_T5, 32), 64, slice(LTX_T5_VALID, LTX_T5), None,
+     "K1-K3"),
+    ("ltx2_self_6144", (1, LTX_ROWS, LTX_ROWS, 32), 128, False, slice(0, 8), "K1-K3"),
+    ("ltx2_cross_6144x1024", (1, LTX_ROWS, 1024, 32), 128, False, None, "K1-K3"),
+    ("ltx2_connector_1024", (1, 1024, 1024, 64), 64, False, None, "K1"),
+)
+
+
+def phase_kernels_ltx_hv15():
+    """K1-K3 at the seven HunyuanVideo-1.5 / LTX-Video / LTX-2 shapes against
+    their plain versions (some heads of the long self-attentions), K2 / K3
+    deterministic at the LTX-Video cross shape (a masked Skv of 128), each
+    timed beside its bound on the valid keys, its plain version, and SDPA
+    with the same mask. Returns {case: K1-K3 timing}."""
+    from diffusion_pipe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timings = {}
+    for case, (b, sq, skv, h), d, masked, heads, on_path in LTX_HV15_KERNEL_CASES:
+        errors = _check_attention(fa, case, b, sq, skv, h, d, masked, gen, heads=heads)
+        _free()
+        splits = None
+        if case == "ltx_cross_6144x128":
+            splits = _check_bwd_deterministic(fa, case, b, sq, skv, h, d, gen, masked=masked)
+            _free()
+        timing, sdpa_bwd_ms = _time_attention(fa, b, sq, skv, h, d, gen, masked=masked)
+        for name, tm in timing.items():
+            tm["max_abs_err"] = max(errors[k]["err"] for k in ERR_KEYS[name])
+        n_masked = 0
+        if masked is not False:
+            n_masked = (len(range(skv)[masked]) if isinstance(masked, slice) else len(masked))
+        emit(phase="kernels-ltx-hv15", case=f"timing_{case}", q_shape=[b, sq, h, d],
+             kv_len=skv, valid_keys=skv - n_masked, masked=masked is not False, timing=timing,
+             sdpa_bwd_ms=sdpa_bwd_ms, k3_query_splits=splits, on_path=on_path)
+        timings[case] = timing
+        _free()
+    return timings
+
+
+def _ltx_hv15_reference(family, dtype, dev):
+    """Narrow models, LoRA rank 4 on every block linear: HunyuanVideo-1.5
+    with 1 double block and a 1-block refiner at 256 wide (2 heads of 128),
+    32 latent channels, patch 1, Qwen 64, byT5 32 through 48; LTX-Video with
+    2 blocks at 128 wide (2 heads of 64), 128 latent channels, caption 64;
+    LTX-2 with 1 block at 256 wide (2 heads of 128), caption 96, a 1-block
+    connector (4 heads of 64) of 16 registers padding to 64 rows."""
+    from diffusion_pipe_tpu_torch.models.hunyuan_video_15 import (HunyuanVideo15Config,
+                                                                  HunyuanVideo15Transformer)
+    from diffusion_pipe_tpu_torch.models.ltx2 import LTX2Config, LTX2Transformer
+    from diffusion_pipe_tpu_torch.models.ltx_video import LTXConfig, LTXTransformer
+
+    lora = dict(dtype=dtype, param_dtype=dtype, lora_rank=4, lora_alpha=4.0, lora_dtype=dtype)
+    with torch.device(dev):
+        if family == "hunyuan_video_15":
+            return HunyuanVideo15Transformer(HunyuanVideo15Config(
+                num_attention_heads=2, num_layers=1, refiner_layers=1, text_dim=64, byt5_dim=32,
+                byt5_mapper_dim=48, **lora))
+        if family == "ltx-video":
+            return LTXTransformer(LTXConfig(hidden_size=128, num_heads=2, num_layers=2,
+                                            caption_dim=64, **lora))
+        return LTX2Transformer(LTX2Config(hidden_size=256, num_heads=2, num_layers=1,
+                                          cross_attention_dim=96, connector_registers=16,
+                                          connector_min_len=64, connector_blocks=1, **lora))
+
+
+def phase_reference_ltx_hv15(family, device="cuda"):
+    """The narrow model (_ltx_hv15_reference) bf16 on the card against f32 on
+    the CPU: HunyuanVideo-1.5 on [1, 65, 3, 8, 8] with 12 Qwen rows (8
+    valid) and 6 byT5 rows (3 valid) (K1 2, K2 / K3 1: the refiner K1
+    only); LTX-Video on 2 x 4 x 4 tokens with a per-token t, 0 on the first
+    frame (D3), and 12 T5 rows (8 valid) (4 / 4 / 4); LTX-2 on the same
+    tokens with 20 caption rows (9 valid) (K1 3, K2 / K3 2: the connector K1
+    only)."""
+    gen = torch.Generator().manual_seed(SEED + 19)
+    if family == "hunyuan_video_15":
+        x = torch.randn((1, 65, 3, 8, 8), generator=gen)
+        txt, byt5 = torch.randn((1, 12, 64), generator=gen), torch.randn((1, 6, 32), generator=gen)
+        target = torch.randn((1, 32, 3, 8, 8), generator=gen)
+
+        def inputs(dtype):
+            return dict(x=x.to(dtype), t=torch.tensor([400.0]), text_states=txt.to(dtype),
+                        text_mask=(torch.arange(12) < 8).to(torch.int32)[None],
+                        byt5_states=byt5.to(dtype),
+                        byt5_mask=(torch.arange(6) < 3).to(torch.int32)[None])
+
+        expected = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    else:
+        ltx = family == "ltx-video"
+        x = torch.randn((1, 32, 128), generator=gen)
+        rows, valid, width = (12, 8, 64) if ltx else (20, 9, 96)
+        txt = torch.randn((1, rows, width), generator=gen)
+        target = torch.randn((1, 32, 128), generator=gen)
+        grid = torch.stack(torch.meshgrid(torch.arange(2.0) * (8 / 25 if ltx else 1 / 24),
+                                          torch.arange(4.0) * (32 if ltx else 1),
+                                          torch.arange(4.0) * (32 if ltx else 1),
+                                          indexing="ij")).reshape(1, 3, -1)
+        t = (torch.where(torch.arange(32) < 16, 0.0, 0.4)[None] if ltx
+             else torch.tensor([0.4]))
+
+        def inputs(dtype):
+            return dict(x=x.to(dtype), prompt_embeds=txt.to(dtype),
+                        prompt_mask=(torch.arange(rows) < valid).to(torch.int32)[None], t=t,
+                        fractional_coords=grid)
+
+        expected = ({"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4} if ltx
+                    else {"flash_fwd": 3, "flash_bwd_dq": 2, "flash_bwd_dkv": 2})
+    _reference_family(f"reference-{family.replace('_', '-')}",
+                      functools.partial(_ltx_hv15_reference, family), inputs, target, device,
+                      expected=expected)
+
+
+LTX_VAE_CLIP = (1, 3, 121, 512, 768)   # -> [1, 128, 16, 16, 24]
+LTX_VAE_LATENTS = [1, 128, *LTX_LATENTS]
+LTX_VAE_CROP = (1, 3, 9, 256, 256)     # bf16 against f32 on the card
+
+
+def phase_ltx_vae():
+    """The published LTX encoder at the 0.9.0 widths (128 / 256 / 512 / 512,
+    resnets (4, 3, 3, 3, 4), patch 4, 128 latent channels) from a seed, its
+    encoder and statistics written in Lightricks' layout (`vae.` keys) to
+    build/smoke/ltx_vae/ and read back by load_ltx_vae (the LTX drivers
+    cache with it). In bf16 on the card: the 121-frame 768 x 512 clip
+    encoded to [1, 128, 16, 16, 24], timed with the peak, and those latents
+    decoded once by the JAX-form decoder (finite, the clip's shape); a
+    9-frame 256 px crop encoded in bf16 and by the same weights in f32
+    (TF32 off): relative L2 (WAN_VAE_REL_L2). Returns the folder."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.ltx_vae import (LTXVAEConfig, LTXVideoVAE,
+                                                         load_ltx_vae,
+                                                         ltx_vae_state_dict_for_checkpoint)
+
+    folder = _fresh_dir(SMOKE_DIR / "ltx_vae")
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        src = LTXVideoVAE(LTXVAEConfig())
+    src.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    with torch.no_grad():  # statistics away from 0 and 1
+        src.latents_mean.normal_(0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(1))
+        src.latents_std.uniform_(0.5, 1.5, generator=torch.Generator(device="cuda").manual_seed(2))
+    safetensors_io.save_file({f"vae.{k}": v.cpu() for k, v in
+                              ltx_vae_state_dict_for_checkpoint(src).items()},
+                             folder / "ltx_vae.safetensors")
+    del src
+    vae = load_ltx_vae(folder / "ltx_vae.safetensors", dtype=torch.bfloat16, device="cuda")
+    write_read_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    clip = torch.rand(LTX_VAE_CLIP, generator=gen, device="cuda").mul_(2).sub_(1)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        z = vae.encode(clip)
+        torch.cuda.synchronize()
+        encode_ms = cuda_ms(lambda: vae.encode(clip), iters=1)
+        encode_peak = torch.cuda.max_memory_allocated()
+        del clip
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x = vae.decode(z)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_peak = torch.cuda.max_memory_allocated()
+    shapes = (list(z.shape), list(x.shape))
+    finite = bool(torch.isfinite(z).all() and torch.isfinite(x).all())
+    del z, x
+    _free()
+    crop = torch.rand(LTX_VAE_CROP, generator=gen, device="cuda").mul_(2).sub_(1)
+    with torch.no_grad():
+        z = vae.encode(crop)
+        vae.float()
+        vae.config = dataclasses.replace(vae.config, dtype=torch.float32)
+        z_ref = vae.encode(crop)
+    rec = dict(clip_shape=list(LTX_VAE_CLIP), latent_shape=shapes[0], decoded_shape=shapes[1],
+               encode_ms=encode_ms, decode_s=decode_s, encode_peak_memory_bytes=encode_peak,
+               decode_peak_memory_bytes=decode_peak, write_read_s=write_read_s, finite=finite,
+               params=sum(p.numel() for p in vae.encoder.parameters()),
+               crop_shape=list(LTX_VAE_CROP), encode_rel_l2=_rel_l2(z, z_ref))
+    del vae, crop, z, z_ref
+    _free()
+    emit(phase="ltx-vae", **rec)
+    check(rec["latent_shape"] == LTX_VAE_LATENTS and rec["decoded_shape"] == list(LTX_VAE_CLIP)
+          and finite, f"ltx-vae shapes {rec['latent_shape']} / {rec['decoded_shape']}")
+    check(rec["encode_rel_l2"] <= WAN_VAE_REL_L2,
+          f"ltx-vae bf16 off f32: {rec['encode_rel_l2']}")
+    return folder
+
+
+# google/gemma-3-12b-pt's text_config: 48 layers, 3,840 wide, 16 query heads
+# and 8 KV heads of 256, MLP 15,360, five sliding layers in six (a 1,024-
+# token window, local base 10,000), global base 10^6 with linear factor 8
+GEMMA3_12B = {"model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 3840,
+              "intermediate_size": 15360, "num_hidden_layers": 48, "num_attention_heads": 16,
+              "num_key_value_heads": 8, "head_dim": 256, "query_pre_attn_scalar": 256,
+              "sliding_window": 1024, "sliding_window_pattern": 6,
+              "rope_local_base_freq": 10000.0, "rope_theta": 1000000.0,
+              "rope_scaling": {"rope_type": "linear", "factor": 8.0}, "rms_norm_eps": 1e-6}
+
+
+def phase_gemma3():
+    """LTX-2's text function (LLMTextEncoder, the last hidden state, 512
+    rows) on Gemma-3-12B at its published size (GEMMA3_12B through
+    from_hf_config) from a seed, bf16: 2 x 512 ids (the second padded after
+    60), [2, 512, 3,840], timed with the peak. A narrow 48-layer copy (256
+    wide) bf16 on the card against f32 on the CPU (rel L2 < 3e-2)."""
+    from diffusion_pipe_tpu_torch.models.llm_encoders import (CausalLM, CausalLMConfig,
+                                                              LLMTextEncoder)
+
+    def encoder(cfg, dev, seed):
+        with torch.device("meta"):
+            lm = CausalLM(cfg)
+        lm = lm.to_empty(device=dev)
+        lm.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        enc = LLMTextEncoder(".", max_length=LTX2_GEMMA, hidden_layer=-1, dtype=cfg.dtype,
+                             device=dev)
+        enc.model = lm.eval().requires_grad_(False)
+        return enc
+
+    full = CausalLMConfig.from_hf_config(GEMMA3_12B, dtype=torch.bfloat16)
+    check(full.num_layers == 48 and full.layer_types.count("full") == 8
+          and full.rope_scaling_factor == 8.0, f"Gemma 3 config {full}")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    narrow = dict(vocab=1024, dim=256, num_heads=4, num_kv_heads=2, head_dim=64, ffn_dim=512)
+    ids = torch.randint(0, 1024, (1, 96), generator=gen)
+    mask = torch.ones_like(ids)
+    ref_enc = encoder(dataclasses.replace(full, dtype=torch.float32, param_dtype=torch.float32,
+                                          **narrow), "cpu", SEED)
+    card_enc = encoder(dataclasses.replace(full, **narrow), "cpu", SEED)
+    card_enc.model.to("cuda")
+    with torch.no_grad():
+        ref = ref_enc.hidden_states(ids, mask)
+        got = card_enc.hidden_states(ids.cuda(), mask.cuda()).float().cpu()
+    narrow_err = _rel(got, ref)
+    del ref_enc, card_enc
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = encoder(full, "cuda", SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = torch.randint(0, full.vocab, (2, LTX2_GEMMA), generator=gen).cuda()
+    mask = torch.ones_like(ids)
+    mask[1, LTX2_GEMMA_VALID:] = 0
+    with torch.no_grad():
+        h = enc.hidden_states(ids, mask)
+        torch.cuda.synchronize()
+        encode_ms = cuda_ms(lambda: enc.hidden_states(ids, mask), iters=3)
+    finite = bool(torch.isfinite(h[mask.bool()]).all())
+    emit(phase="gemma3-12b", source="google/gemma-3-12b-pt config.json text_config",
+         params=sum(p.numel() for p in enc.model.parameters()), init_s=init_s,
+         encode_ms=encode_ms, shape=list(h.shape), finite=finite,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), narrow_rel_l2=narrow_err)
+    check(list(h.shape) == [2, LTX2_GEMMA, 3840] and finite, f"Gemma 3 states {list(h.shape)}")
+    check(narrow_err < 3e-2, f"narrow Gemma 3 bf16 vs f32: rel L2 {narrow_err}")
+    del enc, h
+    _free()
+
+
+HV15_LORA_CONFIG = {  # hunyuan-video-15-lora-512x33
+    "save_every_n_epochs": 1,
+    "model": {"type": "hunyuan_video_15", "dtype": "bfloat16",
+              "timestep_sample_method": "logit_normal"},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 2e-5},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+LTX_LORA_CONFIG = {  # ltx-video-2b-lora-768x512x121
+    "save_every_n_epochs": 1,
+    "model": {"type": "ltx-video", "dtype": "bfloat16", "first_frame_conditioning_p": 0.5},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 2e-5},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+LTX2_LORA_CONFIG = {  # ltx2-lora-768x512x121-fp8
+    "save_every_n_epochs": 1,
+    "model": {"type": "ltx2", "dtype": "bfloat16", "transformer_dtype": "float8",
+              "cross_attention_dim": 3840},
+    "adapter": {"type": "lora", "rank": 32, "alpha": 32, "dropout": 0.0, "dtype": "bfloat16"},
+    "optimizer": {"type": "adamw8bit", "lr": 2e-5},
+    "gradient_clipping": 1.0,
+    "activation_checkpointing": True,
+}
+
+
+def build_ltx_hv15_slice(family, cfg, device="cuda", latent=None, txt=None, byt5=None,
+                         batch_size=1):
+    """HunyuanVideo-1.5 ([B, 32, *latent] latents, txt = (rows, valid) Qwen
+    rows of the text width, byt5 = (rows, valid) byT5 rows of 1,472),
+    LTX-Video ([B, 128, *latent], T5 rows of 4,096 and their mask) or LTX-2
+    (Gemma rows of cross_attention_dim and their mask) at the config's size,
+    the padded rows zero."""
+    hv15 = family == "hunyuan_video_15"
+    latent = latent or ((9, 32, 32) if hv15 else LTX_LATENTS)
+
+    def make_batch(pipeline, gen):
+        c = getattr(pipeline, "hv15_config", None) or getattr(pipeline, "ltx_config", None) \
+            or pipeline.ltx2_config
+
+        def r(*shape):
+            return torch.randn((batch_size, *shape), generator=gen, device=device)
+
+        def rows(n, valid, width):
+            m = (torch.arange(n, device=device) < valid).to(torch.int32)
+            m = m.expand(batch_size, -1).clone()
+            return (r(n, width) * m[..., None]).to(c.dtype), m
+
+        if hv15:
+            states, mask = rows(*(txt or (HV15_TXT, HV15_VALID)), c.text_dim)
+            glyph, glyph_mask = rows(*(byt5 or (HV15_BYT5, HV15_BYT5_VALID)), c.byt5_dim)
+            return {"latents": r(c.out_channels, *latent), "text_states": states,
+                    "text_mask": mask, "byt5_states": glyph, "byt5_mask": glyph_mask}
+        if family == "ltx-video":
+            states, mask = rows(*(txt or (LTX_T5, LTX_T5_VALID)), c.caption_dim)
+            return {"latents": r(c.in_channels, *latent), "prompt_embeds": states,
+                    "prompt_attention_mask": mask}
+        states, mask = rows(*(txt or (LTX2_GEMMA, LTX2_GEMMA_VALID)), c.cross_attention_dim)
+        return {"latents": r(c.in_channels, *latent), "text_embeds_0": states,
+                "attention_mask_0": mask}
+
+    return _build_family_slice(family, cfg, device, make_batch)
+
+
+def _hv15_no_gradient(num_layers):
+    """HunyuanVideo-1.5 has no single block: the last double block's text
+    stream after its attention never reaches the loss, so those LoRA B
+    factors keep their zero init (the JAX module computes the same)."""
+    last = f"double_blocks.{num_layers - 1}."
+    return tuple(last + n for n in ("txt_attn_proj.", "txt_mlp_fc1.", "txt_mlp_fc2."))
+
+
+LTX_HV15_CELLS = {  # family: (phase, cell, config)
+    "hunyuan_video_15": ("slice-hunyuan-video-15-lora", "hunyuan-video-15-lora-512x33",
+                         HV15_LORA_CONFIG),
+    "ltx-video": ("slice-ltx-video-lora", "ltx-video-2b-lora-768x512x121", LTX_LORA_CONFIG),
+    "ltx2": ("slice-ltx2-lora", "ltx2-lora-768x512x121-fp8", LTX2_LORA_CONFIG)}
+
+
+def phase_slice_ltx_hv15(family, build=None, device="cuda", no_gradient=None):
+    """hunyuan-video-15-lora-512x33: HunyuanVideo-1.5 at the 8.3 B reading (54
+    double blocks of 2,048) in bf16, LoRA r32 bf16, adamw8bit, logit_normal,
+    `true`, one 33-frame 512 px clip ([1, 32, 9, 32, 32]: 9,216 image rows)
+    with 966 Qwen rows (80 valid) and 128 byT5 rows (12 valid): 110 / 54 /
+    54 launches a step (the refiner K1 alone); ltx-video-2b-lora-768x512x121:
+    LTX-Video 2 B (28 blocks of 2,048) in bf16, LoRA r32, adamw8bit, `true`,
+    first_frame_conditioning_p 0.5, one 121-frame 768 x 512 clip ([1, 128,
+    16, 16, 24]: 6,144 tokens) with 128 T5 rows (40 valid): 112 / 56 / 56;
+    ltx2-lora-768x512x121-fp8: LTX-2's video path (48 blocks of 4,096, 12.9
+    B) with fp8 block weights, the same clip, 512 Gemma rows of 3,840 (60
+    valid): 194 / 96 / 96 (the connector K1 alone). build / device /
+    no_gradient: another size (a CPU rehearsal)."""
+    phase, cell, cfg = LTX_HV15_CELLS[family]
+    hv15 = family == "hunyuan_video_15"
+
+    def after(pipeline, batch, gen):
+        with torch.no_grad():
+            inputs, target, _ = pipeline.prepare_inputs(batch, gen)
+            out = pipeline.forward(inputs)
+        lat = batch["latents"]
+        shape = list(lat.shape) if hv15 else [lat.shape[0], math.prod(lat.shape[2:]),
+                                              lat.shape[1]]
+        check(list(out.shape) == list(target.shape) == shape and bool(torch.isfinite(out).all()),
+              f"output {list(out.shape)}")
+        rows = math.prod(lat.shape[2:]) + (
+            batch["text_states"].shape[1] + batch["byt5_states"].shape[1] if hv15 else 0)
+        return dict(sequence=rows, output_shape=list(out.shape),
+                    per_token_t=list(inputs["t"].shape) if family == "ltx-video" else None)
+
+    if no_gradient is None:
+        no_gradient = _hv15_no_gradient(54) if hv15 else ("none",)
+    counts, _, _ = phase_slice_family(
+        phase, cell, build or functools.partial(build_ltx_hv15_slice, family, cfg),
+        timed_steps=NEW_TIMED_STEPS, device=device, expected_fn=_flash_step,
+        no_gradient=no_gradient, after=after, may_stay=NEW_MAY_STAY)
+    return counts
+
+
+def _edited(text: str, *pairs: tuple) -> str:
+    """text with each (old, new) replaced in turn; an `old` that is not there
+    raises, so a change to the template cannot leave a driver's TOML
+    quietly unedited."""
+    for old, new in pairs:
+        if old not in text:
+            raise ValueError(f"{old!r} is not in the driver TOML")
+        text = text.replace(old, new)
+    return text
+
+
+HV15_DRIVER_TOML = _edited(
+    FLUX2_DRIVER_TOML,
+    ("flux2-dev-lora-1024-fp8-int8's trainer", "hunyuan-video-15-lora-512x33's trainer"),
+    ("2 + 2 blocks", "2 double blocks, 9-frame clips"),
+    ('type = "flux2"', 'type = "hunyuan_video_15"'),
+    ('transformer_dtype = "float8"\n', ""), ("num_single_layers = 2\n", ""))
+LTX_DRIVER_TOML = _edited(
+    HV15_DRIVER_TOML,
+    ("hunyuan-video-15-lora-512x33's trainer", "ltx-video-2b-lora-768x512x121's trainer"),
+    ("2 double blocks", "2 blocks, first_frame_conditioning_p 1"),
+    ('type = "hunyuan_video_15"', 'type = "ltx-video"\nfirst_frame_conditioning_p = 1.0'))
+LTX2_DRIVER_TOML = _edited(
+    HV15_DRIVER_TOML,
+    ("hunyuan-video-15-lora-512x33's trainer", "ltx2-lora-768x512x121-fp8's trainer"),
+    ("2 double blocks", "2 blocks, fp8 storage"),
+    ('type = "hunyuan_video_15"',
+     'type = "ltx2"\ntransformer_dtype = "float8"\ncross_attention_dim = 3840'))
+LTX_HV15_DRIVER_TOMLS = {"hunyuan_video_15": HV15_DRIVER_TOML, "ltx-video": LTX_DRIVER_TOML,
+                         "ltx2": LTX2_DRIVER_TOML}
+CLIP_FRAMES = 9  # the LTX and HunyuanVideo-1.5 drivers cache each picture as a 9-frame clip
+
+
+def _clip_vae_fn(fn):
+    """The pipeline's VAE fn over each picture as a 9-frame clip, the picture
+    rolled 8 px to the right a frame (the card's machine decodes no video
+    file: no imageio)."""
+    import numpy as np
+
+    def clip_fn(pixels):
+        px = np.asarray(pixels, np.float32)
+        if px.ndim == 5 and px.shape[2] == 1:
+            px = px[:, :, 0]
+        if px.ndim == 4:
+            px = np.stack([np.roll(px, 8 * i, axis=-1) for i in range(CLIP_FRAMES)], axis=2)
+        return fn(px)
+
+    return clip_fn
+
+
+def _ltx_hv15_text_stand_in(family):
+    """Seeded text at the cached shapes: HunyuanVideo-1.5's Qwen rows [966,
+    3,584] (80 valid) and byT5 rows [128, 1,472] (12 valid); LTX-Video's T5
+    rows [128, 4,096] (40 valid); LTX-2's Gemma rows [512, 3,840] (60
+    valid)."""
+    from diffusion_pipe_tpu_torch.models.text_encoders import seeded_draws
+
+    def rows(caps, key, n, valid, width):
+        m = (torch.arange(n) < valid).to(torch.int32).expand(len(caps), -1).clone()
+        return seeded_draws(caps, key, (n, width)) * m[..., None], m
+
+    def fn(caps):
+        if family == "hunyuan_video_15":
+            states, mask = rows(caps, "qwen", HV15_TXT, HV15_VALID, 3584)
+            glyph, glyph_mask = rows(caps, "byt5", HV15_BYT5, HV15_BYT5_VALID, 1472)
+            return {"text_states": states, "text_mask": mask, "byt5_states": glyph,
+                    "byt5_mask": glyph_mask}
+        if family == "ltx-video":
+            states, mask = rows(caps, "t5", LTX_T5, LTX_T5_VALID, 4096)
+            return {"prompt_embeds": states, "prompt_attention_mask": mask}
+        states, mask = rows(caps, "gemma", LTX2_GEMMA, LTX2_GEMMA_VALID, 3840)
+        return {"text_embeds_0": states, "attention_mask_0": mask}
+
+    return [fn]
+
+
+def _write_hv15_vae(folder):
+    """A seeded HunyuanVideo-1.5-shaped causal VAE (32 latent channels, five
+    blocks of 64 / 128 / 256 / 256 / 256, one resnet each: 16x in space, 4x
+    in time; narrower than the published one) in diffusers' layout."""
+    from diffusion_pipe_tpu_torch import safetensors_io
+    from diffusion_pipe_tpu_torch.models.hunyuan_vae import HunyuanVAE, HunyuanVAEConfig
+
+    folder.mkdir(parents=True)
+    vae = HunyuanVAE(HunyuanVAEConfig(latent_channels=32, layers_per_block=1,
+                                      block_out_channels=(64, 128, 256, 256, 256)))
+    vae.init_weights(torch.Generator().manual_seed(SEED))
+    safetensors_io.save_file({k: v.contiguous() for k, v in vae.state_dict().items()},
+                             folder / "diffusion_pytorch_model.safetensors")
+    return folder
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6438,7 +6992,8 @@ def kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_c
                       + tuple(c[0] for c in LUMINA_KERNEL_CASES)
                       + tuple(c[0] for c in HIDREAM_KERNEL_CASES)
                       + tuple(c[0] for c in COSMOS_KERNEL_CASES)
-                      + tuple(c[0] for c in HUNYUAN_KERNEL_CASES)}
+                      + tuple(c[0] for c in HUNYUAN_KERNEL_CASES)
+                      + tuple(c[0] for c in LTX_HV15_KERNEL_CASES)}
             beside["flux"]["launches"] = flux_counts[name]
             beside["flux"]["launches_fp8_int8_attn"] = fp8_counts[name]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -6624,6 +7179,24 @@ def main():
     driver_hunyuan_image_counts = phase_driver_family("hunyuan_image")
     _free()
     emit(phase="hunyuan-phases", seconds=time.perf_counter() - hunyuan_t0)
+    ltx_t0 = time.perf_counter()
+    timings.update(phase_kernels_ltx_hv15())
+    for family in LTX_HV15_CELLS:
+        phase_reference_ltx_hv15(family)
+        _free()
+    ltx_vae_path = phase_ltx_vae()
+    phase_gemma3()
+    ltx_hv15_counts = {}
+    for family in LTX_HV15_CELLS:
+        ltx_hv15_counts[family] = phase_slice_ltx_hv15(family)
+        _free()
+    driver_hv15_counts = phase_driver_family("hunyuan_video_15")
+    _free()
+    driver_ltx_counts = phase_driver_family("ltx-video", ltx_vae_path)
+    _free()
+    driver_ltx2_counts = phase_driver_family("ltx2", ltx_vae_path)
+    _free()
+    emit(phase="ltx-hv15-phases", seconds=time.perf_counter() - ltx_t0)
 
     more = {"launches_wan_lora": wan_lora_counts, "launches_driver_wan": driver_wan_counts,
             "launches_wan_i2v": i2v_counts, "launches_wan_ti2v": ti2v_counts,
@@ -6651,7 +7224,13 @@ def main():
             "launches_hunyuan_video_lora": hunyuan_video_counts,
             "launches_hunyuan_image_lora": hunyuan_image_counts,
             "launches_driver_hunyuan_video": driver_hunyuan_video_counts,
-            "launches_driver_hunyuan_image": driver_hunyuan_image_counts}
+            "launches_driver_hunyuan_image": driver_hunyuan_image_counts,
+            "launches_hunyuan_video_15_lora": ltx_hv15_counts["hunyuan_video_15"],
+            "launches_ltx_video_lora": ltx_hv15_counts["ltx-video"],
+            "launches_ltx2_lora": ltx_hv15_counts["ltx2"],
+            "launches_driver_hunyuan_video_15": driver_hv15_counts,
+            "launches_driver_ltx_video": driver_ltx_counts,
+            "launches_driver_ltx2": driver_ltx2_counts}
     print(kernels_line(timings, sr_timing, int8_timing, flux_counts, fp8_counts, wan_counts,
                        driver_counts, ptxas, more, qwen_int8, flux2_int8, d256, padded))
     print(card)

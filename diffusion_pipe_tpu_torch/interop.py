@@ -1,7 +1,8 @@
 """JAX-package parameter trees -> the port's state_dict.
 
 Takes a Flux, Wan, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, Lumina 2, HiDream,
-Cosmos, HunyuanVideo or HunyuanImage-2.1 parameter tree as the JAX
+Cosmos, HunyuanVideo, HunyuanImage-2.1, HunyuanVideo-1.5, LTX-Video or LTX-2
+parameter tree as the JAX
 package builds it (a nested dict of numpy arrays, optionally under a top-level "params"
 key, with any flax partition boxes already removed) and returns the
 state_dict of the port's transformer of that family, so both packages
@@ -58,6 +59,14 @@ hunyuan_vae_state_dict do it for the JAX HunyuanVAE: its form (spatial zero
 padding, attention within each frame, its time-upsampling blocks, no quant
 convolutions) and its `down_{i}_res_{j}` / `mid_attn` names as diffusers'
 `down_blocks.{i}.resnets.{j}` / `mid_block.attentions.0`.
+hunyuan_video_15_config / hunyuan_video_15_state_dict do it for the JAX
+HunyuanVideo15Transformer (its `cond_type_embedding` `embedding` as
+`weight`); ltx_video_config (the JAX block form, jax_form) / ltx2_config
+with ltx_video_state_dict / ltx2_state_dict for the JAX LTXTransformer and
+LTX2Transformer (`adaln_linear_{i}` / `adaln_proj` as `adaln_single.
+linear_{i}` / `.proj`, the connector's `attn_q_{i}` as `blocks.{i}.
+attn_q`); ltx_vae_config / ltx_vae_state_dict for the JAX LTXVideoVAE (its
+form, and its `down_{g}_*` names as Lightricks' flat `down_blocks.{k}`).
 
 tree_to_state_dict does the same for the Flux VAE, UMT5, the Wan 2.1 and
 2.2 VAEs, the CLIP vision tower and SDXL's UNet and CLIP text towers
@@ -409,7 +418,8 @@ _HUNYUAN_NAMES = ((r"^(time_in|vector_in|guidance_in|refiner_t_embed|refiner_c_e
                    r"\1.linear_\2."),
                   (r"^refiner_(\d+)\.", r"refiner.\1."),
                   (r"^byt5_layernorm\.(scale|bias)$", r"byt5_in.layernorm_\1"),
-                  (r"^byt5_fc(\d)\.", r"byt5_in.fc\1."))
+                  (r"^byt5_fc(\d)\.", r"byt5_in.fc\1."),
+                  (r"^cond_type_embedding\.embedding$", "cond_type_embedding.weight"))
 
 
 def _patch_rows_from_jax(t: torch.Tensor, channels: int) -> torch.Tensor:
@@ -437,6 +447,16 @@ def hunyuan_video_state_dict(params: Mapping[str, Any], config,
 
 
 hunyuan_image_state_dict = hunyuan_video_state_dict
+hunyuan_video_15_state_dict = hunyuan_video_state_dict
+
+
+def hunyuan_video_15_config(jax_config, **over):
+    """The port's HunyuanVideo15Config of a JAX HunyuanVideo15Config: its
+    sizes (in_channels 2 x latent + 1), patch and adapter, the byt5_in GELU
+    in its tanh form."""
+    from .models.hunyuan_video_15 import HunyuanVideo15Config
+
+    return HunyuanVideo15Config(**_shared_fields(jax_config, HunyuanVideo15Config, **over))
 
 
 def hunyuan_vae_config(jax_config, **over):
@@ -472,5 +492,96 @@ def hunyuan_vae_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     for key, val in tree_to_state_dict(params).items():
         for pat, rep in _HUNYUAN_VAE_NAMES:
             key = re.sub(pat, rep, key)
+        out[key] = val
+    return out
+
+
+def ltx_video_config(jax_config, **over):
+    """The port's LTXConfig computing what the JAX LTXTransformer of
+    `jax_config` computes: its sizes and adapter, in the JAX module's form
+    (jax_form: LayerNorm pre-norms, a normalised cross-attention input)."""
+    from .models.ltx_video import LTXConfig
+
+    return LTXConfig(**_shared_fields(jax_config, LTXConfig, **{"jax_form": True, **over}))
+
+
+def ltx2_config(jax_config, **over):
+    """The port's LTX2Config of a JAX LTX2Config (the same fields, its
+    adapter included)."""
+    from .models.ltx2 import LTX2Config
+
+    return LTX2Config(**_shared_fields(jax_config, LTX2Config, **over))
+
+
+_LTX_NAMES = ((r"^adaln_linear_(\d)\.", r"adaln_single.linear_\1."),
+              (r"^adaln_proj\.", "adaln_single.proj."),
+              (r"^video_embeddings_connector\.(attn_[qkvo]|mlp_in|mlp_out)_(\d+)\.",
+               r"video_embeddings_connector.blocks.\2.\1."))
+
+
+def ltx_video_state_dict(params: Mapping[str, Any],
+                         dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """jax_to_state_dict of a JAX LTXTransformer or LTX2Transformer tree (or
+    a subtree such as its LoRA factors) as the port's module names: the
+    adaLN-single's `adaln_linear_{i}` / `adaln_proj` as `adaln_single.
+    linear_{i}` / `.proj`, the connector's `attn_q_{i}` as `blocks.{i}.
+    attn_q`."""
+    out = {}
+    for key, val in jax_to_state_dict(params, dtype).items():
+        for pat, rep in _LTX_NAMES:
+            key = re.sub(pat, rep, key)
+        out[key] = val
+    return out
+
+
+ltx2_state_dict = ltx_video_state_dict
+
+
+def ltx_vae_config(jax_config, **over):
+    """The port's LTXVAEConfig computing what the JAX LTXVideoVAE of
+    `jax_config` computes: its sizes in the JAX module's form (jax_form:
+    (ph, pw, c) patch order, 2 x latent moments, no norm3)."""
+    import dataclasses
+
+    from .models.ltx_vae import LTXVAEConfig
+
+    kw = {f.name: getattr(jax_config, f.name) for f in dataclasses.fields(LTXVAEConfig)
+          if hasattr(jax_config, f.name)}
+    kw["dtype"] = _torch_dtype(kw["dtype"])
+    for k in ("block_out_channels", "layers_per_block", "spatio_temporal_scaling"):
+        kw[k] = tuple(kw[k])
+    kw.update(jax_form=True, **over)
+    return LTXVAEConfig(**kw)
+
+
+def ltx_vae_state_dict(params: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """tree_to_state_dict of a JAX LTXVideoVAE tree as the port's
+    (Lightricks') names for `config` (the port's config of the VAE): the
+    encoder's `down_{g}_res_{j}`, `down_{g}_downsample`, `down_{g}_conv_out`
+    and `mid_res_{j}` as its flat `down_blocks.{k}` list; the decoder's
+    `mid_res_{j}` / `up_{i}_*` as `mid.{j}` / `up_blocks.{i}.*`."""
+    where, group = {}, -1
+    for k, (kind, *_rest) in enumerate(config.encoder_blocks()):
+        group += kind == "group"
+        where[(kind, group)] = k
+    mid = len(config.encoder_blocks()) - 1
+
+    out = {}
+    for key, val in tree_to_state_dict(params).items():
+        key = re.sub(r"^encoder\.mid_res_(\d+)\.",
+                     lambda m: f"encoder.down_blocks.{mid}.res_blocks.{m.group(1)}.", key)
+        key = re.sub(r"^encoder\.down_(\d+)_res_(\d+)\.",
+                     lambda m: (f"encoder.down_blocks.{where[('group', int(m.group(1)))]}"
+                                f".res_blocks.{m.group(2)}."), key)
+        key = re.sub(r"^encoder\.down_(\d+)_downsample\.",
+                     lambda m: f"encoder.down_blocks.{where[('compress', int(m.group(1)))]}.",
+                     key)
+        key = re.sub(r"^encoder\.down_(\d+)_conv_out\.",
+                     lambda m: f"encoder.down_blocks.{where[('change', int(m.group(1)))]}.", key)
+        key = re.sub(r"^decoder\.mid_res_(\d+)\.", r"decoder.mid.\1.", key)
+        key = re.sub(r"^decoder\.up_(\d+)_res_(\d+)\.", r"decoder.up_blocks.\1.res_blocks.\2.",
+                     key)
+        key = re.sub(r"^decoder\.up_(\d+)_(upsample|conv_out)\.", r"decoder.up_blocks.\1.\2.",
+                     key)
         out[key] = val
     return out

@@ -83,25 +83,32 @@ class HunyuanVAEConfig:
 
 
 class CausalConv3d(nn.Module):
-    """HunyuanVideoCausalConv3d: pad (k - 1, 0) frames by repeating the
-    first, then k // 2 pixels on both sides (replicated, or zeros in the
-    JAX form), then nn.Conv3d without padding."""
+    """A causal 3D convolution: (k - 1, 0) frames padded by repeating the
+    first, k // 2 pixels on both sides padded by `spatial_padding`
+    ("replicate": HunyuanVideoCausalConv3d's edge values; "zeros": LTX's
+    CausalConv3d and the JAX CausalConv3dR), then nn.Conv3d."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride=(1, 1, 1),
-                 jax_form: bool = False):
+                 spatial_padding: str = "replicate"):
         super().__init__()
-        self.kernel, self.jax_form = kernel, jax_form
-        self.conv = nn.Conv3d(in_ch, out_ch, kernel, stride)
+        if spatial_padding not in ("replicate", "zeros"):
+            raise ValueError(f"spatial_padding {spatial_padding!r}: 'replicate' or 'zeros'")
+        self.kernel, self.spatial_padding = kernel, spatial_padding
+        zeros = kernel // 2 if spatial_padding == "zeros" else 0
+        self.conv = nn.Conv3d(in_ch, out_ch, kernel, stride, padding=(0, zeros, zeros))
 
     def forward(self, x):
         k = self.kernel
         if k > 1:
-            if not self.jax_form:
+            if self.spatial_padding == "replicate":
                 x = F.pad(x, (k // 2, k // 2, k // 2, k // 2, k - 1, 0), mode="replicate")
             else:
-                x = F.pad(x, (0, 0, 0, 0, k - 1, 0), mode="replicate")
-                x = F.pad(x, (k // 2, k // 2, k // 2, k // 2))
+                x = torch.cat([x[:, :, :1].expand(-1, -1, k - 1, -1, -1), x], dim=2)
         return self.conv(x)
+
+
+def _padding(cfg: HunyuanVAEConfig) -> str:
+    return "zeros" if cfg.jax_form else "replicate"
 
 
 def _norm(cfg: HunyuanVAEConfig, ch: int) -> nn.GroupNorm:
@@ -112,9 +119,9 @@ class ResnetBlock(nn.Module):
     def __init__(self, cfg: HunyuanVAEConfig, in_ch: int, out_ch: int):
         super().__init__()
         self.norm1 = _norm(cfg, in_ch)
-        self.conv1 = CausalConv3d(in_ch, out_ch, jax_form=cfg.jax_form)
+        self.conv1 = CausalConv3d(in_ch, out_ch, spatial_padding=_padding(cfg))
         self.norm2 = _norm(cfg, out_ch)
-        self.conv2 = CausalConv3d(out_ch, out_ch, jax_form=cfg.jax_form)
+        self.conv2 = CausalConv3d(out_ch, out_ch, spatial_padding=_padding(cfg))
         self.conv_shortcut = (CausalConv3d(in_ch, out_ch, kernel=1) if in_ch != out_ch
                               else None)
 
@@ -176,7 +183,7 @@ class Resample(nn.Module):
         super().__init__()
         self.time, self.up = time, up
         stride = (1, 1, 1) if up else (2 if time else 1, 2, 2)
-        self.conv = CausalConv3d(ch, ch, stride=stride, jax_form=cfg.jax_form)
+        self.conv = CausalConv3d(ch, ch, stride=stride, spatial_padding=_padding(cfg))
 
     def forward(self, x):
         if self.up:
@@ -211,7 +218,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: HunyuanVAEConfig):
         super().__init__()
         chans, n = cfg.block_out_channels, len(cfg.block_out_channels)
-        self.conv_in = CausalConv3d(cfg.in_channels, chans[0], jax_form=cfg.jax_form)
+        self.conv_in = CausalConv3d(cfg.in_channels, chans[0], spatial_padding=_padding(cfg))
         self.down_blocks = nn.ModuleList([
             UpDownBlock(cfg, chans[max(i - 1, 0)], ch, cfg.layers_per_block,
                         (cfg.time_down(i), False) if i < n - 1 else None)
@@ -219,7 +226,7 @@ class Encoder(nn.Module):
         self.mid_block = MidBlock(cfg, chans[-1])
         self.conv_norm_out = _norm(cfg, chans[-1])
         self.conv_out = CausalConv3d(chans[-1], 2 * cfg.latent_channels,
-                                     jax_form=cfg.jax_form)
+                                     spatial_padding=_padding(cfg))
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -233,14 +240,14 @@ class Decoder(nn.Module):
     def __init__(self, cfg: HunyuanVAEConfig):
         super().__init__()
         chans, n = tuple(reversed(cfg.block_out_channels)), len(cfg.block_out_channels)
-        self.conv_in = CausalConv3d(cfg.latent_channels, chans[0], jax_form=cfg.jax_form)
+        self.conv_in = CausalConv3d(cfg.latent_channels, chans[0], spatial_padding=_padding(cfg))
         self.mid_block = MidBlock(cfg, chans[0])
         self.up_blocks = nn.ModuleList([
             UpDownBlock(cfg, chans[max(i - 1, 0)], ch, cfg.layers_per_block + 1,
                         (cfg.time_up(i), True) if i < n - 1 else None)
             for i, ch in enumerate(chans)])
         self.conv_norm_out = _norm(cfg, chans[-1])
-        self.conv_out = CausalConv3d(chans[-1], cfg.out_channels, jax_form=cfg.jax_form)
+        self.conv_out = CausalConv3d(chans[-1], cfg.out_channels, spatial_padding=_padding(cfg))
 
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
@@ -388,17 +395,21 @@ def convert_hunyuan_vae(sd: Mapping[str, torch.Tensor],
 
 
 def load_hunyuan_vae(path, dtype: torch.dtype = torch.float32, device=None,
-                     temporal_downsamples: int = 2) -> HunyuanVAE:
+                     temporal_downsamples: int = 2,
+                     scaling_factor: Optional[float] = None) -> HunyuanVAE:
     """The VAE of a checkpoint file or folder (a diffusers `vae/` folder, a
-    hyvideo pytorch_model.pt), its topology from its shapes, in `dtype` on
-    `device` (default the CPU), frozen."""
+    hyvideo pytorch_model.pt, a file whose keys carry a `vae.` prefix), its
+    topology from its shapes, latents scaled by `scaling_factor` (the
+    config's default if None), in `dtype` on `device` (default the CPU),
+    frozen."""
     from .weights import load_state_dict_any
 
     p = Path(path)
     if p.is_dir() and (p / "vae").is_dir():
         p = p / "vae"
-    sd = normalize_hunyuan_vae_dialect(load_state_dict_any(p))
-    cfg = infer_hunyuan_vae_config(sd, temporal_downsamples, dtype=dtype)
+    sd = normalize_hunyuan_vae_dialect(
+        {(k[4:] if k.startswith("vae.") else k): v for k, v in load_state_dict_any(p).items()})
+    cfg = infer_hunyuan_vae_config(sd, temporal_downsamples, scaling_factor, dtype=dtype)
     weights = convert_hunyuan_vae(sd, cfg)
     with torch.device("meta"):
         vae = HunyuanVAE(cfg)

@@ -156,16 +156,18 @@ def rename_keys(sd, pairs):
     return out
 
 
-def load_mm_checkpoint(pipeline, config_attr: str, layout_fn, renames=()):
+def load_mm_checkpoint(pipeline, config_attr: str, layout_fn, renames=(), drop_prefixes=()):
     """The checkpoint [model] names as the port's state dict (its keys
-    renamed by `renames` first), the model rebuilt on the checkpoint's
-    layout_fn(sd) when it differs from the config (a [model] size that
-    disagrees raises); a key missing or left over raises."""
+    renamed by `renames` first, those under drop_prefixes left out: a single
+    file's `vae.*`), the model rebuilt on the checkpoint's layout_fn(sd)
+    when it differs from the config (a [model] size that disagrees raises);
+    a key missing or left over raises."""
     from .keymaps import (keymap_to_state_dict, layout_override, load_sd_for_pipeline,
                           strip_known_prefixes)
 
     sd = rename_keys(strip_known_prefixes(load_sd_for_pipeline(pipeline), pipeline.keymap()),
                      renames)
+    sd = {k: v for k, v in sd.items() if not k.startswith(tuple(drop_prefixes))}
     layout = layout_override(pipeline.model_config, layout_fn(sd))
     cfg = getattr(pipeline, config_attr)
     if any(getattr(cfg, k) != v for k, v in layout.items()):
@@ -183,22 +185,44 @@ def hunyuan_video_layout(sd) -> Dict[str, Any]:
     return layout
 
 
-def build_mm_config(pipeline, cls, layout: Optional[Dict] = None):
+def build_mm_config(pipeline, cls, layout: Optional[Dict] = None, knobs=SIZE_KNOBS, **extra):
     """The published config of `cls` (or its `_tiny` sizes), [model]'s dtype,
-    transformer_dtype, int8_matmul, checkpointing, adapter and depth knobs
-    over it, and `layout` (read from a checkpoint) over those."""
+    transformer_dtype, int8_matmul, checkpointing, adapter and size `knobs`
+    over it, `extra`, and `layout` (read from a checkpoint) over those."""
     mc = pipeline.model_config
     dtype = dtype_from_string(mc.get("dtype", "bfloat16"))
     kwargs: Dict[str, Any] = dict(dtype=dtype, param_dtype=dtype,
                                   remat=remat_spec(pipeline.config), **block_kernel_kwargs(mc))
     kwargs.update(adapter_kwargs(pipeline.config, mc.get("dtype", "bfloat16")))
-    kwargs.update({k: int(mc[k]) for k in SIZE_KNOBS if mc.get(k) is not None})
+    kwargs.update({k: int(mc[k]) for k in knobs if mc.get(k) is not None})
+    kwargs.update(extra)
     kwargs.update(layout or {})
     return cls.tiny(**kwargs) if mc.get("_tiny", False) else cls(**kwargs)
 
 
+class HunyuanVAEMixin:
+    """get_call_vae_fn over a Hunyuan video pipeline's causal 3D VAE (its
+    `_load_vae`)."""
+
+    def get_call_vae_fn(self):
+        """fn(pixels [B, 3, F, H, W] or [B, 3, H, W] in [-1, 1], numpy) ->
+        {"latents": [B, z, 1 + (F - 1) / 4, H / s, W / s]} f32 CPU tensors
+        (z and the spatial factor s are the VAE's: 16 and 8 for
+        HunyuanVideo, 32 and 16 for HunyuanVideo-1.5)."""
+
+        def fn(pixels):
+            vae = self._load_vae()
+            px = torch.from_numpy(np.asarray(pixels, np.float32))
+            if px.dim() == 4:
+                px = px[:, :, None]
+            with torch.no_grad():
+                return {"latents": vae.encode(px.to(self.device)).float().cpu()}
+
+        return fn
+
+
 @register_model("hunyuan-video", "hunyuan_video")
-class HunyuanVideoPipeline(BasePipeline):
+class HunyuanVideoPipeline(HunyuanVAEMixin, BasePipeline):
     name = "hunyuan-video"
     framerate = 24
     # the cached text embeddings (the JAX package's names, so caches cross)
@@ -304,20 +328,6 @@ class HunyuanVideoPipeline(BasePipeline):
                 vae = load_hunyuan_vae(mc["vae_path"], dtype=dtype, device=self.device)
             self._vae = vae.eval().requires_grad_(False)
         return self._vae
-
-    def get_call_vae_fn(self):
-        """fn(pixels [B, 3, F, H, W] or [B, 3, H, W] in [-1, 1], numpy) ->
-        {"latents": [B, 16, 1 + (F - 1) / 4, H / 8, W / 8]} f32 CPU tensors."""
-
-        def fn(pixels):
-            vae = self._load_vae()
-            px = torch.from_numpy(np.asarray(pixels, np.float32))
-            if px.dim() == 4:
-                px = px[:, :, None]
-            with torch.no_grad():
-                return {"latents": vae.encode(px.to(self.device)).float().cpu()}
-
-        return fn
 
     def get_call_text_encoder_fns(self):
         """[LLaVA fn, CLIP fn], each captions -> {name: CPU tensor}: the

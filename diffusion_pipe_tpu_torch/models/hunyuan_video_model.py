@@ -87,11 +87,12 @@ class HunyuanVideoConfig:
         return HunyuanVideoConfig(**d)
 
 
-def block_dense(cfg, in_features: int, features: int) -> LoraDense:
+def block_dense(cfg, in_features: int, features: int, use_bias: bool = True) -> LoraDense:
     """A double or single block's linear: the adapter on, the base weight in
     base_kernel_dtype and multiplied in int8 under int8_matmul (any config
     with HunyuanVideoConfig's adapter fields)."""
-    return LoraDense(in_features, features, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+    return LoraDense(in_features, features, use_bias, dtype=cfg.dtype,
+                     param_dtype=cfg.param_dtype,
                      lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
                      lora_dropout=cfg.lora_dropout, lora_dtype=cfg.lora_dtype,
                      kernel_dtype=cfg.base_kernel_dtype, int8_matmul=cfg.int8_matmul,
@@ -99,9 +100,11 @@ def block_dense(cfg, in_features: int, features: int) -> LoraDense:
                      lokr_rank_dropout=cfg.lokr_rank_dropout)
 
 
-def plain_dense(cfg, in_features: int, features: int, dtype=None) -> LoraDense:
+def plain_dense(cfg, in_features: int, features: int, dtype=None,
+                use_bias: bool = True) -> LoraDense:
     """An embedder's, the refiner's or the head's linear: no adapter."""
-    return LoraDense(in_features, features, dtype=dtype or cfg.dtype, param_dtype=cfg.param_dtype)
+    return LoraDense(in_features, features, use_bias, dtype=dtype or cfg.dtype,
+                     param_dtype=cfg.param_dtype)
 
 
 def _qkv(qkv: torch.Tensor, heads: int):

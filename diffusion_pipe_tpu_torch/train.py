@@ -86,6 +86,9 @@ def _check_ported(config, args):
     from .models.hidream import HiDreamPipeline
     from .models.hunyuan_image import HunyuanImagePipeline
     from .models.hunyuan_video import HunyuanVideoPipeline
+    from .models.hunyuan_video_15 import HunyuanVideo15Pipeline
+    from .models.ltx2 import LTX2Pipeline
+    from .models.ltx_video import LTXVideoPipeline
     from .models.lumina_2 import Lumina2Pipeline
     from .models.qwen_image import QwenImagePipeline
     from .models.sd3 import SD3Pipeline
@@ -95,12 +98,13 @@ def _check_ported(config, args):
     trained = (FluxPipeline, WanPipeline, SDXLPipeline, SD3Pipeline, ChromaPipeline,
                QwenImagePipeline, Flux2Pipeline, AuraFlowPipeline, Lumina2Pipeline,
                HiDreamPipeline, CosmosPredict2Pipeline, HunyuanVideoPipeline,
-               HunyuanImagePipeline)
+               HunyuanImagePipeline, HunyuanVideo15Pipeline, LTXVideoPipeline, LTX2Pipeline)
     if not issubclass(get_model_class(config["model"]["type"]), trained):
         raise NotImplementedError(
             f"the driver trains the Flux, Wan, SDXL, SD3, Chroma, Qwen-Image, FLUX.2, AuraFlow, "
             f"Lumina 2 (with Z-Image and OmniGen2), HiDream, Cosmos (Cosmos-Predict2, Anima "
-            f"and Cosmos-1), HunyuanVideo and HunyuanImage-2.1 families so far; "
+            f"and Cosmos-1), HunyuanVideo, HunyuanImage-2.1, HunyuanVideo-1.5, LTX-Video and "
+            f"LTX-2 (its video path) families so far; "
             f"{config['model']['type']!r} needs its VAE and text encoders ported (ROADMAP A9)")
 
 

@@ -122,11 +122,12 @@ TINY = tvae.HunyuanVAEConfig.tiny()
 def test_replicate_padding(stride):
     """A published causal convolution is F.pad(mode="replicate") of (1, 1)
     pixels and (2, 0) frames, then conv3d without padding; the JAX form
-    replicates in time and pads zeros in space."""
+    (spatial_padding "zeros", as LTX's VAE pads too) replicates in time and
+    pads zeros in space."""
     gen = torch.Generator().manual_seed(3)
     x = torch.randn((2, 4, 5, 7, 6), generator=gen)
     conv = tvae.CausalConv3d(4, 6, stride=stride)
-    jax_form = tvae.CausalConv3d(4, 6, stride=stride, jax_form=True)
+    jax_form = tvae.CausalConv3d(4, 6, stride=stride, spatial_padding="zeros")
     jax_form.load_state_dict(conv.state_dict())
     w, b = conv.conv.weight, conv.conv.bias
     with torch.no_grad():

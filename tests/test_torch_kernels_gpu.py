@@ -556,6 +556,47 @@ def test_hunyuan_shapes_match_plain(case, dtype, cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
 
 
+# HunyuanVideo-1.5's and the LTX families' attention on 4 heads:
+# HunyuanVideo-1.5's joint sequence for a 33-frame 512 px clip (9,216 image
+# rows + 128 byT5 rows, 12 valid, + 966 Qwen rows, 80 valid) at D 128; LTX's
+# 6,144 tokens of a 121-frame 768 x 512 clip, their cross-attention to 128
+# T5 rows (40 valid) at D 64; LTX-2's cross-attention to the connector's
+# 1,024 rows at D 128 and the connector's own at D 64: name: (Sq, Skv, D,
+# the valid ranges of the keys or None)
+LTX_HV15_CASES = {"hv15_joint_10310": (10310, 10310, 128, ((0, 9228), (9344, 9424))),
+                  "ltx_self_6144": (6144, 6144, 64, None),
+                  "ltx_cross_6144x128": (6144, 128, 64, ((0, 40),)),
+                  "ltx2_cross_6144x1024": (6144, 1024, 128, None),
+                  "ltx2_connector_1024": (1024, 1024, 64, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(LTX_HV15_CASES))
+def test_ltx_hv15_shapes_match_plain(case, dtype, cuda_device):
+    """K1-K3 at the HunyuanVideo-1.5 and LTX shapes against the plain
+    versions; the padded keys get no dK / dV; K2 and K3 give the same bits
+    twice."""
+    sq, skv, d, valid = LTX_HV15_CASES[case]
+    rng = np.random.default_rng(37)
+    q, do, k, v = (torch.from_numpy(rng.standard_normal((1, s, 4, d), dtype=np.float32))
+                   .to(cuda_device, dtype) for s in (sq, sq, skv, skv))
+    mask = None
+    if valid is not None:
+        mask = torch.zeros((1, skv), dtype=torch.int32, device=cuda_device)
+        for lo, hi in valid:
+            mask[:, lo:hi] = 1
+    scale = d ** -0.5
+    got = _kernels_all(q, k, v, do, mask, scale)
+    _assert_near_plain(got, q, k, v, do, mask, scale)
+    if mask is not None:
+        padded = mask[0] == 0
+        assert not got[3][0, padded].any() and not got[4][0, padded].any()
+    again = _kernels_all(q, k, v, do, mask, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got[2:], again[2:]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 80, 112])
 def test_unsupported_head_dims_raise_on_the_card(d, cuda_device):

@@ -48,8 +48,11 @@ def test_sources_import_no_jax():
                                    "models/cosmos.py", "models/cosmos_tokenizer.py",
                                    "models/llm_adapter.py", "training/edm.py",
                                    "models/hunyuan_video_model.py", "models/hunyuan_video.py",
-                                   "models/hunyuan_vae.py", "models/hunyuan_image.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py"]
+                                   "models/hunyuan_vae.py", "models/hunyuan_image.py",
+                                   "models/hunyuan_video_15.py", "models/ltx_vae.py",
+                                   "models/ltx_video.py", "models/ltx2.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_step.py",
+              ROOT / "tools" / "run_smoke_phases.py"]
     for f in files:
         roots = set(_imported_roots(ast.parse(f.read_text(), str(f))))
         assert not roots & set(FORBIDDEN), (f, roots & set(FORBIDDEN))
@@ -91,7 +94,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     assert bypass.device.type == "cpu" and bypass._guidance(torch.ones(1)) is None
 
 
-@pytest.mark.parametrize("family", ["hunyuan-video", "hunyuan_video", "hunyuan_image"])
+@pytest.mark.parametrize("family", ["hunyuan-video", "hunyuan_video", "hunyuan_image",
+                                    "hunyuan_video_15", "hunyuan_video_1.5", "ltx-video",
+                                    "ltx_video", "ltx2"])
 def test_hunyuan_pipelines_need_cuda_or_an_explicit_cpu(monkeypatch, family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = {"save_every_n_epochs": 1, "model": {"type": family, "dtype": "float32", "_tiny": True}}

@@ -268,6 +268,14 @@ def test_hunyuan_families_cache_train_eval_checkpoint_resume(root, family):
     _cache_train_resume(root, _family_config(family), family, (2 * 10 + 2 * 3) * 3)
 
 
+@pytest.mark.parametrize("family", ["hunyuan_video_1.5", "ltx-video", "ltx2"])
+def test_ltx_hv15_families_cache_train_eval_checkpoint_resume(root, family):
+    # 2 blocks of 10 LoRA linears (HunyuanVideo-1.5's double blocks: fused
+    # qkv, proj, MLP and modulation of each stream; LTX's q, k, v, out of
+    # both attentions and the MLP): lora_A, lora_B and alpha each
+    _cache_train_resume(root, _family_config(family), family, 2 * 10 * 3)
+
+
 def test_qwen_image_edit_trains_on_control_images(root):
     """qwen_image_edit with a control_path dataset: the control images'
     latents are cached beside the targets' and ride in the batch, the
@@ -481,7 +489,7 @@ NOT_PORTED = {  # case: (TOML line to add, (TOML text, its replacement) or None,
     "offload_optimizer": ("", ('type = "adamw8bit"', 'type = "offload"'), []),
     "wan": ("sequence_sharding = true", ('type = "flux"', 'type = "wan"'), []),
     "hunyuan-video": ("blocks_to_swap = 2", ('type = "flux"', 'type = "hunyuan-video"'), []),
-    "hunyuan_video_15": ("", ('type = "flux"', 'type = "hunyuan_video_15"'), []),
+    "hunyuan_video_15": ("", ('type = "flux"', 'type = "krea2"'), []),
 }
 
 

@@ -20,6 +20,9 @@
     python3 tools/profile_torch_step.py --slice cosmos1-lora  # cosmos1-7b-lora-704x960
     python3 tools/profile_torch_step.py --slice hunyuan-video-lora  # hunyuan-video-lora-512x33
     python3 tools/profile_torch_step.py --slice hunyuan-image-lora  # hunyuan-image-2.1-lora-2048
+    python3 tools/profile_torch_step.py --slice hunyuan-video-15-lora # hunyuan-video-15-lora-512x33
+    python3 tools/profile_torch_step.py --slice ltx-video-lora  # ltx-video-2b-lora-768x512x121
+    python3 tools/profile_torch_step.py --slice ltx2-lora  # ltx2-lora-768x512x121-fp8
     ... --checkpointing attn|true   # the slice with another checkpointing policy
 
 Builds the path exactly as chip_smoke.py does (chip_smoke.build_slice:
@@ -58,9 +61,13 @@ full 7 B size under EDM, batch 1 at 960 x 704; or chip_smoke.build_hunyuan_slice
 HunyuanVideo at its published 12.8 B size in fp8 storage, LoRA r32 in bf16,
 adamw8bit, `true`, one 33-frame 512 px clip with 256 LLaVA rows, or
 HunyuanImage-2.1 at its published 17.4 B size in bf16, batch 1 at 2048 px
-with 966 Qwen and 128 byT5 rows), builds the kernels if needed, runs
-one warm-up step, then records two steps under torch.profiler (CPU and CUDA
-activities). Prints one JSON line with:
+with 966 Qwen and 128 byT5 rows; or chip_smoke.build_ltx_hv15_slice:
+HunyuanVideo-1.5 at its 8.3 B reading in bf16, one 33-frame 512 px clip with
+966 Qwen and 128 byT5 rows, LTX-Video 2 B in bf16 with
+first_frame_conditioning_p 0.5, or LTX-2's 12.9 B video path in fp8 storage,
+each on one 121-frame 768 x 512 clip, LoRA r32, adamw8bit, `true`), builds the
+kernels if needed, runs one warm-up step, then records two steps under
+torch.profiler (CPU and CUDA activities). Prints one JSON line with:
 
 - wall_ms_per_step: host clock around the recorded steps, ended by a
   synchronize (the profiler's own overhead included);
@@ -97,6 +104,7 @@ activities). Prints one JSON line with:
 """
 
 import argparse
+import functools
 import json
 import re
 import sys
@@ -257,7 +265,9 @@ def main(argv=None):
                                         "chroma-lora", "qwen-lora", "flux2-lora",
                                         "auraflow-lora", "lumina2-lokr", "omnigen2-lora",
                                         "hidream-lora", "anima-lora", "cosmos1-lora",
-                                        "hunyuan-video-lora", "hunyuan-image-lora"),
+                                        "hunyuan-video-lora", "hunyuan-image-lora",
+                                        "hunyuan-video-15-lora", "ltx-video-lora",
+                                        "ltx2-lora"),
                     default="flux")
     ap.add_argument("--checkpointing", choices=("true", "attn"), default=None,
                     help="activation_checkpointing in place of the slice's own")
@@ -306,6 +316,10 @@ def main(argv=None):
                                lambda cfg: chip_smoke.build_hunyuan_slice(
                                    "hunyuan_image", cfg, latent=(64, 64),
                                    txt=(chip_smoke.HI_TXT, chip_smoke.HI_VALID))),
+        **{f"{name}-lora": (cell_, cfg_, functools.partial(chip_smoke.build_ltx_hv15_slice, fam))
+           for name, fam in (("hunyuan-video-15", "hunyuan_video_15"),
+                             ("ltx-video", "ltx-video"), ("ltx2", "ltx2"))
+           for _, cell_, cfg_ in [chip_smoke.LTX_HV15_CELLS[fam]]},
     }[args.slice]
     if args.checkpointing:
         policy = True if args.checkpointing == "true" else args.checkpointing

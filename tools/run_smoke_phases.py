@@ -22,7 +22,12 @@ reads), kernels-hunyuan, reference-hunyuan-video, reference-hunyuan-image,
 hunyuan-vae, llava-llama3, byt5, slice-hunyuan-video-lora,
 slice-hunyuan-image-lora, driver-hunyuan-video (with the hunyuan-vae phase
 first, whose VAE it reads), driver-hunyuan-image, and `hunyuan`: the
-last ten, hunyuan-vae run by driver-hunyuan-video. Each prints its JSON
+last ten, hunyuan-vae run by driver-hunyuan-video; kernels-ltx-hv15,
+reference-hunyuan-video-15, reference-ltx-video, reference-ltx2, ltx-vae,
+gemma3-12b, slice-hunyuan-video-15-lora, slice-ltx-video-lora,
+slice-ltx2-lora, driver-hunyuan-video-15, driver-ltx-video and driver-ltx2
+(the last two with the ltx-vae phase first, whose VAE they read), and
+`ltx-hv15`: these twelve, ltx-vae run once. Each prints its JSON
 lines as in the whole smoke, and a last line its seconds; a failed check
 exits non-zero.
 """
@@ -44,6 +49,7 @@ def main(argv):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ltx_vae = {}  # the ltx-vae phase's folder, once made
     phases = {
         "kernels-sd3-chroma": cs.phase_kernels_sd3_chroma,
         "reference-sd3": cs.phase_reference_sd3,
@@ -103,11 +109,29 @@ def main(argv):
         "driver-hunyuan-video": lambda: cs.phase_driver_family("hunyuan-video",
                                                                cs.phase_hunyuan_vae()),
         "driver-hunyuan-image": lambda: cs.phase_driver_family("hunyuan_image"),
+        "kernels-ltx-hv15": cs.phase_kernels_ltx_hv15,
+        **{f"reference-{name}": (lambda f=fam: cs.phase_reference_ltx_hv15(f))
+           for name, fam in (("hunyuan-video-15", "hunyuan_video_15"),
+                             ("ltx-video", "ltx-video"), ("ltx2", "ltx2"))},
+        "ltx-vae": lambda: ltx_vae.setdefault("path", cs.phase_ltx_vae()),
+        "gemma3-12b": cs.phase_gemma3,
+        **{cs.LTX_HV15_CELLS[fam][0]: (lambda f=fam: cs.phase_slice_ltx_hv15(f))
+           for fam in cs.LTX_HV15_CELLS},
+        "driver-hunyuan-video-15": lambda: cs.phase_driver_family("hunyuan_video_15"),
+        "driver-ltx-video": lambda: cs.phase_driver_family(
+            "ltx-video", ltx_vae.get("path") or ltx_vae.setdefault("path", cs.phase_ltx_vae())),
+        "driver-ltx2": lambda: cs.phase_driver_family(
+            "ltx2", ltx_vae.get("path") or ltx_vae.setdefault("path", cs.phase_ltx_vae())),
     }
     groups = {"hunyuan": ["kernels-hunyuan", "reference-hunyuan-video",
                           "reference-hunyuan-image", "llava-llama3", "byt5",
                           "slice-hunyuan-video-lora", "slice-hunyuan-image-lora",
-                          "driver-hunyuan-video", "driver-hunyuan-image"]}
+                          "driver-hunyuan-video", "driver-hunyuan-image"],
+              "ltx-hv15": ["kernels-ltx-hv15", "reference-hunyuan-video-15",
+                           "reference-ltx-video", "reference-ltx2", "ltx-vae", "gemma3-12b",
+                           "slice-hunyuan-video-15-lora", "slice-ltx-video-lora",
+                           "slice-ltx2-lora", "driver-hunyuan-video-15", "driver-ltx-video",
+                           "driver-ltx2"]}
     argv = [p for name in argv for p in groups.get(name, [name])]
     unknown = [p for p in argv if p not in phases]
     if unknown:
